@@ -15,6 +15,16 @@ Phases (any failure exits nonzero; each prints its results):
      through the port's run_sequence with the default Settings on cuda;
      requires not lost, >= 2 keyframes, ATE <= 0.10 m, and the main path's
      kernel launch counts;
+  5. fleet: bench.py's two default-preset scenes (16 frames each) alone in
+     pipelined mode (scene A also with the deferred keyframe readback),
+     then B = 4 sequences (A, B, A, B) on the card as InterleavedFleet
+     (serial, and one thread and stream per system) and as the lockstep
+     MultiSystem with batched pyramid, LiDAR and track (host work on one
+     thread, the CUDA default, and on a thread per system); requires every
+     lane not lost, ATE <= 0.10 m, its scene's keyframe count, and (for
+     the interleaved fleets) its scene's trajectory to 1e-5; prints
+     aggregate frames/s, scaling efficiency, peak memory and kernel
+     launches per composition;
 then one JSON line with the kernels, and the device JSON as the last line.
 The script imports nothing of JAX.
 """
@@ -40,6 +50,15 @@ K2_SHAPES = ((180, 600), (160, 212), (37, 91))
 MAIN_K1 = (360, 1200)
 MAIN_K2 = (180, 600)
 ATE_LIMIT_M = 0.10
+# bench.py's default operating point (bench.py:122-132): two scenes
+SCENE = dict(w=1200, h=360, fx=718.856, cy_offset=0.0, step=0.7,
+             lidar_stride=2, half_width=16.0, ground_contrast=0.25,
+             follow_path=True)
+FLEET_SCENES = {"A": dict(seed=7, yaw_rate=0.004),
+                "B": dict(seed=13, yaw_rate=-0.006)}
+FLEET_FRAMES = 16
+FLEET_B = 4
+FLEET_TRAJ_TOL = 1e-5
 
 
 def _fail(msg):
@@ -181,10 +200,7 @@ def run_slice(device):
 
     n_frames = 30
     t0 = time.perf_counter()
-    seq = make_sequence(n_frames=n_frames, w=1200, h=360, fx=718.856,
-                        cy_offset=0.0, step=0.7, lidar_stride=2,
-                        half_width=16.0, ground_contrast=0.25,
-                        follow_path=True, yaw_rate=0.004, seed=7)
+    seq = make_sequence(n_frames=n_frames, **SCENE, **FLEET_SCENES["A"])
     frames = [seq.get(i) for i in range(n_frames)]   # render up front
 
     class Frames:
@@ -247,6 +263,145 @@ def run_slice(device):
     return summary
 
 
+def _pose_diff(A, B):
+    """(translation m, rotation rad) between two poses; the angle is
+    atan2(|skew|, (trace - 1) / 2), resolved for float32 rotations."""
+    d = np.linalg.inv(A) @ B
+    R = d[:3, :3]
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return (float(np.linalg.norm(d[:3, 3])),
+            float(np.arctan2(0.5 * np.linalg.norm(w),
+                             0.5 * (np.trace(R) - 1.0))))
+
+
+def run_fleet(device):
+    """Phase 5: pipelined references and three B-sequence fleets."""
+    import torch
+
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.system.multi import InterleavedFleet, MultiSystem
+
+    n = FLEET_FRAMES
+    t0 = time.perf_counter()
+    scenes = {}
+    for name, kw in FLEET_SCENES.items():
+        seq = make_sequence(n_frames=n, **SCENE, **kw)
+        scenes[name] = (seq, [seq.get(i) for i in range(n)])
+    print(f"fleet scenes rendered in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    def system(name, **kw):
+        seq = scenes[name][0]
+        return FullSystem(seq.calib, seq.sensor, Settings(**kw),
+                          device=device)
+
+    def ate(name, traj):
+        return float(ate_rmse(traj, scenes[name][0].poses_wc[:n]))
+
+    # references: each scene alone, pipelined (scene A also sequential,
+    # for the pipelining's own gain, and with the deferred readback)
+    refs = {}
+    for name, kw in (("A", {}), ("B", {}),
+                     ("A_sequential", dict(pipelined_frames=False)),
+                     ("A_deferred", dict(deferred_kf_readback=True))):
+        scene = name[0]
+        fs = system(scene, **dict(dict(pipelined_frames=True), **kw))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for fr in scenes[scene][1]:
+            fs.add_active_frame(*fr)
+        traj = fs.get_trajectory()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        refs[name] = dict(traj=traj, n_kf=len(fs.kf_shells),
+                          lost=bool(fs.is_lost), ate_m=ate(scene, traj),
+                          fps=n / wall)
+        print(f"reference {name}: ATE {refs[name]['ate_m']:.5f} m, "
+              f"keyframes {refs[name]['n_kf']}, lost {fs.is_lost}, "
+              f"{n / wall:.3f} frames/s", flush=True)
+        if fs.is_lost or not refs[name]["ate_m"] <= ATE_LIMIT_M:
+            _fail(f"reference {name} lost or over the ATE gate")
+    d = refs["A_deferred"]
+    if d["n_kf"] != refs["A"]["n_kf"] or \
+            not d["ate_m"] <= max(2.0 * refs["A"]["ate_m"], 0.02):
+        _fail(f"deferred readback: keyframes {d['n_kf']} vs "
+              f"{refs['A']['n_kf']}, ATE {d['ate_m']} vs {refs['A']['ate_m']}")
+    single_fps = refs["A"]["fps"]
+    print("pipelined vs sequential, scene A: largest difference "
+          f"{float(np.abs(refs['A']['traj'] - refs['A_sequential']['traj']).max())}",
+          flush=True)
+
+    lanes = [("A", "B")[b % 2] for b in range(FLEET_B)]
+    comps = (
+        ("interleaved_serial",
+         lambda: InterleavedFleet([system(x, pipelined_frames=True)
+                                   for x in lanes], workers=0)),
+        ("interleaved_threads",
+         lambda: InterleavedFleet([system(x, pipelined_frames=True)
+                                   for x in lanes], workers=FLEET_B)),
+        ("lockstep_batched",
+         lambda: MultiSystem([system(x) for x in lanes], batch_track=True)),
+        # the same lockstep with its per-sequence host work on one thread
+        # per system (the CPU default), to tell the threads' effect from
+        # the batching's
+        ("lockstep_batched_threads",
+         lambda: MultiSystem([system(x) for x in lanes], batch_track=True,
+                             host_workers=FLEET_B)),
+    )
+    results = {}
+    for name, make in comps:
+        fleet = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(n):
+            fleet.add_frames([scenes[x][1][i] for x in lanes])
+        if hasattr(fleet, "flush"):
+            fleet.flush()
+        trajs = [fs.get_trajectory() for fs in fleet.systems]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+        agg = FLEET_B * n / wall
+        rec = dict(wall_s=wall, aggregate_fps=agg,
+                   scaling_efficiency=agg / (FLEET_B * single_fps),
+                   peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
+                   launches=launches, lanes=[])
+        for x, fs, traj in zip(lanes, fleet.systems, trajs):
+            dt = dr = 0.0
+            for a, b in zip(traj, refs[x]["traj"]):
+                t_, r_ = _pose_diff(b, a)
+                dt, dr = max(dt, t_), max(dr, r_)
+            rec["lanes"].append(dict(
+                scene=x, lost=bool(fs.is_lost), n_kf=len(fs.kf_shells),
+                ate_m=ate(x, traj), max_dt_m=dt, max_dr_rad=dr,
+                max_abs=float(np.abs(traj - refs[x]["traj"]).max())))
+        results[name] = rec
+        print(f"fleet {name}: " + json.dumps(rec), flush=True)
+        for b, ln in enumerate(rec["lanes"]):
+            ref = refs[ln["scene"]]
+            if ln["lost"] or not ln["ate_m"] <= ATE_LIMIT_M:
+                _fail(f"{name} lane {b} lost or ATE {ln['ate_m']}")
+            if ln["n_kf"] != ref["n_kf"]:
+                _fail(f"{name} lane {b}: {ln['n_kf']} keyframes, reference "
+                      f"{ref['n_kf']}")
+            if name.startswith("interleaved") and \
+                    not ln["max_abs"] <= FLEET_TRAJ_TOL:
+                _fail(f"{name} lane {b}: trajectory {ln['max_abs']} from "
+                      f"its reference")
+        if launches["dilate_depth"] < 1 or launches["distance_transform"] < 1:
+            _fail(f"{name}: a kernel was not launched ({launches})")
+    return dict(single_pipelined_fps=single_fps,
+                references={k: {kk: v for kk, v in r.items() if kk != "traj"}
+                            for k, r in refs.items()},
+                compositions=results)
+
+
 def main():
     import torch
 
@@ -278,6 +433,21 @@ def main():
           f"{summary['n_keyframes']}, {summary['fps']:.3f} frames/s, "
           f"stage ms/frame {summary['stage_ms_per_frame']}, peak memory "
           f"{summary['peak_mem_bytes'] / 2**20:.1f} MiB", flush=True)
+
+    # 5. the fleet
+    t0 = time.perf_counter()
+    fleet = run_fleet(device)
+    for name, r in fleet["compositions"].items():
+        worst = max(ln["max_dt_m"] for ln in r["lanes"]), \
+            max(ln["max_dr_rad"] for ln in r["lanes"])
+        print(f"fleet {name}: {r['aggregate_fps']:.3f} frames/s aggregate "
+              f"(B={FLEET_B} x {FLEET_FRAMES} frames), single pipelined "
+              f"{fleet['single_pipelined_fps']:.3f} frames/s, scaling "
+              f"efficiency {r['scaling_efficiency']:.3f}, peak memory "
+              f"{r['peak_mem_bytes'] / 2**20:.1f} MiB, launches "
+              f"{r['launches']}, largest difference from the references "
+              f"{worst[0]:.3g} m / {worst[1]:.3g} rad", flush=True)
+    print(f"fleet phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [
         dict(name="dilate_depth", route="cuda",

@@ -11,7 +11,8 @@ function can be held against its reference on the same numpy inputs.
   ops/          tensor stages; ops/hopper_kernels.py binds the hand-written
                 CUDA kernels in csrc/ (built with nvcc at first CUDA use)
   models/       matcher, windowed BA backend
-  system/       FullSystem orchestrator (sequential mode), checkpoint, runner
+  system/       FullSystem orchestrator (sequential and pipelined), the
+                fleets (multi), checkpoint, runner
   io/, eval/    trajectory writer, telemetry, ATE / RPE
 
 Every op takes its device from its tensor arguments; nothing probes for a
@@ -29,5 +30,13 @@ import torch as _torch
 _torch.set_float32_matmul_precision("highest")
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+# One linear-algebra library for every batch size: PyTorch's default
+# heuristic sends the same small LU solve to cuSOLVER / cuBLAS or to MAGMA
+# depending on how many systems are batched, so a sequence's solves would
+# change library between running alone and as a lane of a fleet (and
+# MAGMA's unbatched routines hold the host on stream synchronizations).
+# cuSOLVER / cuBLAS run every solve on the caller's current stream.
+if _torch.backends.cuda.is_built():
+    _torch.backends.cuda.preferred_linalg_library("cusolver")
 
 from sdv_loam_tpu_torch.config import Settings  # noqa: E402,F401

@@ -36,7 +36,7 @@ class Telemetry:
         self.quiet = quiet
         self._log_f = open(log_path, "w") if log_path else None
         # called at every stage exit so a stage's time includes the device
-        # work it queued (torch.cuda.synchronize on a CUDA system)
+        # work it queued (a CUDA system's wait on its own stream)
         self.device_sync = device_sync
 
     @contextmanager

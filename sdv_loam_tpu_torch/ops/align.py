@@ -128,14 +128,16 @@ def _patch_grads(border_patch):
 
 def align_batch(quad_pyr, offsets, widths, heights, search_level,
                 border_patch, px_init_scaled, direction, is_edge,
-                aff_a, aff_b, valid, n_iter: int = 10):
+                aff_a, aff_b, valid, n_iter: int = 10, n_lanes: int = 0):
     """Unified corner (align2D) + edgelet (align1D) inverse-compositional
     alignment in one loop over the quad-packed target pyramid.
 
     Edgelet lanes use J = [dgrad, 1, 0] with the update moved along
     `direction`. The loop runs at most `n_iter` iterations and stops early
     once no lane is still active. Returns (px (M, 2) on the search level,
-    converged (M,), [n walked out of bounds, n out of iterations])."""
+    converged (M,), [n walked out of bounds, n out of iterations]); with
+    `n_lanes` the M rows are that many sequences' candidates, lane after
+    lane, and the counts come per sequence, (n_lanes, 2)."""
     border_patch = border_patch.to(torch.float32)
     px_init_scaled = px_init_scaled.to(torch.float32)
     aff_a = aff_a.to(torch.float32)
@@ -194,14 +196,19 @@ def align_batch(quad_pyr, offsets, widths, heights, search_level,
         alive = alive & inb
     fail_oob = valid & ~conv & ~alive
     fail_iters = valid & ~conv & alive
-    return torch.stack([u, v], dim=-1), conv & valid, \
-        torch.stack([fail_oob.sum(), fail_iters.sum()])
+    if n_lanes:
+        fails = torch.stack([fail_oob.reshape(n_lanes, -1).sum(-1),
+                             fail_iters.reshape(n_lanes, -1).sum(-1)], -1)
+    else:
+        fails = torch.stack([fail_oob.sum(), fail_iters.sum()])
+    return torch.stack([u, v], dim=-1), conv & valid, fails
 
 
 def warp_matrix_affine(px_ref, z_ref, K, T_cur_ref):
     """Batched getWarpMatrixAffine: px_ref (M, 2), z_ref (M,) depth in the
-    ref frame, T_cur_ref (M, 4, 4). Returns A_cur_ref (M, 2, 2)."""
-    fx, fy, cx, cy = K[0], K[1], K[2], K[3]
+    ref frame, T_cur_ref (M, 4, 4), K (4,) or per row (M, 4). Returns
+    A_cur_ref (M, 2, 2)."""
+    fx, fy, cx, cy = K[..., 0], K[..., 1], K[..., 2], K[..., 3]
 
     def to_unit(px):
         return torch.stack([(px[..., 0] - cx) / fx, (px[..., 1] - cy) / fy,

@@ -10,19 +10,39 @@ FullSystem::trackNewCoarse, FullSystem.cpp:283-517):
   4. Reprojector matching of the window map into the new frame;
   5. struct (reprojection) pose LM, adopted only under the photometric veto
      and the translation bound.
+
+`track_frame_step_batch` is the fleet form (the JAX package's vmap over
+sequences): L sequences' frames run as lanes of one launch stream. The
+hypothesis ladder and the refinement candidates of every lane are rows of
+the same LM loops, each row gathering from its own lane's pool and image,
+and every loop stops each row on its own condition. `track_frame_step` is
+lane 0 of the same code.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sdv_loam_tpu_torch.models.matcher import reproject_and_match
+from sdv_loam_tpu_torch.models.matcher import reproject_and_match_lanes
 from sdv_loam_tpu_torch.ops.photometric import (aff_transfer, calc_res_gs,
                                                 track_coarsest_batch,
                                                 track_pyramid)
 from sdv_loam_tpu_torch.ops.struct_pose import struct_pose_estimate
 from sdv_loam_tpu_torch.ops.warp import pack_bilinear
 from sdv_loam_tpu_torch.utils import se3
+
+# positional arguments of track_frame_step, in order; every one but the
+# shared level tables (offsets, widths, heights) and the two thresholds is
+# per sequence
+ARG_NAMES = ("pools", "dI_new_pyr", "flat_new", "offsets", "widths",
+             "heights", "Ks", "T_tries", "try_exclude", "aff_last", "ref_aff",
+             "exposures", "min_res_for_abort", "ref_T_wc", "pt_u", "pt_v",
+             "pt_idepth", "pt_host", "pt_type", "pt_valid", "pt_quality",
+             "pt_is_sensor", "T_wc_stack", "aff_stack", "exposure_stack",
+             "dI0_stack", "ref_idx_per_point", "frame_valid", "K0",
+             "cutoff_th", "huber_th")
+_SHARED = ("offsets", "widths", "heights", "cutoff_th", "huber_th")
+_POOL_FIELDS = ("u", "v", "idepth", "color", "valid")
 
 
 def track_frame_step(pools, dI_new_pyr, flat_new, offsets, widths, heights,
@@ -44,91 +64,168 @@ def track_frame_step(pools, dI_new_pyr, flat_new, offsets, widths, heights,
     """`_track_frame_step_impl` of the JAX package. Returns dict(T_ref_to_fh, T_wc, aff, res, flow, ok, n_matched,
     best_try, matched, match_px, lvl_iters). `try_exclude` (B,) masks
     hypotheses already consumed by a host retry."""
-    packed = [pack_bilinear(d) for d in dI_new_pyr]
+    args = dict(zip(ARG_NAMES, (
+        pools, dI_new_pyr, flat_new, offsets, widths, heights, Ks, T_tries,
+        try_exclude, aff_last, ref_aff, exposures, min_res_for_abort,
+        ref_T_wc, pt_u, pt_v, pt_idepth, pt_host, pt_type, pt_valid,
+        pt_quality, pt_is_sensor, T_wc_stack, aff_stack, exposure_stack,
+        dI0_stack, ref_idx_per_point, frame_valid, K0, cutoff_th,
+        huber_th)))
+    out = track_frame_step_batch(
+        [args], [struct_pose_e_tol], [struct_pose_max_dt],
+        coarsest_lvl=coarsest_lvl, w=w, h=h, max_level=max_level,
+        n_refine=n_refine, use_struct_pose=use_struct_pose,
+        struct_pose_mad=struct_pose_mad, closest_view=closest_view,
+        closest_view_margin=closest_view_margin,
+        closest_view_sensor_only=closest_view_sensor_only,
+        align_max_iters=align_max_iters,
+        quad_stacks=None if quad_stack is None else [quad_stack])
+    return {k: v[0] for k, v in out.items()}
 
-    # 1. all hypotheses on the coarsest level
-    cb = track_coarsest_batch(pools[coarsest_lvl], dI_new_pyr[coarsest_lvl],
-                              Ks[coarsest_lvl], T_tries, aff_last, ref_aff,
-                              exposures, cutoff_th, huber_th,
-                              packed=packed[coarsest_lvl])
-    inf = torch.full_like(cb["E"], float("inf"))
-    e = torch.where(cb["n"] > 20, cb["E"] / torch.clamp(cb["n"], min=1), inf)
-    e = torch.where(torch.isfinite(e) & (~try_exclude), e, inf)
-    first = torch.argmin(e)
-    first = torch.where((e[0] <= e[first] * 1.05) & (~try_exclude[0]),
+
+def _stack(args_b, name):
+    xs = [a[name] for a in args_b]
+    if name == "pools":
+        return tuple({k: torch.stack([p[lvl][k] for p in xs])
+                      for k in _POOL_FIELDS} for lvl in range(len(xs[0])))
+    if name in ("dI_new_pyr", "Ks"):
+        return tuple(torch.stack([x[lvl] for x in xs])
+                     for lvl in range(len(xs[0])))
+    return torch.stack([torch.as_tensor(x) for x in xs])
+
+
+def track_frame_step_batch(args_b, etol_b, mdt_b,
+                           coarsest_lvl: int, w: int, h: int, max_level: int,
+                           n_refine: int = 3, use_struct_pose: bool = True,
+                           struct_pose_mad: bool = False,
+                           closest_view: bool = False,
+                           closest_view_margin=0.0,
+                           closest_view_sensor_only=False,
+                           align_max_iters: int = 10, quad_stacks=None):
+    """L-sequence fleet tracking (the JAX package's `track_frame_step_batch`).
+
+    `args_b`: one dict per sequence of track_frame_step's positional
+    arguments (`ARG_NAMES`), all of equal shapes; the level tables and the
+    two thresholds must be equal too (the first lane's are used).
+    `etol_b` / `mdt_b`: per-sequence struct-pose thresholds (floats).
+    `quad_stacks`: per-sequence `stack_quads(dI0_stack)` or None. Returns
+    track_frame_step's dict with a leading L."""
+    L = len(args_b)
+    a0 = args_b[0]
+    dev = a0["T_tries"].device
+    s = {n: (a0[n] if n in _SHARED else _stack(args_b, n))
+         for n in ARG_NAMES}
+    pools, dI_pyr, Ks = s["pools"], s["dI_new_pyr"], s["Ks"]
+    cutoff_th, huber_th = s["cutoff_th"], s["huber_th"]
+    exposures, ref_aff = s["exposures"], s["ref_aff"]
+    ar = torch.arange(L, device=dev)
+    packed = [pack_bilinear(d) for d in dI_pyr]
+    # squared in float64 on the host, as the single-sequence program's
+    # python float would be, then one float32 per lane
+    etol_sq = torch.tensor([float(e) * float(e) for e in etol_b],
+                           dtype=torch.float32, device=dev)
+    mdt = torch.tensor([float(m) for m in mdt_b], dtype=torch.float32,
+                       device=dev)
+
+    # 1. all hypotheses of every lane on the coarsest level: L*B rows
+    T_tries, excl = s["T_tries"], s["try_exclude"]
+    B = T_tries.shape[1]
+    rows1 = ar.repeat_interleave(B)
+    cl = coarsest_lvl
+    cb = track_coarsest_batch(pools[cl], dI_pyr[cl], Ks[cl],
+                              T_tries.reshape(L * B, 4, 4),
+                              s["aff_last"][rows1], ref_aff[rows1],
+                              exposures[rows1], cutoff_th, huber_th,
+                              packed=packed[cl], lane=rows1)
+    E, n = cb["E"].reshape(L, B), cb["n"].reshape(L, B)
+    inf = torch.full_like(E, float("inf"))
+    e = torch.where(n > 20, E / torch.clamp(n, min=1), inf)
+    e = torch.where(torch.isfinite(e) & (~excl), e, inf)
+    first = torch.argmin(e, dim=1)
+    e_first = e.gather(1, first[:, None])[:, 0]
+    first = torch.where((e[:, 0] <= e_first * 1.05) & (~excl[:, 0]),
                         torch.zeros_like(first), first)
 
-    # 2. full-pyramid refinement of the top candidates
+    # 2. full-pyramid refinement of each lane's top candidates: L*k rows
     k = max(n_refine, 1)
     e_top = e.clone()
-    e_top[first] = float("-inf")
+    e_top.scatter_(1, first[:, None], float("-inf"))
     # stable descending sort = lax.top_k's tie order (lower index first)
-    top = torch.sort(-e_top, descending=True, stable=True).indices[:k]
-    cand_idx = torch.cat([first[None], top[1:]]) if n_refine > 1 \
-        else first[None]
-    trs = track_pyramid(pools, dI_new_pyr, Ks, cb["T"][cand_idx], aff_last,
-                        ref_aff, exposures, min_res_for_abort, cutoff_th,
-                        huber_th, coarsest_lvl=coarsest_lvl, finest_lvl=0,
-                        packed_pyr=packed)
-    score = torch.where(trs["ok"] & torch.isfinite(trs["res"][:, 0]),
-                        trs["res"][:, 0],
-                        torch.full_like(trs["res"][:, 0], float("inf")))
-    bias = torch.full((k,), 1.02, dtype=score.dtype, device=score.device)
+    top = torch.sort(-e_top, dim=1, descending=True, stable=True).indices[:, :k]
+    cand_idx = torch.cat([first[:, None], top[:, 1:]], 1) if n_refine > 1 \
+        else first[:, None]
+    T_cand = cb["T"].reshape(L, B, 4, 4)[ar[:, None], cand_idx]
+    rows2 = ar.repeat_interleave(k)
+    trs = track_pyramid(pools, dI_pyr, Ks, T_cand.reshape(L * k, 4, 4),
+                        s["aff_last"][rows2], ref_aff[rows2],
+                        exposures[rows2], s["min_res_for_abort"][rows2],
+                        cutoff_th, huber_th, coarsest_lvl=cl, finest_lvl=0,
+                        packed_pyr=packed, lane=rows2)
+    res0 = trs["res"][:, 0].reshape(L, k)
+    score = torch.where(trs["ok"].reshape(L, k) & torch.isfinite(res0), res0,
+                        torch.full_like(res0, float("inf")))
+    bias = torch.full((k,), 1.02, dtype=score.dtype, device=dev)
     bias[0] = 1.0
     score = score * bias
-    kbest = torch.argmin(score)
-    tr = {kk: v[kbest] for kk, v in trs.items()}
-    best = cand_idx[kbest]
+    kbest = torch.argmin(score, dim=1)
+    tr = {kk: v[ar * k + kbest] for kk, v in trs.items()}
+    best = cand_idx.gather(1, kbest[:, None])[:, 0]
     T_ref2fh = tr["T"]
-    T_wc_fh = ref_T_wc @ se3.inverse(T_ref2fh)
+    T_wc_fh = s["ref_T_wc"] @ se3.inverse(T_ref2fh)
 
-    # 3. semi-direct matching of the window map into the new frame
-    match = reproject_and_match(
-        pt_u, pt_v, pt_idepth, pt_host, pt_type, pt_valid, pt_quality,
-        pt_is_sensor, T_wc_stack, aff_stack, exposure_stack, dI0_stack,
-        flat_new, offsets, widths, heights,
-        T_wc_fh, tr["aff"], exposures[1], K0, ref_idx_per_point,
+    # 3. semi-direct matching of each lane's window map into its new frame
+    K0 = s["K0"]
+    match = reproject_and_match_lanes(
+        s["pt_u"], s["pt_v"], s["pt_idepth"], s["pt_host"], s["pt_type"],
+        s["pt_valid"], s["pt_quality"], s["pt_is_sensor"], s["T_wc_stack"],
+        s["aff_stack"], s["exposure_stack"], s["dI0_stack"], s["flat_new"],
+        s["offsets"], s["widths"], s["heights"], T_wc_fh, tr["aff"],
+        exposures[:, 1], K0, s["ref_idx_per_point"],
         w=w, h=h, max_level=max_level, closest_view=closest_view,
-        frame_valid=frame_valid, closest_view_margin=closest_view_margin,
+        frame_valid=s["frame_valid"], closest_view_margin=closest_view_margin,
         closest_view_sensor_only=closest_view_sensor_only,
-        n_iter=align_max_iters, quad_stack=quad_stack)
-    n_matched = match["matched"].sum()
+        n_iter=align_max_iters,
+        quad_stack=None if quad_stacks is None else torch.cat(quad_stacks))
+    n_matched = match["matched"].sum(-1)
 
-    # 4. struct pose refinement against the matched pixels
-    fx, fy, cx, cy = K0[0], K0[1], K0[2], K0[3]
-    xn = (pt_u - cx) / fx
-    yn = (pt_v - cy) / fy
+    # 4. struct pose refinement against the matched pixels, per lane
+    fx, fy, cx, cy = (K0[:, i:i + 1] for i in range(4))
+    xn = (s["pt_u"] - cx) / fx
+    yn = (s["pt_v"] - cy) / fy
     pr = torch.stack([xn, yn, torch.ones_like(xn)], -1) / \
-        torch.clamp(pt_idepth, min=1e-9)[:, None]
-    T_wc_h = T_wc_stack[torch.clamp(pt_host.long(), 0,
-                                    T_wc_stack.shape[0] - 1)]
-    pw = torch.einsum("nij,nj->ni", T_wc_h[:, :3, :3], pr) + T_wc_h[:, :3, 3]
+        torch.clamp(s["pt_idepth"], min=1e-9)[..., None]
+    T_wc_stack = s["T_wc_stack"]
+    host = torch.clamp(s["pt_host"].long(), 0, T_wc_stack.shape[1] - 1)
+    T_wc_h = T_wc_stack[ar[:, None], host]
+    pw = torch.einsum("lnij,lnj->lni", T_wc_h[..., :3, :3], pr) + \
+        T_wc_h[..., :3, 3]
     sp = struct_pose_estimate(T_wc_fh, pw, match["px"], match["matched"],
                               K0, w, h, standardize=struct_pose_mad)
     # photometric veto of the struct pose on level 1
     T_sp = sp["T_cur_to_world"]
-    aff_rel = aff_transfer(exposures[0], exposures[1], ref_aff,
-                           tr["aff"])[None]
+    aff_rel = aff_transfer(exposures[:, 0], exposures[:, 1], ref_aff,
+                           tr["aff"])
     g = 1
-    T_pair = torch.stack([se3.inverse(T_wc_fh) @ ref_T_wc,
-                          se3.inverse(T_sp) @ ref_T_wc])
-    r = calc_res_gs(pools[g], dI_new_pyr[g], Ks[g], T_pair,
-                    aff_rel.expand(2, 2), ref_aff[1], cutoff_th, huber_th,
-                    packed=packed[g])
-    e_fh = r["E"][0] / torch.clamp(r["n"][0], min=1)
-    e_sp = r["E"][1] / torch.clamp(r["n"][1], min=1)
-    sp_ok = (e_sp <= e_fh * (struct_pose_e_tol * struct_pose_e_tol)) \
-        & (r["n"][1] > 0.5 * r["n"][0])
-    sp_dt = torch.linalg.vector_norm(T_sp[:3, 3] - T_wc_fh[:3, 3])
-    if struct_pose_max_dt > 0.0:
-        sp_ok = sp_ok & (sp_dt <= struct_pose_max_dt)
+    T_pair = torch.stack([se3.inverse(T_wc_fh) @ s["ref_T_wc"],
+                          se3.inverse(T_sp) @ s["ref_T_wc"]], 1)
+    rows3 = ar.repeat_interleave(2)
+    r = calc_res_gs(pools[g], dI_pyr[g], Ks[g], T_pair.reshape(L * 2, 4, 4),
+                    aff_rel[rows3], ref_aff[rows3, 1], cutoff_th, huber_th,
+                    packed=packed[g], lane=rows3)
+    rE, rn = r["E"].reshape(L, 2), r["n"].reshape(L, 2)
+    e_fh = rE[:, 0] / torch.clamp(rn[:, 0], min=1)
+    e_sp = rE[:, 1] / torch.clamp(rn[:, 1], min=1)
+    sp_ok = (e_sp <= e_fh * etol_sq) & (rn[:, 1] > 0.5 * rn[:, 0])
+    sp_dt = torch.linalg.vector_norm(T_sp[:, :3, 3] - T_wc_fh[:, :3, 3],
+                                     dim=-1)
+    sp_ok = sp_ok & ((mdt <= 0.0) | (sp_dt <= mdt))
     use_sp = sp_ok & (n_matched >= 10) & bool(use_struct_pose)
-    T_wc_out = torch.where(use_sp, T_sp, T_wc_fh)
-    T_wc_out = torch.where(torch.isfinite(T_wc_out).all(), T_wc_out, T_wc_fh)
+    T_wc_out = torch.where(use_sp[:, None, None], T_sp, T_wc_fh)
+    finite = torch.isfinite(T_wc_out).all(dim=-1).all(dim=-1)
+    T_wc_out = torch.where(finite[:, None, None], T_wc_out, T_wc_fh)
 
     return dict(T_ref_to_fh=T_ref2fh, T_wc=T_wc_out, aff=tr["aff"],
                 res=tr["res"], flow=tr["flow"], ok=tr["ok"],
                 n_matched=n_matched, best_try=best,
                 matched=match["matched"], match_px=match["px"],
-                lvl_iters=trs["lvl_iters"].amax(dim=0))
-
+                lvl_iters=trs["lvl_iters"].reshape(L, k, -1).amax(dim=1))

@@ -21,6 +21,10 @@ source's hash builds a new library. Importing this module never needs nvcc.
 
 `LAUNCHES` counts kernel launches (plain-version calls do not count), so a
 run can show that the main path went through the kernels.
+
+Threads: each launch goes to the calling thread's current stream (a fleet
+system's own stream), the counts are updated under a lock, and the first
+build and load happen once, under another.
 """
 
 from __future__ import annotations
@@ -46,11 +50,18 @@ DISTMAP_MAX_ITERS = 32     # the kernel's halo width (csrc/distance_transform.cu
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +226,7 @@ def dilate_depth(idepth: torch.Tensor, weight: torch.Tensor, diagonal: bool):
                                   out_i.data_ptr(), out_w.data_ptr(),
                                   h, w, int(bool(diagonal)), stream)
     _check_rc(rc, "dilate_depth")
-    LAUNCHES["dilate_depth"] += 1
+    _count_launch("dilate_depth")
     return out_i, out_w
 
 
@@ -235,5 +246,5 @@ def distance_transform(seed: torch.Tensor, iters: int = 32):
         rc = lib.sdv_distance_transform(seed.data_ptr(), out.data_ptr(),
                                         h, w, int(iters), stream)
     _check_rc(rc, "distance_transform")
-    LAUNCHES["distance_transform"] += 1
+    _count_launch("distance_transform")
     return out

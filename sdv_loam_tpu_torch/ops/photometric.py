@@ -6,8 +6,15 @@ CoarseTracker.cpp makeCoarseDepthL0 :258-423, calcRes :486-634, calcGSSSE
 
 PyTorch idiom: the JAX `vmap` over pose hypotheses is an explicit leading
 batch dimension B, and each `lax.while_loop` is a Python loop with the same
-exit conditions and iteration caps. Lanes of a batch stop updating once
+exit conditions and iteration caps. Rows of a batch stop updating once
 their own condition fails, exactly as a vmapped while_loop behaves.
+
+Lanes: the fleet's vmap over sequences folds into the same row dimension.
+With `lane` (B,) given, row b tracks against lane lane[b]'s pool, image
+and intrinsics, stacked (L, ...) per field; per-row arguments (affine,
+exposures, cutoff) then carry a leading B. Without it the inputs are one
+lane's and run as lane 0 of the same code, so a sequence computes the same
+thing alone and in a fleet.
 """
 
 from __future__ import annotations
@@ -28,13 +35,14 @@ def _step_scale(like):
 
 def aff_transfer(exposure_ref, exposure_new, aff_ref, aff_new):
     """AffLight::fromToVecExposure: (a, b) with I_new ~ a * I_ref + b.
-    `aff_new` may carry leading batch dimensions (..., 2)."""
+    `aff_new` may carry leading batch dimensions (..., 2); `aff_ref` and
+    the exposures are one frame's or carry the same leading dimensions."""
     zero = (exposure_ref == 0) | (exposure_new == 0)
     one = torch.ones_like(exposure_ref)
     er = torch.where(zero, one, exposure_ref)
     en = torch.where(zero, one, exposure_new)
-    a = torch.exp(aff_new[..., 0] - aff_ref[0]) * en / er
-    b = aff_new[..., 1] - a * aff_ref[1]
+    a = torch.exp(aff_new[..., 0] - aff_ref[..., 0]) * en / er
+    b = aff_new[..., 1] - a * aff_ref[..., 1]
     return torch.stack([a, b], dim=-1)
 
 
@@ -45,24 +53,36 @@ def aff_transfer(exposure_ref, exposure_new, aff_ref, aff_new):
 def splat_idepth(u, v, idepth, weight, valid, w: int, h: int):
     """Scatter-add inverse depths into level-0 maps (makeCoarseDepthL0).
 
-    Deterministic: `index_put_(accumulate=True)` runs serially in point
-    order on the CPU (the JAX CPU order) and through the sort-based
-    deterministic path on CUDA, never through order-dependent atomics."""
+    Deterministic, and each cell sums its points in point order (the JAX
+    CPU order): a stable sort groups the points of a cell, and the r-th
+    point of every cell is added in round r, where no two writes share a
+    cell. No atomics and no process-wide deterministic-algorithms switch,
+    so systems on other threads are never affected."""
+    dev = u.device
     idx = torch.where(valid, v.to(torch.int64) * w + u.to(torch.int64),
                       torch.full_like(u, w * h, dtype=torch.int64))
-    zero = torch.zeros((), dtype=torch.float32, device=u.device)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
     vi = torch.where(valid, (idepth * weight).to(torch.float32), zero)
     vw = torch.where(valid, weight.to(torch.float32), zero)
-    acc_i = torch.zeros(w * h + 1, dtype=torch.float32, device=u.device)
-    acc_w = torch.zeros(w * h + 1, dtype=torch.float32, device=u.device)
-    was = torch.are_deterministic_algorithms_enabled()
-    warn = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        acc_i.index_put_((idx,), vi, accumulate=True)
-        acc_w.index_put_((idx,), vw, accumulate=True)
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn)
+    acc_i = torch.zeros(w * h + 1, dtype=torch.float32, device=dev)
+    acc_w = torch.zeros(w * h + 1, dtype=torch.float32, device=dev)
+    n = idx.shape[0]
+    if n:
+        order = torch.sort(idx, stable=True).indices
+        idx_s = idx[order]
+        pos = torch.arange(n, device=dev)
+        start = torch.ones(n, dtype=torch.bool, device=dev)
+        start[1:] = idx_s[1:] != idx_s[:-1]
+        seg0 = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
+                            0).values
+        live = idx_s < w * h
+        rank = torch.where(live, pos - seg0, torch.full_like(pos, -1))
+        vi_s, vw_s = vi[order], vw[order]
+        dump = torch.full_like(idx_s, w * h)
+        for r in range(int(rank.max()) + 1):
+            tgt = torch.where(rank == r, idx_s, dump)
+            acc_i[tgt] = acc_i[tgt] + vi_s
+            acc_w[tgt] = acc_w[tgt] + vw_s
     return acc_i[:w * h].reshape(h, w), acc_w[:w * h].reshape(h, w)
 
 
@@ -76,16 +96,24 @@ def _sum_pool2(x):
 
 
 def nonzero_fixed(mask: torch.Tensor, size: int, fill: int):
-    """`jnp.nonzero(mask, size=size, fill_value=fill)` for a 1-D mask: the
-    first `size` set indices in order, padded with `fill` — computed with a
-    prefix sum and a unique-index scatter, so no host sync."""
-    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
-    take = mask & (pos < size)
-    out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
-    src = torch.arange(mask.shape[0], device=mask.device)
-    out[torch.where(take, pos, torch.full_like(pos, size))] = torch.where(
+    """`jnp.nonzero(mask, size=size, fill_value=fill)` along the last
+    dimension of `mask` ((n,) or (L, n), row by row): the first `size` set
+    indices in order, padded with `fill` — computed with a prefix sum and a
+    unique-index scatter, so no host sync."""
+    single = mask.dim() == 1
+    m = mask[None] if single else mask
+    rows, n = m.shape
+    dev = m.device
+    pos = torch.cumsum(m.to(torch.int64), 1) - 1
+    take = m & (pos < size)
+    row0 = (torch.arange(rows, device=dev) * (size + 1))[:, None]
+    out = torch.full((rows * (size + 1),), fill, dtype=torch.int64,
+                     device=dev)
+    src = torch.arange(n, device=dev).expand(rows, n)
+    out[torch.where(take, row0 + pos, row0 + size)] = torch.where(
         take, src, torch.full_like(src, fill))
-    return out[:size]
+    out = out.reshape(rows, size + 1)[:, :size]
+    return out[0] if single else out
 
 
 def build_track_ref(dI_pyr, idepth0, weight0, levels: int,
@@ -140,43 +168,63 @@ def build_track_ref(dI_pyr, idepth0, weight0, levels: int,
 # residual + Hessian evaluation (calcRes + calcGSSSE fused), batched over B
 # ---------------------------------------------------------------------------
 
+def _lane_inputs(pool, K, B, lane, device):
+    """(pool fields (B, N), K (B, 4), lane) for B rows: each row reads its
+    lane's pool; one lane's (N,) pool runs as lane 0."""
+    if lane is None:
+        pool = {k: pool[k][None] for k in ("u", "v", "idepth", "color",
+                                           "valid")}
+        K = K[None]
+        lane = torch.zeros(B, dtype=torch.int64, device=device)
+    rows = {k: pool[k].index_select(0, lane)
+            for k in ("u", "v", "idepth", "color", "valid")}
+    return rows, K.index_select(0, lane), lane
+
+
 def calc_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b, cutoff,
-                huber_th, packed=None):
+                huber_th, packed=None, lane=None):
     """Fused residual + 8x8 system evaluation for one level.
 
-    T_ref_to_new: (B, 4, 4); aff_rel: (B, 2); `cutoff` a float or (B,)
-    tensor. `packed` is `pack_bilinear(dI_new)` when the caller hoists it
-    out of an LM loop. Returns dict(E, n, sat_frac, H (B,8,8), b (B,8),
-    flow_t, flow_rt), each with leading dimension B."""
-    fx, fy, cx, cy = K[0], K[1], K[2], K[3]
-    h, w = dI_new.shape[:2]
+    T_ref_to_new: (B, 4, 4); aff_rel: (B, 2); `cutoff` and `ref_aff_b` a
+    float or (B,) tensor. `packed` is `pack_bilinear(dI_new)` when the
+    caller hoists it out of an LM loop. With `lane` (B,), the pool fields
+    are (L, N), K (L, 4), dI_new (L, H, W, 3) and `packed` their stacked
+    packs. Returns dict(E, n, sat_frac, H (B,8,8), b (B,8), flow_t,
+    flow_rt), each with leading dimension B."""
+    h, w = dI_new.shape[-3], dI_new.shape[-2]
     if packed is None:
         packed = pack_bilinear(dI_new)
-    u0, v0 = pool["u"], pool["v"]
-    idp, color, valid = pool["idepth"], pool["color"], pool["valid"]
     B = T_ref_to_new.shape[0]
+    dev = T_ref_to_new.device
+    rows, Kb, lane = _lane_inputs(pool, K, B, lane, dev)
+    u0, v0 = rows["u"], rows["v"]                                    # (B,N)
+    idp, color, valid = rows["idepth"], rows["color"], rows["valid"]
+    fx, fy, cx, cy = (Kb[:, i:i + 1] for i in range(4))              # (B,1)
     cutoff = torch.as_tensor(cutoff, dtype=torch.float32,
-                             device=u0.device).expand(B)[:, None]
+                             device=dev).expand(B)[:, None]
+    ref_aff_b = torch.as_tensor(ref_aff_b, dtype=torch.float32,
+                                device=dev).expand(B)[:, None]
 
     xn = (u0 - cx) / fx
     yn = (v0 - cy) / fy
     R = T_ref_to_new[:, :3, :3]
     t = T_ref_to_new[:, :3, 3]
-    p = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)         # (N, 3)
-    pr = torch.einsum("nj,bij->bni", p, R)                           # p @ R^T
-    pt = pr + t[:, None, :] * idp[None, :, None]                     # (B,N,3)
+    p = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)         # (B,N,3)
+    pr = torch.einsum("bnj,bij->bni", p, R)                          # p @ R^T
+    pt = pr + t[:, None, :] * idp[:, :, None]                        # (B,N,3)
     u = pt[..., 0] / pt[..., 2]
     v = pt[..., 1] / pt[..., 2]
     Ku = fx * u + cx
     Kv = fy * v + cy
-    new_idepth = idp[None, :] / pt[..., 2]
+    new_idepth = idp / pt[..., 2]
 
-    inb = valid[None] & (Ku > 2) & (Kv > 2) & (Ku < w - 3) & (Kv < h - 3) \
+    inb = valid & (Ku > 2) & (Kv > 2) & (Ku < w - 3) & (Kv < h - 3) \
         & (new_idepth > 0)
-    hit, hit_ok = bilinear_sample_packed(packed, h, w, Ku, Kv)      # (B,N,3)
+    hit, hit_ok = bilinear_sample_packed(packed, h, w, Ku, Kv,
+                                         base=lane[:, None] * (h * w))
     inb = inb & hit_ok & torch.isfinite(hit[..., 0])
 
-    r = hit[..., 0] - (aff_rel[:, 0:1] * color[None] + aff_rel[:, 1:2])
+    r = hit[..., 0] - (aff_rel[:, 0:1] * color + aff_rel[:, 1:2])
     absr = torch.abs(r)
     one = torch.ones_like(absr)
     hw = torch.where(absr < huber_th, one,
@@ -201,7 +249,7 @@ def calc_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b, cutoff,
         -(u * v * dxf + (1.0 + v * v) * dyf),
         u * v * dyf + (1.0 + u * u) * dxf,
         u * dyf - v * dxf,
-        (aff_rel[:, 0:1] * (ref_aff_b - color[None])).expand_as(u),
+        aff_rel[:, 0:1] * (ref_aff_b - color),
         -torch.ones_like(u),
     ], dim=-1)                                                        # (B,N,8)
     wgt = torch.where(inlier, hw, zero)
@@ -214,10 +262,10 @@ def calc_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b, cutoff,
     bv = bv * S
 
     # flow indicators (calcRes:538-565): every 32nd pool slot
-    m = valid & (torch.arange(u0.shape[0], device=u0.device) % 32 == 0)
-    ti = t[:, None, :] * idp[None, :, None]
-    ptT = p[None] + ti
-    ptT2 = p[None] - ti
+    m = valid & (torch.arange(u0.shape[1], device=dev) % 32 == 0)
+    ti = t[:, None, :] * idp[:, :, None]
+    ptT = p + ti
+    ptT2 = p - ti
     pt3 = pr - ti
 
     def pix_shift(q):
@@ -225,8 +273,8 @@ def calc_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b, cutoff,
         vv = fy * (q[..., 1] / q[..., 2]) + cy
         return (uu - u0) ** 2 + (vv - v0) ** 2
 
-    num = m.sum() * 2.0
-    zf = torch.zeros((), dtype=u.dtype, device=u.device)
+    num = m.sum(-1) * 2.0
+    zf = torch.zeros((), dtype=u.dtype, device=dev)
     flow_t = torch.where(m, pix_shift(ptT) + pix_shift(ptT2), zf).sum(-1) \
         / (num + 0.1)
     flow_rt = torch.where(m, pix_shift(pt) + pix_shift(pt3), zf).sum(-1) \
@@ -259,10 +307,12 @@ def _select(mask, new, old):
 
 
 def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
-                huber_th, max_iters: int, packed=None):
-    """One pyramid level of trackNewestCoarse for B pose lanes: the
+                huber_th, max_iters: int, packed=None, lane=None):
+    """One pyramid level of trackNewestCoarse for B pose rows: the
     cutoff-doubling pre-loop and the LM loop. T0 (B,4,4), aff0 (B,2),
-    `cutoff_base` float or (B,). Returns (T, aff, stats dict, cutoff_rep)."""
+    `cutoff_base` float or (B,); `ref_aff` and `exposures` (2,), or (B, 2)
+    per row with `lane` (see calc_res_gs). Returns (T, aff, stats dict,
+    cutoff_rep)."""
     if packed is None:
         packed = pack_bilinear(dI_new)
     B = T0.shape[0]
@@ -271,9 +321,10 @@ def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
                                   device=dev).expand(B)
 
     def res(T, aff, cutoff):
-        aff_rel = aff_transfer(exposures[0], exposures[1], ref_aff, aff)
-        return calc_res_gs(pool, dI_new, K, T, aff_rel, ref_aff[1], cutoff,
-                           huber_th, packed=packed)
+        aff_rel = aff_transfer(exposures[..., 0], exposures[..., 1], ref_aff,
+                               aff)
+        return calc_res_gs(pool, dI_new, K, T, aff_rel, ref_aff[..., 1],
+                           cutoff, huber_th, packed=packed, lane=lane)
 
     # cutoff doubling while > 60% saturated (:694-701)
     cutoff_rep = torch.ones(B, dtype=torch.float32, device=dev)
@@ -321,12 +372,15 @@ def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
 def track_pyramid(pools, dI_new_pyr, Ks, T_init, aff_init, ref_aff,
                   exposures, min_res_for_abort, cutoff_th, huber_th,
                   coarsest_lvl: int, finest_lvl: int = 0,
-                  max_iters=(10, 20, 50, 50, 50), packed_pyr=None):
-    """Coarse-to-fine track (trackNewestCoarse) of B pose lanes.
+                  max_iters=(10, 20, 50, 50, 50), packed_pyr=None,
+                  lane=None):
+    """Coarse-to-fine track (trackNewestCoarse) of B pose rows.
 
-    T_init (B,4,4) or (4,4); aff_init (B,2) or (2,). Returns dict with T,
-    aff, per-level rmse `res` (NaN for levels not run), `flow` from the
-    finest level run, `ok`, and per-level LM iteration counts; batched
+    T_init (B,4,4) or (4,4); aff_init (B,2) or (2,). With `lane` (B,), the
+    pools, images and Ks are lane stacks and `ref_aff`, `exposures` and
+    `min_res_for_abort` carry a leading B (see calc_res_gs). Returns dict
+    with T, aff, per-level rmse `res` (NaN for levels not run), `flow` from
+    the finest level run, `ok`, and per-level LM iteration counts; batched
     inputs give outputs with a leading B, single inputs without."""
     single = T_init.dim() == 2
     T = T_init[None] if single else T_init
@@ -351,7 +405,7 @@ def track_pyramid(pools, dI_new_pyr, Ks, T_init, aff_init, ref_aff,
         def run_level(T_, aff_):
             return track_level(pools[lvl], dI_new_pyr[lvl], Ks[lvl], T_,
                                aff_, ref_aff, exposures, cutoff_th, huber_th,
-                               mi, packed=packed)
+                               mi, packed=packed, lane=lane)
 
         T, aff, r, cutoff_rep = run_level(T, aff)
         # single level-repeat when the cutoff was raised (:826-833)
@@ -367,7 +421,7 @@ def track_pyramid(pools, dI_new_pyr, Ks, T_init, aff_init, ref_aff,
         last_res[:, lvl] = rmse
         flow = torch.stack([r["flow_t"], torch.zeros_like(r["flow_t"]),
                             r["flow_rt"]], dim=-1)
-        ok = ok & ~(rmse > 1.5 * min_res_for_abort[lvl])
+        ok = ok & ~(rmse > 1.5 * min_res_for_abort[..., lvl])
         lvl_iters[:, lvl] += r["n_iters"]
 
     ok = ok & (torch.abs(aff[:, 0]) <= 1.2) & (torch.abs(aff[:, 1]) <= 200.0)
@@ -380,12 +434,13 @@ def track_pyramid(pools, dI_new_pyr, Ks, T_init, aff_init, ref_aff,
 
 def track_coarsest_batch(pool, dI_new, K, T_tries, aff_init, ref_aff,
                          exposures, cutoff_th, huber_th, max_iters: int = 10,
-                         packed=None):
-    """LM-refine ALL pose hypotheses on the coarsest level at once.
+                         packed=None, lane=None):
+    """LM-refine ALL pose hypotheses on the coarsest level at once
+    (`aff_init` (2,), or (B, 2) per row with `lane`).
     Returns dict(T (B,4,4), E (B,), n (B,))."""
     B = T_tries.shape[0]
-    aff0 = aff_init[None].expand(B, 2)
+    aff0 = aff_init.expand(B, 2)
     T, _, r, _ = track_level(pool, dI_new, K, T_tries, aff0, ref_aff,
                              exposures, cutoff_th, huber_th, max_iters,
-                             packed=packed)
+                             packed=packed, lane=lane)
     return dict(T=T, E=r["E"], n=r["n"])

@@ -13,21 +13,23 @@ import torch
 
 
 def avg_pool2(img: torch.Tensor) -> torch.Tensor:
-    """Exact 2x2 average pooling, (H, W) -> (H//2, W//2)."""
-    h, w = img.shape
-    x = img[: (h // 2) * 2, : (w // 2) * 2]
+    """Exact 2x2 average pooling over the last two dimensions,
+    (..., H, W) -> (..., H//2, W//2)."""
+    h, w = img.shape[-2:]
+    x = img[..., : (h // 2) * 2, : (w // 2) * 2]
     # row-major, left to right: the summation order of the 2x2 window
     # reduction in the JAX package's compiled programs
-    s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
+    s = x[..., 0::2, 0::2] + x[..., 0::2, 1::2] + x[..., 1::2, 0::2] \
+        + x[..., 1::2, 1::2]
     return 0.25 * s
 
 
 def gradients(img: torch.Tensor):
-    """Central-difference gradients with zeroed borders."""
+    """Central-difference gradients with zeroed borders (last two dims)."""
     dx = torch.zeros_like(img)
     dy = torch.zeros_like(img)
-    dx[:, 1:-1] = 0.5 * (img[:, 2:] - img[:, :-2])
-    dy[1:-1, :] = 0.5 * (img[2:, :] - img[:-2, :])
+    dx[..., :, 1:-1] = 0.5 * (img[..., :, 2:] - img[..., :, :-2])
+    dy[..., 1:-1, :] = 0.5 * (img[..., 2:, :] - img[..., :-2, :])
     return dx, dy
 
 
@@ -36,12 +38,14 @@ def make_images(color: torch.Tensor, levels: int,
     """Build the per-frame pyramid.
 
     Args:
-      color: (H, W) float32 intensity image on the system's device.
+      color: (H, W) float32 intensity image on the system's device, or a
+        stack (L, H, W) of L frames.
       levels: number of pyramid levels.
       gamma_grad: optional (256,) dB/dI lookup for gradient weighting.
 
     Returns:
-      dI: tuple of (H_l, W_l, 3) tensors [intensity, dx, dy] per level.
+      dI: tuple of (H_l, W_l, 3) tensors [intensity, dx, dy] per level
+        ((L, H_l, W_l, 3) for a stack).
       abs_grad: tuple of (H_l, W_l) squared-gradient tensors per level.
     """
     dI = []
@@ -59,3 +63,12 @@ def make_images(color: torch.Tensor, levels: int,
             g2 = g2 * gw * gw
         abs_grad.append(g2)
     return tuple(dI), tuple(abs_grad)
+
+
+def make_images_batch(colors: torch.Tensor, levels: int):
+    """L-frame fleet pyramid (the JAX package's vmap of make_images): one
+    launch stream for a (L, H, W) stack. Returns per-lane pyramids, lane
+    l's levels being views into the stacked levels."""
+    dI, abs_grad = make_images(colors, levels)
+    return [(tuple(d[i] for d in dI), tuple(a[i] for a in abs_grad))
+            for i in range(colors.shape[0])]

@@ -25,46 +25,50 @@ def _tukey(x):
 
 
 def _residuals(T_wc_inv, pts_world, obs_uv, valid, K, w, h):
-    """Normalized-plane residuals, in-front/in-image mask, cam points."""
-    fx, fy, cx, cy = K[0], K[1], K[2], K[3]
-    pf = pts_world @ T_wc_inv[:3, :3].T + T_wc_inv[:3, 3]
-    z = pf[:, 2]
-    u = pf[:, 0] / z
-    v = pf[:, 1] / z
+    """Normalized-plane residuals, in-front/in-image mask, cam points (one
+    row of each per lane: T (L, 4, 4), points (L, N, 3), K (L, 4))."""
+    fx, fy, cx, cy = (K[:, i:i + 1] for i in range(4))
+    pf = torch.matmul(pts_world, T_wc_inv[:, :3, :3].transpose(1, 2)) + \
+        T_wc_inv[:, None, :3, 3]
+    z = pf[..., 2]
+    u = pf[..., 0] / z
+    v = pf[..., 1] / z
     Ku = u * fx + cx
     Kv = v * fy + cy
     ok = valid & (Ku > 1.1) & (Kv > 1.1) & (Ku < w - 3) & (Kv < h - 3) & \
         (z > 0)
-    obs_n = torch.stack([(obs_uv[:, 0] - cx) / fx, (obs_uv[:, 1] - cy) / fy],
-                        dim=-1)
+    obs_n = torch.stack([(obs_uv[..., 0] - cx) / fx,
+                         (obs_uv[..., 1] - cy) / fy], dim=-1)
     res_n = torch.stack([u, v], dim=-1) - obs_n
     return res_n, ok, pf
 
 
 def nanmedian_mid(x):
-    """Median of the finite entries of a 1-D tensor, averaging the two
-    middle values for an even count (`jnp.nanmedian`); NaN when empty."""
+    """Median of the finite entries along the last dimension, averaging the
+    two middle values for an even count (`jnp.nanmedian`); NaN when empty."""
     s = torch.sort(torch.where(torch.isnan(x), torch.full_like(x, float("inf")),
-                               x))[0]
-    n = (~torch.isnan(x)).sum()
+                               x), dim=-1)[0]
+    n = (~torch.isnan(x)).sum(-1)
     lo = torch.clamp((n - 1) // 2, min=0)
     hi = torch.clamp(n // 2, min=0)
-    med = 0.5 * (s[lo] + s[hi])
+    med = 0.5 * (s.gather(-1, lo[..., None])[..., 0]
+                 + s.gather(-1, hi[..., None])[..., 0])
     return torch.where(n > 0, med, torch.full_like(med, float("nan")))
 
 
 def _mad_sigma(x, ok):
-    """Robust scale 1.4826 * MAD of masked residual norms."""
+    """Robust scale 1.4826 * MAD of masked residual norms, per row."""
     nan = torch.full_like(x, float("nan"))
     med = nanmedian_mid(torch.where(ok, x, nan))
-    mad = nanmedian_mid(torch.where(ok, torch.abs(x - med), nan))
+    mad = nanmedian_mid(torch.where(ok, torch.abs(x - med[..., None]), nan))
     return 1.4826 * mad
 
 
 def _build_system(res_n, ok, pf, standardize: bool):
-    """Tukey-weighted 6x6 normal equations (calcHandb:889-947); with
-    `standardize` the MAD scale is recomputed from the current residuals."""
-    x, y, z = pf[:, 0], pf[:, 1], pf[:, 2]
+    """Tukey-weighted 6x6 normal equations per lane (calcHandb:889-947);
+    with `standardize` the MAD scale is recomputed from the current
+    residuals."""
+    x, y, z = pf[..., 0], pf[..., 1], pf[..., 2]
     iz = 1.0 / torch.where(z == 0, torch.ones_like(z), z)
     iz2 = iz * iz
     zero = torch.zeros_like(iz)
@@ -75,26 +79,41 @@ def _build_system(res_n, ok, pf, standardize: bool):
                       x * iz], dim=-1)
     rn = torch.linalg.vector_norm(res_n, dim=-1)
     if standardize:
-        sigma = torch.clamp(_mad_sigma(rn, ok), min=1e-5)
+        sigma = torch.clamp(_mad_sigma(rn, ok), min=1e-5)[:, None]
     else:
         sigma = torch.ones((), dtype=rn.dtype, device=rn.device)
     wgt = torch.where(ok, _tukey(rn / sigma), zero)
-    J = torch.stack([Jx, Jy], dim=1)                       # (N, 2, 6)
-    H = torch.einsum("nai,n,naj->ij", J, wgt, J)
-    b = torch.einsum("nai,n,na->i", J, wgt, res_n)
-    return H, b
+    L = res_n.shape[0]
+    J = torch.stack([Jx, Jy], dim=2).reshape(L, -1, 6)     # (L, N*2, 6)
+    Jw = J * wgt.repeat_interleave(2, dim=1)[..., None]
+    # H and b from ONE batched product: a matrix-vector product of a
+    # single lane takes another kernel than a batch's, and a lane's sums
+    # must not depend on the lane count
+    Hb = Jw.transpose(1, 2) @ torch.cat([J, res_n.reshape(L, -1, 1)], -1)
+    return Hb[..., :6], Hb[..., 6]
 
 
 def struct_pose_estimate(T_cur_to_world, pts_world, obs_uv, valid, K, w, h,
                          max_iters: int = 10, standardize: bool = False):
     """LM refinement of the current camToWorld against matched map points.
-    Returns dict(T_cur_to_world, energy, n_inliers)."""
+    Returns dict(T_cur_to_world, energy, n_inliers).
+
+    Lanes: T_cur_to_world (L, 4, 4), pts_world (L, N, 3), obs_uv (L, N, 2),
+    valid (L, N) and K (L, 4) refine L poses at once, each lane with its own
+    damping and its own stop test (a lane that has stopped no longer
+    changes, as under the JAX package's vmap); outputs then carry a leading
+    L. One lane's unbatched inputs run as lane 0."""
+    single = T_cur_to_world.dim() == 2
+    if single:
+        T_cur_to_world, pts_world, obs_uv, valid, K = (
+            a[None] for a in (T_cur_to_world, pts_world, obs_uv, valid, K))
     T_wc = se3.inverse(T_cur_to_world)
+    L = T_wc.shape[0]
     dev = T_wc.device
     if standardize:
         rn0, ok0, _ = _residuals(T_wc, pts_world, obs_uv, valid, K, w, h)
         sigma0 = torch.clamp(_mad_sigma(torch.linalg.vector_norm(rn0, dim=-1),
-                                        ok0), min=1e-5)
+                                        ok0), min=1e-5)[:, None]
     else:
         sigma0 = torch.ones((), dtype=torch.float32, device=dev)
     b2_6 = TUKEY_B * TUKEY_B / 6.0
@@ -108,33 +127,40 @@ def struct_pose_estimate(T_cur_to_world, pts_world, obs_uv, valid, K, w, h,
         res_n, ok, _ = _residuals(Twc, pts_world, obs_uv, valid, K, w, h)
         rn = torch.linalg.vector_norm(res_n, dim=-1)
         pe = torch.where(ok, _rho(rn / sigma0), torch.zeros_like(rn))
-        n = ok.sum()
-        return pe.sum() / torch.clamp(n, min=1), n
+        n = ok.sum(-1)
+        return pe.sum(-1) / torch.clamp(n, min=1), n
 
     e_old, _ = energy(T_wc)
-    lam = torch.full((), 0.01, dtype=torch.float32, device=dev)
+    lam = torch.full((L,), 0.01, dtype=torch.float32, device=dev)
     eye = torch.eye(6, dtype=torch.float32, device=dev)
+    done = torch.zeros(L, dtype=torch.bool, device=dev)
     for _ in range(max_iters):
+        act = ~done
+        if not bool(act.any()):
+            break
         res_n, ok, pf = _residuals(T_wc, pts_world, obs_uv, valid, K, w, h)
         H, b = _build_system(res_n, ok, pf, standardize)
-        Hl = H + torch.diag(torch.diagonal(H)) * lam + eye * 1e-12
+        Hl = H + torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) \
+            * lam[:, None, None] + eye * 1e-12
         inc = torch.linalg.solve_ex(Hl, -b)[0]
         extrap = torch.where(
             lam < LAMBDA_EXTRAPOLATION_LIMIT,
             torch.sqrt(torch.sqrt(LAMBDA_EXTRAPOLATION_LIMIT
                                   / torch.clamp(lam, min=1e-12))),
             torch.ones_like(lam))
-        inc = inc * extrap
+        inc = inc * extrap[:, None]
         inc = torch.where(torch.isfinite(inc), inc, torch.zeros_like(inc))
         Twc_new = se3.se3_exp(inc) @ T_wc
         e_new, n_new = energy(Twc_new)
         e_new = torch.where(n_new == 0, torch.full_like(e_new, 1e6), e_new)
         accept = e_new < e_old
-        T_wc = torch.where(accept, Twc_new, T_wc)
-        e_old = torch.where(accept, e_new, e_old)
-        lam = torch.where(accept, lam * 0.5,
-                          torch.clamp(lam * 4.0, min=LAMBDA_EXTRAPOLATION_LIMIT))
-        if not bool(torch.linalg.vector_norm(inc) > 1e-5):
-            break
+        acc = accept & act
+        T_wc = torch.where(acc[:, None, None], Twc_new, T_wc)
+        e_old = torch.where(acc, e_new, e_old)
+        lam = torch.where(act, torch.where(
+            accept, lam * 0.5,
+            torch.clamp(lam * 4.0, min=LAMBDA_EXTRAPOLATION_LIMIT)), lam)
+        done = done | (act & ~(torch.linalg.vector_norm(inc, dim=-1) > 1e-5))
     _, n = energy(T_wc)
-    return dict(T_cur_to_world=se3.inverse(T_wc), energy=e_old, n_inliers=n)
+    out = dict(T_cur_to_world=se3.inverse(T_wc), energy=e_old, n_inliers=n)
+    return {k: v[0] for k, v in out.items()} if single else out

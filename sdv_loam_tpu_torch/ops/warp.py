@@ -28,20 +28,25 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
 def pack_bilinear(img: torch.Tensor) -> torch.Tensor:
     """Pack each pixel's 2x2 bilinear support into one row: (H, W) ->
     (H*W, 4); (H, W, C) -> (H*W, 4*C), corner-major [c00, c10, c01, c11] x C,
-    edge rows/columns replicated."""
-    squeeze = img.dim() == 2
-    if squeeze:
+    edge rows/columns replicated. A lane stack (L, H, W, C) packs to
+    (L*H*W, 4*C), lane after lane."""
+    if img.dim() == 2:
         img = img[..., None]
-    h, w, c = img.shape
-    p = tnf.pad(img.permute(2, 0, 1)[None], (0, 1, 0, 1),
-                mode="replicate")[0].permute(1, 2, 0)
-    q = torch.stack([p[:h, :w], p[:h, 1:], p[1:, :w], p[1:, 1:]], dim=2)
-    return q.reshape(h * w, 4 * c)
+    if img.dim() == 3:
+        img = img[None]
+    n, h, w, c = img.shape
+    p = tnf.pad(img.permute(0, 3, 1, 2), (0, 1, 0, 1),
+                mode="replicate").permute(0, 2, 3, 1)
+    q = torch.stack([p[:, :h, :w], p[:, :h, 1:], p[:, 1:, :w],
+                     p[:, 1:, 1:]], dim=3)
+    return q.reshape(n * h * w, 4 * c)
 
 
 def bilinear_sample_packed(packed: torch.Tensor, h: int, w: int,
-                           x: torch.Tensor, y: torch.Tensor):
-    """`bilinear_sample` semantics from a `pack_bilinear` buffer."""
+                           x: torch.Tensor, y: torch.Tensor, base=0):
+    """`bilinear_sample` semantics from a `pack_bilinear` buffer. `base`
+    (broadcastable to x) is the first row of each sample's image in a lane
+    stack's pack: lane * H * W."""
     c = packed.shape[-1] // 4
     x0f = torch.floor(x)
     y0f = torch.floor(y)
@@ -50,7 +55,7 @@ def bilinear_sample_packed(packed: torch.Tensor, h: int, w: int,
     x0 = x0f.to(torch.int64)
     y0 = y0f.to(torch.int64)
     valid = (x0 >= 0) & (x0 <= w - 2) & (y0 >= 0) & (y0 <= h - 2)
-    idx = torch.clamp(y0, 0, h - 2) * w + torch.clamp(x0, 0, w - 2)
+    idx = base + torch.clamp(y0, 0, h - 2) * w + torch.clamp(x0, 0, w - 2)
     g = packed.index_select(0, idx.reshape(-1)).reshape(x.shape + (4, c))
     w4 = _corner_weights(ax, ay)
     out = (g * w4[..., None]).sum(dim=-2)

@@ -37,11 +37,14 @@ _ARRAYS = ("slot_used", "T_cw_fej", "eps", "aff", "exposure", "fe_th",
 
 
 def save(fs: FullSystem, path: str) -> None:
-    fs._sync_immature()
-    fs._sync_pool_mirrors()
+    fs.flush()               # finish any pipelined in-flight frame
+    with fs._on_stream():
+        fs._sync_immature()
+        fs._sync_pool_mirrors()
+        dI0 = fs.dI0_stack[..., 0].cpu().numpy()
     data = {name: getattr(fs, name) for name in _ARRAYS}
     data["order"] = np.array(fs.order, np.int64)
-    data["dI0_stack"] = fs.dI0_stack[..., 0].cpu().numpy()
+    data["dI0_stack"] = dI0
     data["rng_key"] = np.array([0, fs.s.seed], np.uint32)
     for k, v in fs.pt.items():
         data[f"pt_{k}"] = v
@@ -96,13 +99,14 @@ def load(path: str, calib, sensor, settings: Settings | None = None,
     fs._gen = torch.Generator().manual_seed(int(fs.s.seed))
 
     intens = z["dI0_stack"]
-    for slot in fs.order:
-        dI, _ = make_images(fs._t(intens[slot]), fs.levels)
-        fs.pyr_slots[slot] = dI
-        fs.flat_slots[slot] = flatten_pyramid(dI)
-        fs.dI0_stack[slot] = dI[0]
+    with fs._on_stream():
+        for slot in fs.order:
+            dI, _ = make_images(fs._t(intens[slot]), fs.levels)
+            fs.pyr_slots[slot] = dI
+            fs.flat_slots[slot] = flatten_pyramid(dI)
+            fs.dI0_stack[slot] = dI[0]
 
-    if fs.order and fs.track_ref_slot >= 0 and \
-            fs.pyr_slots[fs.track_ref_slot] is not None:
-        fs._set_coarse_tracking_ref(fs.track_ref_slot)
+        if fs.order and fs.track_ref_slot >= 0 and \
+                fs.pyr_slots[fs.track_ref_slot] is not None:
+            fs._set_coarse_tracking_ref(fs.track_ref_slot)
     return fs

@@ -1,4 +1,4 @@
-"""FullSystem — the odometry orchestrator, sequential mode.
+"""FullSystem — the odometry orchestrator.
 
 Counterpart of `sdv_loam_tpu/system/full_system.py` (reference
 src/FullSystem/FullSystem.cpp + FullSystemOptimize/Marginalize/OptPoint).
@@ -13,16 +13,36 @@ lifecycle) in numpy drives the torch stages on the system's device:
     -> residual insertion -> activation -> kf_opt (matcher refresh, BA,
     outliers, tracking reference, point/frame marginalization)
 
-The port runs the reference-parity sequential mode only, as direct calls:
-every value the host needs is read back with `.cpu()` where it is used. The
-JAX package's generator/yield protocol (which batches readbacks over a TPU
-link and lets a fleet fold sequences) is not ported; nor are the
-pipelined mode, the deferred keyframe readback, camera-only frames, the
-pose-prior and damped-retry diagnostics, deep logs and observers — a
-Settings that asks for one raises NotImplementedError.
+A frame runs as five phases, plain methods that each mode calls in turn:
+`_stage` (pyramid, shell; the first frame and the initialization),
+`_lidar`, `_track_inputs`, `_track_result` (launch, readback, the host
+retry ladder) and `_finish` (keyframe decision, trace or keyframe tail).
+
+  * sequential mode (default, reference parity) calls them in order, every
+    value the host needs read back where it is used;
+  * pipelined mode (`Settings.pipelined_frames`, the JAX package's analog
+    of the reference's tracking/mapping thread overlap) defers the
+    readback and `_finish` of frame N to the call of frame N+1, after N+1's
+    pyramid is staged: the deferral point is between staging and
+    tracking, so the trajectory matches sequential mode; `is_lost` and the
+    shell poses lag one frame, and `flush()` (or `get_trajectory`) drains;
+  * with `deferred_kf_readback` as well, the keyframe optimization's
+    control readback waits for the next drain: the next frame tracks
+    against window constants built on the device from its outputs;
+  * the lockstep fleet (`system.multi.MultiSystem`) runs the phases of B
+    sequential systems side by side and batches the pyramid, LiDAR and
+    first track attempt over them.
+
+The JAX package's generator/yield protocol (which batches readbacks over a
+TPU link) is not ported. On CUDA every public call runs on the system's own
+stream, and a stage boundary waits for that stream only, so systems on
+other streams keep running. Not ported: camera-only frames, deep logs and
+observers — asking for one raises NotImplementedError.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -46,6 +66,16 @@ from sdv_loam_tpu_torch.utils.camera import PyramidCalib
 
 CORNER = 0
 EDGELET = 1
+
+# track step outputs the host reads back
+TRACK_KEYS = ("T_ref_to_fh", "T_wc", "aff", "res", "flow", "ok", "n_matched",
+              "best_try", "lvl_iters")
+# keyframe optimization outputs the host reads back
+KF_PULL_KEYS = ("eps", "calib", "T_cw_fej", "feth", "energy", "HM", "bM",
+                "stats_out", "idepth", "new_state", "pt_valid",
+                "num_good_res", "idepth_hessian", "res_active",
+                "match_overflow", "match_diag", "match_diag_p2", "res_diag",
+                "death_diag")
 
 
 def _rotation_ladder(rot_delta=0.02):
@@ -78,14 +108,6 @@ def _rotation_ladder(rot_delta=0.02):
 
 def _unsupported(s: Settings, observers) -> list[str]:
     bad = []
-    if s.pipelined_frames:
-        bad.append("pipelined_frames")
-    if s.deferred_kf_readback:
-        bad.append("deferred_kf_readback")
-    if s.frame_pose_prior_t or s.frame_pose_prior_r:
-        bad.append("frame_pose_prior_*")
-    if s.ba_veto_damped_retry > 0:
-        bad.append("ba_veto_damped_retry")
     if s.log_stuff:
         bad.append("log_stuff")
     if observers:
@@ -105,14 +127,25 @@ class FullSystem:
         bad = _unsupported(s, observers)
         if bad:
             raise NotImplementedError(
-                "not ported yet: " + ", ".join(bad) + " (sequential mode "
-                "with LiDAR on every frame only)")
+                "not ported yet: " + ", ".join(bad))
         self.calib = calib
         self.sensor = sensor
         self.s = s
         self.device = torch.device(device)
-        sync = torch.cuda.synchronize if self.device.type == "cuda" else None
-        self.telemetry = telemetry or Telemetry(device_sync=sync)
+        # every public call runs on this stream (CUDA); a fleet's systems
+        # then overlap on the card instead of queueing behind each other
+        self.stream = torch.cuda.Stream(self.device) \
+            if self.device.type == "cuda" else None
+        self.telemetry = telemetry or Telemetry()
+        # a stage ends when the system's own stream has finished it
+        # (sequential mode); pipelined mode leaves the device running
+        # across stage ends, which is its point
+        self.telemetry.device_sync = self._sync_stream \
+            if self.stream is not None and not s.pipelined_frames else None
+        with self._on_stream():
+            self._init_state(calib, s)
+
+    def _init_state(self, calib, s):
 
         self.w = calib.w[0]
         self.h = calib.h[0]
@@ -216,6 +249,8 @@ class FullSystem:
         # package
         self._gen = torch.Generator().manual_seed(int(s.seed))
         self._lidar_cap = s.n_lidar_cand_cap * 8
+        self._pending = None        # pipelined mode: the frame in flight
+        self._deferred_kf = None    # deferred keyframe control readback
 
     # ------------------------------------------------------------------
     # helpers
@@ -228,6 +263,65 @@ class FullSystem:
     def _np(x):
         return x.detach().cpu().numpy()
 
+    def _on_stream(self):
+        """Context that makes the system's stream current (CUDA)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def _sync_stream(self):
+        self.stream.synchronize()
+
+    def _use_stream(self, stream):
+        """Move the system onto `stream` (the lockstep fleet's): the new
+        stream first waits for the old one's work, and every tensor the
+        system holds is marked as used on the new stream, so the allocator
+        does not hand its memory out before the new stream is done."""
+        if self.stream is None or stream == self.stream:
+            return
+        stream.wait_stream(self.stream)
+        todo = list(vars(self).values())
+        while todo:
+            x = todo.pop()
+            if isinstance(x, torch.Tensor):
+                if x.device.type == "cuda":
+                    x.record_stream(stream)
+            elif isinstance(x, dict):
+                todo.extend(x.values())
+            elif isinstance(x, (list, tuple)):
+                todo.extend(x)
+        self.stream = stream
+
+    def _upload_image(self, image):
+        """The frame's image on the device; on CUDA copied from pinned
+        memory without blocking, so the upload overlaps queued work."""
+        x = torch.from_numpy(np.ascontiguousarray(image, dtype=np.float32))
+        if self.device.type != "cuda":
+            return x
+        return x.pin_memory().to(self.device, non_blocking=True)
+
+    def _to_host_async(self, tensors: dict):
+        """Start the device-to-host copies of `tensors` into pinned memory
+        and return (host tensors, event) without waiting (CUDA); on the CPU
+        the tensors are their own host copies."""
+        if self.device.type != "cuda":
+            return tensors, None
+        host = {}
+        for k, v in tensors.items():
+            hv = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            hv.copy_(v, non_blocking=True)
+            host[k] = hv
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return host, ev
+
+    def _from_host(self, pending):
+        """Wait for a `_to_host_async` copy; returns numpy arrays."""
+        host, ev = pending
+        if ev is not None:
+            ev.synchronize()
+        return {k: self._np(v) for k, v in host.items()}
+
     @property
     def T_cw(self) -> np.ndarray:
         """(F, 4, 4) current worldToCam per slot: exp(eps) * T_fej."""
@@ -237,26 +331,35 @@ class FullSystem:
         return cascade_direction_draws(self.h, self.w, pot, self._gen,
                                        self.device)
 
-    def _bucket_cloud(self, cloud: np.ndarray):
-        cap = self._lidar_cap
-        for b in (self._lidar_cap // 4, self._lidar_cap // 2):
-            if cloud.shape[0] <= b:
-                cap = b
-                break
+    def _bucket_cloud(self, cloud: np.ndarray, cap: int | None = None):
+        """Pad a raw cloud to a capacity bucket. `cap` overrides the
+        per-cloud choice: the lockstep fleet pads its sequences' clouds to
+        one shared bucket so their scans run as lanes of one batch."""
+        if cap is None:
+            cap = self._lidar_cap
+            for b in (self._lidar_cap // 4, self._lidar_cap // 2):
+                if cloud.shape[0] <= b:
+                    cap = b
+                    break
         buf = np.zeros((cap, 3), np.float32)
         n = min(cloud.shape[0], cap)
         buf[:n] = cloud[:n]
         mask = np.zeros(cap, bool)
         mask[:n] = True
-        return buf, mask
+        return buf, mask, cap
+
+    def _lidar_args(self, cloud: np.ndarray, cap: int | None = None):
+        """One lane of `lidar_ops.preprocess_scan_batch`: (cloud, mask,
+        R_cl, t_cl, K) with the current (BA-refined) intrinsics."""
+        buf, mask, _ = self._bucket_cloud(cloud, cap)
+        return (self._t(buf), self._t(mask, torch.bool),
+                self._t(self.sensor.R_cl), self._t(self.sensor.t_cl),
+                self._t(self.K0))
 
     def _preprocess(self, cloud: np.ndarray):
-        buf, mask = self._bucket_cloud(cloud)
-        return lidar_ops.preprocess_scan(
-            self._t(buf), self._t(mask, torch.bool),
-            self._t(self.sensor.R_cl), self._t(self.sensor.t_cl),
-            float(self.K0[0]), float(self.K0[1]), float(self.K0[2]),
-            float(self.K0[3]), self.w, self.h)
+        out = lidar_ops.preprocess_scan_batch(
+            *(a[None] for a in self._lidar_args(cloud)), self.w, self.h)
+        return {k: v[0] for k, v in out.items()}
 
     def _free_pt_rows(self, n):
         return np.nonzero(~self.pt_valid)[0][:n]
@@ -352,45 +455,117 @@ class FullSystem:
     def add_active_frame(self, image: np.ndarray, cloud: np.ndarray,
                          timestamp: float, exposure: float = 1.0):
         """Process one frame (image (H, W) intensities, cloud (N, 3)
-        LiDAR-frame points)."""
+        LiDAR-frame points). In pipelined mode the frame's readback and
+        keyframe work happen in the next call (or `flush`)."""
         if cloud is None:
             raise NotImplementedError(
                 "camera-only frames (ops/mono_init) are not ported yet")
+        with self._on_stream():
+            if self.s.pipelined_frames and self.initialized \
+                    and not self.is_lost and len(self.shells) >= 2:
+                self._add_pipelined(image, cloud, timestamp, exposure)
+                return
+            self._drain_pending()
+            frame = self._stage(image, cloud, timestamp, exposure)
+            if frame is None:
+                return
+            self._lidar(frame)
+            with self.telemetry.stage("track"):
+                ok = self._track_result(frame, self._track_inputs(frame))
+            self._finish(frame, ok)
+
+    def _add_pipelined(self, image, cloud, timestamp, exposure):
+        """Pipelined frame (the JAX package's `_add_active_frame`): stage
+        this frame, then finish the previous one (its track result has had
+        this frame's staging time to arrive), then launch this frame's
+        track and leave it in flight."""
+        frame = self._stage(image, cloud, timestamp, exposure)
+        self._drain_pending()
         if self.is_lost:
+            # the drained frame lost tracking: this frame takes the lost
+            # semantics (keep recording shells with the last pose)
+            self.shells[-1]["T_wc"] = self.shells[-2]["T_wc"].copy()
+            self.telemetry.frame_done(False)
+            return
+        self._lidar(frame)
+        with self.telemetry.stage("track"):
+            req = self._track_inputs(frame)
+            out = self._dispatch_track(req, req["exclude"])
+            launched = self._to_host_async({k: out[k] for k in TRACK_KEYS})
+        self._pending = (frame, req, launched)
+
+    def _drain_pending(self):
+        """Finish the pipelined frame in flight (track readback, keyframe
+        decision, trace or keyframe tail). A deferred keyframe readback
+        from the previous drain resolves first: the host mirrors must be
+        fresh before this frame's keyframe work. Idempotent."""
+        self._resolve_deferred_kf()
+        if self._pending is None:
+            return
+        frame, req, launched = self._pending
+        self._pending = None
+        with self.telemetry.stage("track.finish"):
+            ok = self._track_result(frame, req, first=self._from_host(launched))
+        self._finish(frame, ok)
+
+    def flush(self):
+        """Finish any pipelined in-flight frame (call at sequence end)."""
+        with self._on_stream():
+            self._drain_pending()
+            # the drained frame may itself have been a keyframe that
+            # deferred its control readback
+            self._resolve_deferred_kf()
+
+    def _stage(self, image, cloud, timestamp, exposure=1.0, pyr=None):
+        """Phase 1: the pyramid (or `pyr`, one the lockstep fleet built in
+        a batch) and the frame's shell; the first frame and the
+        initialization. Returns the frame to track, or None when the frame
+        ends here."""
+        if self.is_lost:
+            # keep recording shells with the last pose so the trajectory
+            # stays dense (reference stops processing, FullSystem.cpp:824)
             last = self.shells[-1]["T_wc"] if self.shells else np.eye(4)
             self.shells.append(dict(id=len(self.shells), timestamp=timestamp,
                                     T_wc=last.copy(), aff=np.zeros(2),
                                     is_kf=False))
-            return
-
-        with self.telemetry.stage("pyramid"):
-            dI, abs_grad = make_images(self._t(image), self.levels)
+            return None
+        if pyr is None:
+            with self.telemetry.stage("pyramid"):
+                pyr = make_images(self._upload_image(image), self.levels)
+        dI, abs_grad = pyr
         shell = dict(id=len(self.shells), timestamp=timestamp,
                      T_wc=np.eye(4), aff=np.zeros(2), is_kf=False)
         self.shells.append(shell)
-        frame = dict(dI=dI, abs_grad=abs_grad, shell=shell,
+        frame = dict(dI=dI, abs_grad=abs_grad, shell=shell, cloud=cloud,
                      exposure=float(exposure), flat=flatten_pyramid(dI))
 
         if not self.initialized:
-            with self.telemetry.stage("lidar"):
-                frame["scan"] = self._preprocess(cloud)
+            self._lidar(frame)
             self._first_frame = frame
             self.initialized = True
             self.telemetry.frame_done(False)
-            return
+            return None
 
         if len(self.shells) == 2:
             self._initialize()
+        return frame
 
+    def _lidar(self, frame, scan=None):
+        """Phase 2: LiDAR preprocessing (or `scan`, a lane of the lockstep
+        fleet's batch). Not staging: the projection uses the BA-refined
+        intrinsics, which the previous frame's keyframe may change."""
+        cloud = frame.pop("cloud")
         with self.telemetry.stage("lidar"):
-            frame["scan"] = self._preprocess(cloud)
-        with self.telemetry.stage("track"):
-            ok = self._track(frame)
+            frame["scan"] = scan if scan is not None \
+                else self._preprocess(cloud)
+
+    def _finish(self, frame, ok):
+        """Phase 5: keyframe decision, then the keyframe tail or the
+        trace."""
         if not ok:
             print("Initial tracking failed: LOST!")
             self.is_lost = True
             return
-
         need_kf = self._keyframe_decision(frame)
         is_kf = need_kf or len(self.kf_shells) < 2
         if is_kf:
@@ -506,33 +681,47 @@ class FullSystem:
             tries.append(inv(fh_2_slast) @ T_lastF2s @ R)
         return tries
 
-    def _track_consts(self, ref_shell):
+    def _build_track_consts(self, ref_T_wc, T_wc_stack, K0):
         """Per-keyframe-constant device arguments of the track step."""
+        t = self._t
+        pool = self._kf_dev_pool()
+        ridx = torch.full_like(pool["host"], self.order[0]) \
+            if len(self.order) == 2 else pool["host"]
+        return dict(
+            ref_aff=t(self.track_ref_aff),
+            inf5=torch.full((5,), float("inf"), device=self.device),
+            ref_T_wc=ref_T_wc, T_wc_stack=T_wc_stack,
+            aff=t(self.aff), exposure=t(self.exposure),
+            slot_used=t(self.slot_used, torch.bool),
+            K0=K0, ref_idx=ridx, quad_stack=stack_quads(self.dI0_stack))
+
+    def _track_consts(self, ref_shell):
+        """The track constants, built from the host mirrors after each
+        keyframe (unless a deferred keyframe built them on the device)."""
         if self._track_const is None:
-            t = self._t
-            pool = self._kf_dev_pool()
-            n_window = len(self.order)
-            ridx = torch.full_like(pool["host"], self.order[0]) \
-                if n_window == 2 else pool["host"]
-            self._track_const = dict(
-                ref_aff=t(self.track_ref_aff),
-                inf5=torch.full((5,), float("inf"), device=self.device),
-                ref_T_wc=t(ref_shell["T_wc"]),
-                T_wc_stack=t(np.linalg.inv(self.T_cw)),
-                aff=t(self.aff), exposure=t(self.exposure),
-                slot_used=t(self.slot_used, torch.bool),
-                K0=t(self.K0), ref_idx=ridx,
-                quad_stack=stack_quads(self.dI0_stack))
+            self._track_const = self._build_track_consts(
+                self._t(ref_shell["T_wc"]), self._t(np.linalg.inv(self.T_cw)),
+                self._t(self.K0))
         return self._track_const
 
-    def _track(self, frame):
-        """Fused frame tracking: hypothesis ladder + pyramid LM + matcher +
-        struct pose, with the host retry ladder for invalid results and the
-        tracked-step sanity veto. Returns ok."""
+    def _window_track_consts(self, out, slot):
+        """Track constants built ON THE DEVICE from the keyframe
+        optimization's outputs (deferred readback, the JAX package's
+        `_window_track_consts`): the next frame tracks against the post-BA
+        window without the host reading it back first."""
+        T_cw = se3.se3_exp(out["eps"].to(torch.float32)) @ out["T_cw_fej"]
+        T_wc = torch.linalg.inv_ex(T_cw)[0]
+        return self._build_track_consts(T_wc[slot], T_wc, out["calib"])
+
+    def _track_inputs(self, frame):
+        """Phase 3: the track request for `frame` — the motion hypotheses,
+        the device arguments of `track_frame_step` (`args`, `statics`) and
+        the host state its result is checked against, captured now (in
+        pipelined mode the next frame's shell exists by the time the
+        result is read)."""
         tries = self._motion_hypotheses()
         aff_last = self.shells[-2]["aff"].copy() if len(self.shells) >= 2 \
             else np.zeros(2)
-        coarsest = self.levels - 1
         B = 32 if len(tries) <= 32 else self.N_TRIES_CAP
         T_batch = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
         nt = min(len(tries), B)
@@ -540,45 +729,69 @@ class FullSystem:
         bad = ~np.isfinite(stackt).all(axis=(1, 2))
         stackt[bad] = np.eye(4)
         T_batch[:nt] = stackt.astype(np.float32)
+        exclude = np.zeros(B, bool)
+        exclude[nt:] = True
 
         ref_shell = self.shells[self.frame_shell_idx[self.track_ref_slot]]
-        prev_shell = self.shells[-2]
         flat, offs, ws, hs = frame["flat"]
         pool = self._kf_dev_pool()
         tc = self._track_consts(ref_shell)
         s = self.s
-        exposures = self._t([self.exposure[self.track_ref_slot],
-                             frame["exposure"]])
+        args = dict(
+            pools=self.track_ref, dI_new_pyr=frame["dI"], flat_new=flat,
+            offsets=offs, widths=ws, heights=hs, Ks=self.Ks,
+            T_tries=self._t(T_batch), aff_last=self._t(aff_last),
+            ref_aff=tc["ref_aff"],
+            exposures=self._t([self.exposure[self.track_ref_slot],
+                               frame["exposure"]]),
+            min_res_for_abort=tc["inf5"], ref_T_wc=tc["ref_T_wc"],
+            pt_u=pool["u"], pt_v=pool["v"], pt_idepth=pool["idepth"],
+            pt_host=pool["host"], pt_type=pool["type"],
+            pt_valid=pool["pt_valid"], pt_quality=pool["quality"],
+            pt_is_sensor=pool["is_sensor"], T_wc_stack=tc["T_wc_stack"],
+            aff_stack=tc["aff"], exposure_stack=tc["exposure"],
+            dI0_stack=self.dI0_stack, ref_idx_per_point=tc["ref_idx"],
+            frame_valid=tc["slot_used"], K0=tc["K0"],
+            cutoff_th=s.coarse_cutoff_th, huber_th=s.huber_th)
+        statics = dict(
+            coarsest_lvl=self.levels - 1, w=self.w, h=self.h,
+            max_level=self.levels - 1, n_refine=s.track_refine_candidates,
+            use_struct_pose=s.use_struct_pose,
+            struct_pose_mad=s.struct_pose_mad,
+            closest_view=s.closest_view_track,
+            closest_view_margin=float(s.closest_view_margin),
+            closest_view_sensor_only=bool(s.closest_view_track_sensor_only),
+            align_max_iters=s.align_max_iters)
+        return dict(tries=tries, T_batch=T_batch, nt=nt, exclude=exclude,
+                    aff_last=aff_last, ref_shell=ref_shell,
+                    prev_shell=self.shells[-2], args=args, statics=statics,
+                    quad_stack=tc["quad_stack"],
+                    etol=s.struct_pose_e_tol, mdt=s.struct_pose_max_dt)
 
-        exclude = np.zeros(B, bool)
-        exclude[nt:] = True
+    def _dispatch_track(self, req, exclude):
+        """Launch one track attempt; returns its device outputs."""
+        return track_frame_step(
+            **req["args"], try_exclude=self._t(exclude, torch.bool),
+            **req["statics"], struct_pose_e_tol=req["etol"],
+            struct_pose_max_dt=req["mdt"], quad_stack=req["quad_stack"])
+
+    def _track_result(self, frame, req, first=None):
+        """Phase 4: the track attempts — `first`, the host values of the
+        first attempt when pipelined mode or a fleet launched it, and
+        the host retry ladder for invalid results — then the
+        tracked-step sanity veto and the shell update. Returns ok."""
+        s = self.s
+        tries, T_batch, nt = req["tries"], req["T_batch"], req["nt"]
+        aff_last, ref_shell = req["aff_last"], req["ref_shell"]
+        prev_shell = req["prev_shell"]
+        exclude = req["exclude"].copy()
         best_out, best_res0 = None, np.inf
         for attempt in range(3):
-            out = track_frame_step(
-                self.track_ref, frame["dI"], flat, offs, ws, hs, self.Ks,
-                self._t(T_batch), self._t(exclude, torch.bool),
-                self._t(aff_last), tc["ref_aff"], exposures, tc["inf5"],
-                tc["ref_T_wc"], pool["u"], pool["v"], pool["idepth"],
-                pool["host"], pool["type"], pool["pt_valid"],
-                pool["quality"], pool["is_sensor"], tc["T_wc_stack"],
-                tc["aff"], tc["exposure"], self.dI0_stack, tc["ref_idx"],
-                tc["slot_used"], tc["K0"], s.coarse_cutoff_th, s.huber_th,
-                coarsest_lvl=coarsest, w=self.w, h=self.h,
-                max_level=self.levels - 1,
-                n_refine=s.track_refine_candidates,
-                use_struct_pose=s.use_struct_pose,
-                struct_pose_mad=s.struct_pose_mad,
-                struct_pose_e_tol=s.struct_pose_e_tol,
-                struct_pose_max_dt=s.struct_pose_max_dt,
-                closest_view=s.closest_view_track,
-                closest_view_margin=float(s.closest_view_margin),
-                closest_view_sensor_only=bool(
-                    s.closest_view_track_sensor_only),
-                align_max_iters=s.align_max_iters,
-                quad_stack=tc["quad_stack"])
-            out = {k: self._np(out[k]) for k in
-                   ("T_ref_to_fh", "T_wc", "aff", "res", "flow", "ok",
-                    "n_matched", "best_try", "lvl_iters")}
+            if attempt == 0 and first is not None:
+                out = first
+            else:
+                dev = self._dispatch_track(req, exclude)
+                out = {k: self._np(dev[k]) for k in TRACK_KEYS}
             r0 = float(out["res"][0])
             o = bool(out["ok"]) and np.isfinite(r0) and \
                 np.isfinite(out["T_wc"]).all()
@@ -727,7 +940,12 @@ class FullSystem:
         self.eps[slot] = 0.0
         self.aff[slot] = frame["shell"]["aff"]
         self.exposure[slot] = frame.get("exposure", 1.0)
-        self.frame_prior[slot] = 0.0
+        # weak pose prior anchoring eps to the tracked insertion pose
+        # (robustness deviation of the JAX package, PARITY.md delta 11;
+        # 0 = off, the default)
+        self.frame_prior[slot] = np.array(
+            [self.s.frame_pose_prior_t] * 3
+            + [self.s.frame_pose_prior_r] * 3, np.float32)
         self.frame_kf_id[slot] = kf_id
         self.frame_shell_idx[slot] = frame["shell"]["id"]
         self.slot_flagged[slot] = False
@@ -796,8 +1014,9 @@ class FullSystem:
 
     def _kf_opt(self, frame, slot):
         """Matcher refresh + windowed BA + outliers + tracking reference +
-        point/frame marginalization, then the host readback and the BA step
-        sanity veto."""
+        point/frame marginalization on the device, then the host readback
+        and the BA step sanity veto — now, or at the next drain with
+        `deferred_kf_readback`."""
         s = self.s
         F = self.F
         iters = s.max_opt_iterations
@@ -871,18 +1090,46 @@ class FullSystem:
             align_max_iters=s.align_max_iters,
             solve_dtype=s.solve_dtype)
 
-        pull_keys = ("eps", "calib", "T_cw_fej", "feth", "energy", "HM",
-                     "bM", "stats_out", "idepth", "new_state", "pt_valid",
-                     "num_good_res", "idepth_hessian", "res_active",
-                     "match_overflow", "match_diag", "match_diag_p2",
-                     "res_diag", "death_diag")
+        def run(iters_, floor_=None):
+            return kf_ops.kf_opt_step(**dict(
+                args, max_iters=iters_,
+                lm_diag_floor=s.ba_lm_diag_floor if floor_ is None
+                else floor_))
 
-        def run(iters_):
-            out_ = kf_ops.kf_opt_step(**dict(args, max_iters=iters_))
-            return out_, {k: self._np(out_[k]) for k in pull_keys}
-
-        out, small = run(iters)
+        out = run(iters)
         self._apply_kf_device_chain(out, slot)
+        ctx = dict(slot=slot, run=run, iters=iters)
+        small_dev = {k: out[k] for k in KF_PULL_KEYS}
+        if s.pipelined_frames and s.deferred_kf_readback:
+            # deferred control readback (the reference's mapping-thread
+            # overlap): the next frame tracks against constants built on
+            # the device from this optimization; the host applies mirrors,
+            # veto and telemetry at the next drain, from a copy started now
+            self._track_const = self._window_track_consts(out, slot)
+            self._deferred_kf = (self._to_host_async(small_dev), ctx)
+            return
+        self._resolve_kf_readback(
+            {k: self._np(v) for k, v in small_dev.items()}, ctx)
+
+    def _resolve_deferred_kf(self):
+        """Apply a deferred keyframe control readback (host mirrors, veto,
+        telemetry); its copy was started when the optimization ran."""
+        if self._deferred_kf is None:
+            return
+        pending, ctx = self._deferred_kf
+        self._deferred_kf = None
+        with self.telemetry.stage("kf.resolve"):
+            self._resolve_kf_readback(self._from_host(pending), ctx)
+
+    def _resolve_kf_readback(self, small, ctx):
+        """The keyframe optimization's host side: the BA step sanity veto
+        (with the optional damped retry), then the host mirrors, shells and
+        frame marginalization."""
+        s = self.s
+        slot, run = ctx["slot"], ctx["run"]
+
+        def pull(out_):
+            return {k: self._np(out_[k]) for k in KF_PULL_KEYS}
 
         def step_insane(sm):
             worst_t = worst_r = np.inf
@@ -909,8 +1156,25 @@ class FullSystem:
         if s.ba_step_veto_m > 0 and len(self.order) >= 4 \
                 and step_insane(small):
             self.telemetry.counters["ba_step_veto"] += 1
-            out, small = run(0)
+            out = None
+            if s.ba_veto_damped_retry > 0:
+                # trust-region retry: re-run BA heavily damped instead of
+                # disabling it; the binary veto stays the fail-safe
+                out = run(ctx["iters"], s.ba_veto_damped_retry)
+                small = pull(out)
+                if step_insane(small):
+                    self.telemetry.counters["ba_step_veto_hard"] += 1
+                    out = None
+            if out is None:
+                out = run(0)
+                small = pull(out)
+            # the veto replaces the BA output: re-chain the device pools
+            # and (deferred mode) the tracking constants; in deferred mode
+            # the one frame already in flight tracked against the vetoed
+            # chain, as in the JAX package
             self._apply_kf_device_chain(out, slot)
+            if s.pipelined_frames and s.deferred_kf_readback:
+                self._track_const = self._window_track_consts(out, slot)
 
         if not np.isfinite(small["energy"]):
             print("KF Tracking failed: LOST!")
@@ -1277,5 +1541,7 @@ class FullSystem:
     # ------------------------------------------------------------------
 
     def get_trajectory(self) -> np.ndarray:
-        """(n, 4, 4) camToWorld per input frame (printResult)."""
+        """(n, 4, 4) camToWorld per input frame (printResult); drains a
+        pipelined frame first."""
+        self.flush()
         return np.stack([sh["T_wc"] for sh in self.shells])

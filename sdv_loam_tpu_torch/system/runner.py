@@ -4,6 +4,8 @@ Counterpart of `sdv_loam_tpu/system/runner.py` (reference src/main.cpp:
 468-535 + 894-997): feeds a reader with `__len__` and
 `get(i) -> (image, cloud, timestamp)` to FullSystem on one device, with the
 full reset on an early initialization failure, and returns the run summary.
+A pipelined system is flushed before the summary, so the summary counts
+every frame and the trajectory is complete.
 """
 
 from __future__ import annotations
@@ -25,13 +27,9 @@ def run_sequence(reader, settings: Settings | None = None, device="cpu",
     """Run the odometry over a sequence reader on `device`.
 
     Returns (FullSystem, summary dict)."""
-    import torch
-
     settings = settings or Settings()
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" \
-        else None
-    telemetry = Telemetry(log_path=log_path, quiet=settings.debugout_runquiet,
-                          device_sync=sync)
+    # each FullSystem sets the telemetry's device wait to its own stream
+    telemetry = Telemetry(log_path=log_path, quiet=settings.debugout_runquiet)
     calib = reader.calib if not hasattr(reader, "undistorter") else \
         reader.undistorter.pyramid_calib
     if prefetch:
@@ -53,6 +51,7 @@ def run_sequence(reader, settings: Settings | None = None, device="cpu",
                 print("RESETTING!")
                 fs = FullSystem(calib, reader.sensor, settings,
                                 telemetry=telemetry, device=device)
+        fs.flush()
     finally:
         if prefetch:
             reader.close()

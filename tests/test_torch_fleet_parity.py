@@ -1,0 +1,152 @@
+"""The port's fleet path against the JAX package, on the CPU.
+
+  * hand-over parity of the batched track step: two JAX FullSystems run
+    six frames of tests/test_multi.py's two 320x96 scenes and are
+    checkpointed; the port loads both files, and the JAX MultiSystem and
+    the port's MultiSystem(batch_track=True) each take frame 6;
+  * the port's preprocess_scan_batch against the JAX package's on two
+    scans as lanes of one batch.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sdv_loam_tpu.config import ANG_RES_Y
+from sdv_loam_tpu.config import Settings as JSettings
+from sdv_loam_tpu.data.synthetic import make_sequence
+from sdv_loam_tpu.ops import lidar as jl
+from sdv_loam_tpu.system import checkpoint as jcheckpoint
+from sdv_loam_tpu.system.full_system import FullSystem as JFullSystem
+from sdv_loam_tpu.system.multi import MultiSystem as JMultiSystem
+from sdv_loam_tpu_torch.config import Settings
+from sdv_loam_tpu_torch.ops import lidar as tl
+from sdv_loam_tpu_torch.system import checkpoint as tcheckpoint
+from sdv_loam_tpu_torch.system.multi import MultiSystem
+
+# the port's CPU ops are small: one intra-op thread per test process
+# keeps parallel test workers (xdist) from oversubscribing the cores,
+# where OpenMP's spinning barriers slow every op down by orders of
+# magnitude
+torch.set_num_threads(1)
+
+SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
+                n_active_cap=2048, n_immature_cap=2048)
+
+
+@pytest.fixture(scope="module")
+def seqs():
+    return [make_sequence(n_frames=7, w=320, h=96, step=0.8, yaw_rate=yr,
+                          lidar_stride=2)
+            for yr in (0.004, 0.012)]
+
+
+@pytest.fixture(scope="module")
+def frames(seqs):
+    return [[seq.get(i) for i in range(7)] for seq in seqs]
+
+
+def _pose_diff(A, B):
+    """(translation m, rotation rad) between two poses. The angle is
+    atan2(|skew|, (trace - 1) / 2): arccos((trace - 1) / 2) cannot resolve
+    angles under ~3e-4 rad between float32 rotation matrices (their trace
+    is off by an ulp)."""
+    d = np.linalg.inv(A) @ B
+    R = d[:3, :3]
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return (float(np.linalg.norm(d[:3, 3])),
+            float(np.arctan2(0.5 * np.linalg.norm(w),
+                             0.5 * (np.trace(R) - 1.0))))
+
+
+def test_batched_track_matches_jax_multi(seqs, frames, tmp_path):
+    """Hand-over parity of the batched track step: two JAX systems run six
+    frames and are checkpointed; the port loads both, and the JAX
+    MultiSystem and the port's MultiSystem(batch_track=True) each take
+    frame 6. Each lane is held to tests/test_torch_system.py's bounds."""
+    jms, tfs = [], []
+    for k, seq in enumerate(seqs):
+        j = JFullSystem(seq.calib, seq.sensor, JSettings(**SETTINGS))
+        for i in range(6):
+            j.add_active_frame(*frames[k][i])
+        path = str(tmp_path / f"lane{k}.npz")
+        jcheckpoint.save(j, path)
+        jms.append(jcheckpoint.load(path, seq.calib, seq.sensor,
+                                    JSettings(**SETTINGS)))
+        tfs.append(tcheckpoint.load(path, seq.calib, seq.sensor,
+                                    Settings(**SETTINGS), device="cpu"))
+    JMultiSystem(jms, batch_track=True, host_workers=0).add_frames(
+        [fr[6] for fr in frames])
+    MultiSystem(tfs, batch_track=True, host_workers=0).add_frames(
+        [fr[6] for fr in frames])
+    for j, t in zip(jms, tfs):
+        assert not j.is_lost and not t.is_lost
+        dt, dr = _pose_diff(j.shells[6]["T_wc_photo"],
+                            t.shells[6]["T_wc_photo"])
+        assert dt < 1e-3 and dr < 1e-4, (dt, dr)
+        dt, dr = _pose_diff(j.shells[6]["T_wc_tracked"],
+                            t.shells[6]["T_wc_tracked"])
+        assert dt < 1e-3 and dr < 5e-4, (dt, dr)
+        assert t.shells[6]["n_matched"] == j.shells[6]["n_matched"]
+        assert t.shells[6]["n_matched"] > 10
+
+
+def _mid_bin(cloud):
+    """Move every point half a ring up (tests/test_torch_lidar.py): the
+    synthetic scans sit exactly on ring edges, where the last-ulp
+    difference between XLA's and torch's atan2 flips the ring."""
+    c = cloud.astype(np.float64)
+    r = np.linalg.norm(c, axis=1)
+    el = np.arcsin(c[:, 2] / r) + np.deg2rad(0.5 * ANG_RES_Y)
+    az = np.arctan2(c[:, 0], c[:, 1])
+    hd = r * np.cos(el)
+    return np.stack([hd * np.sin(az), hd * np.cos(az), r * np.sin(el)],
+                    -1).astype(np.float32)
+
+
+def test_preprocess_scan_batch_matches_jax(seqs):
+    """Two scans as lanes of one batch against the JAX package's
+    preprocess_scan_batch: segmentation exact, per lane."""
+    cap = 1 << 17
+    sensor = seqs[0].sensor
+    calib = seqs[0].calib
+    K = np.array([calib.fx[0], calib.fy[0], calib.cx[0], calib.cy[0]],
+                 np.float32)
+    R = np.asarray(sensor.R_cl, np.float32)
+    t = np.asarray(sensor.t_cl, np.float32)
+    bufs, masks = [], []
+    for k, seq in enumerate(seqs):
+        cloud = _mid_bin(seq.get_cloud(3 * k + 1))
+        buf = np.zeros((cap, 3), np.float32)
+        buf[:cloud.shape[0]] = cloud
+        mask = np.zeros(cap, bool)
+        mask[:cloud.shape[0]] = True
+        bufs.append(buf)
+        masks.append(mask)
+    jo = jl.preprocess_scan_batch(
+        tuple((jnp.asarray(b), jnp.asarray(m), jnp.asarray(R),
+               jnp.asarray(t), *[np.float32(x) for x in K])
+              for b, m in zip(bufs, masks)), w=320, h=96)
+    to = tl.preprocess_scan_batch(
+        torch.from_numpy(np.stack(bufs)), torch.from_numpy(np.stack(masks)),
+        torch.from_numpy(np.stack([R, R])), torch.from_numpy(np.stack([t, t])),
+        torch.from_numpy(np.stack([K, K])), w=320, h=96)
+    for lane in range(2):
+        np.testing.assert_array_equal(to["seg_mask"][lane].numpy(),
+                                      np.asarray(jo["seg_mask"][lane]))
+        np.testing.assert_array_equal(
+            np.isfinite(to["range_img"][lane].numpy()),
+            np.isfinite(np.asarray(jo["range_img"][lane])))
+        assert float(to["bbox_area"][lane]) == float(jo["bbox_area"][lane])
+        np.testing.assert_array_equal(to["depth_map"][lane].numpy() > 0,
+                                      np.asarray(jo["depth_map"][lane]) > 0)
+    # the lanes are distinct scans, and each lane is its unbatched scan
+    assert not np.array_equal(to["seg_mask"][0].numpy(),
+                              to["seg_mask"][1].numpy())
+    one = tl.preprocess_scan(torch.from_numpy(bufs[1]),
+                             torch.from_numpy(masks[1]), torch.from_numpy(R),
+                             torch.from_numpy(t), *[float(x) for x in K],
+                             320, 96)
+    for k in one:
+        assert torch.equal(one[k], to[k][1]), k

@@ -1,0 +1,158 @@
+"""The port's fleets on CPU torch: InterleavedFleet and the lockstep
+MultiSystem, against single-sequence runs of the port
+(tests/test_torch_fleet_parity.py holds them against the JAX package).
+
+Mirrors tests/test_multi.py (its two 320x96 scenes and settings). Systems
+of a fleet share only the device, so every per-sequence result must be the
+one the sequence gets alone; the batched track step folds the sequences
+into lanes of one launch stream, and each lane must come out as its
+unbatched run.
+"""
+
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from sdv_loam_tpu_torch.config import Settings
+from sdv_loam_tpu_torch.data.synthetic import make_sequence
+from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+from sdv_loam_tpu_torch.system.full_system import FullSystem
+from sdv_loam_tpu_torch.system.multi import InterleavedFleet, MultiSystem
+
+# the port's CPU ops are small: one intra-op thread per test process
+# keeps parallel test workers (xdist) from oversubscribing the cores,
+# where OpenMP's spinning barriers slow every op down by orders of
+# magnitude
+torch.set_num_threads(1)
+
+N_FRAMES = 8
+SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
+                n_active_cap=2048, n_immature_cap=2048)
+
+
+@pytest.fixture(scope="module")
+def seqs():
+    return [make_sequence(n_frames=N_FRAMES, w=320, h=96, step=0.8,
+                          yaw_rate=yr, lidar_stride=2)
+            for yr in (0.004, 0.012)]
+
+
+@pytest.fixture(scope="module")
+def frames(seqs):
+    return [[seq.get(i) for i in range(N_FRAMES)] for seq in seqs]
+
+
+def _systems(seqs, **kw):
+    return [FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS, **kw))
+            for seq in seqs]
+
+
+def _single(seq, frames, **kw):
+    fs = FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS, **kw))
+    for f in frames:
+        fs.add_active_frame(*f)
+    return fs.get_trajectory()
+
+
+def _lockstep(seqs, frames, **kw):
+    ms = MultiSystem(_systems(seqs), **kw)
+    for i in range(N_FRAMES):
+        ms.add_frames([fr[i] for fr in frames])
+    assert not ms.any_lost
+    return [fs.get_trajectory() for fs in ms.systems]
+
+
+@pytest.fixture(scope="module")
+def singles(seqs, frames):
+    return [_single(seq, fr) for seq, fr in zip(seqs, frames)]
+
+
+@pytest.fixture(scope="module")
+def lockstep_batched(seqs, frames):
+    return _lockstep(seqs, frames, batch_track=True, host_workers=0)
+
+
+def test_lockstep_matches_single(seqs, frames, singles):
+    """Without batching the lockstep only interleaves the phases of the
+    sequences: bit-identical to each sequence alone."""
+    out = _lockstep(seqs, frames, batch_track=False, host_workers=0)
+    for a, ref in zip(out, singles):
+        np.testing.assert_array_equal(a, ref)
+
+
+def test_batched_track_matches_unbatched(singles, lockstep_batched):
+    """Pyramid, LiDAR and first track attempt as lanes of one batch: each
+    lane's loops stop on their own conditions, so a lane comes out as its
+    unbatched run (the JAX package's bound)."""
+    for a, ref in zip(lockstep_batched, singles):
+        np.testing.assert_allclose(a, ref, atol=1e-5)
+
+
+def test_threaded_host_staging_matches_serial(seqs, frames,
+                                              lockstep_batched):
+    out = _lockstep(seqs, frames, batch_track=True, host_workers=2)
+    for a, ref in zip(out, lockstep_batched):
+        np.testing.assert_array_equal(a, ref)
+
+
+def test_lockstep_ragged_lengths(seqs, frames):
+    """Sequences of different lengths: finished ones pass None."""
+    ms = MultiSystem(_systems(seqs), host_workers=0)
+    for i in range(6):
+        ms.add_frames([frames[0][i], frames[1][i] if i < 4 else None])
+    assert len(ms.systems[0].shells) == 6
+    assert len(ms.systems[1].shells) == 4
+    assert not ms.any_lost
+
+
+def test_lockstep_rejects_pipelined_systems(seqs):
+    with pytest.raises(ValueError):
+        MultiSystem(_systems(seqs, pipelined_frames=True))
+
+
+def test_launch_counts_survive_threads():
+    """A threaded fleet's systems share the kernels' launch counts: their
+    read-modify-writes, interleaved as often as the interpreter allows,
+    must lose no update."""
+    n_threads, n_each = 16, 2000
+    old = sys.getswitchinterval()
+    hk.reset_launch_counts()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=lambda: [
+            hk._count_launch("dilate_depth") for _ in range(n_each)])
+            for _ in range(n_threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in ts)
+    finally:
+        sys.setswitchinterval(old)
+    assert hk.LAUNCHES["dilate_depth"] == n_threads * n_each
+    hk.reset_launch_counts()
+
+
+@pytest.fixture(scope="module")
+def pipelined_singles(seqs, frames):
+    return [_single(seq, fr, pipelined_frames=True)
+            for seq, fr in zip(seqs, frames)]
+
+
+@pytest.mark.parametrize("workers", [0, 2])
+def test_interleaved_matches_single(seqs, frames, pipelined_singles,
+                                    workers):
+    """B pipelined systems round-robined, serially or one thread each:
+    bit-identical per sequence to each system alone."""
+    fleet = InterleavedFleet(_systems(seqs, pipelined_frames=True),
+                             workers=workers)
+    for i in range(N_FRAMES):
+        fleet.add_frames([fr[i] for fr in frames])
+    fleet.flush()
+    assert not fleet.any_lost
+    for fs, ref in zip(fleet.systems, pipelined_singles):
+        assert fs._pending is None
+        np.testing.assert_array_equal(fs.get_trajectory(), ref)

@@ -5,7 +5,8 @@
     systems track frame 6. The tracked pose (before any keyframe tail,
     whose selection draws differ between the frameworks) must agree;
   * the port alone meets test_e2e.py's accuracy bounds over 12 frames;
-  * checkpoint round trip, the unported modes raise, and a static check
+  * checkpoint round trip, the unported modes (deep logs, observers,
+    camera-only frames) raise, and a static check
     that the port imports neither jax nor the JAX package.
 """
 
@@ -126,14 +127,15 @@ def test_port_checkpoint_roundtrip(port_run, seq, frames, tmp_path):
                                   port_run.get_trajectory())
 
 
-@pytest.mark.parametrize("kw", [dict(pipelined_frames=True),
-                                dict(deferred_kf_readback=True),
-                                dict(frame_pose_prior_t=1.0),
-                                dict(ba_veto_damped_retry=1e-2),
-                                dict(log_stuff=True)])
+@pytest.mark.parametrize("kw", [dict(log_stuff=True)])
 def test_unported_modes_raise(seq, kw):
     with pytest.raises(NotImplementedError):
         TFullSystem(seq.calib, seq.sensor, TSettings(**kw))
+
+
+def test_observers_raise(seq):
+    with pytest.raises(NotImplementedError):
+        TFullSystem(seq.calib, seq.sensor, TSettings(), observers=[object()])
 
 
 def test_camera_only_frame_raises(seq, frames):
