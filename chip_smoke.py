@@ -7,14 +7,17 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases (any failure exits nonzero; each prints its results):
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the Hopper kernels (csrc/*.cu, nvcc sm_90a);
-  3. kernels: K1 (dilate_depth) and K2 (distance_transform) against their
-     plain PyTorch versions on the card at the main-path shapes (exact
-     equality required), determinism of build_track_ref, and CUDA-event
-     times of kernel and plain version (median of 25);
+  3. kernels: K1 (dilate_pyramid, build_track_ref's whole 4-level chain)
+     and K2 (distance_transform) against their plain PyTorch versions on
+     the card (exact equality required) at the main-path shapes, the fast
+     preset's, odd shapes and L = 4 lanes, K2 at 32 and 64 sweeps;
+     determinism of build_track_ref; at the main-path shapes each kernel's
+     device time (torch.profiler), wrapper and plain CUDA-event times,
+     bound and share;
   4. slice: the 30-frame default-preset synthetic KITTI scene (1200x360)
      through the port's run_sequence with the default Settings on cuda;
-     requires not lost, >= 2 keyframes, ATE <= 0.10 m, and the main path's
-     kernel launch counts;
+     requires not lost, >= 2 keyframes, ATE <= 0.10 m, one K1 launch per
+     build_track_ref call and at least one K2 launch;
   5. fleet: bench.py's two default-preset scenes (16 frames each) alone in
      pipelined mode (scene A also with the deferred keyframe readback),
      then B = 4 sequences (A, B, A, B) on the card as InterleavedFleet
@@ -42,11 +45,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# K1 shapes: the four pyramid levels at the default preset (1200x360) and
-# one odd shape; K2: the level-1 grid at the default and fast presets and
-# one odd shape
-K1_SHAPES = ((360, 1200), (180, 600), (90, 300), (45, 150), (45, 70))
+# K1: level-0 shapes of build_track_ref's 4-level chain (the default and
+# fast presets and two odd shapes); K2: the level-1 grid at the default and
+# fast presets and one odd shape, at 32 and 64 sweeps
+K1_SHAPES = ((360, 1200), (320, 424), (90, 300), (45, 70))
 K2_SHAPES = ((180, 600), (160, 212), (37, 91))
+K2_ITERS = (32, 64)
+LANES = 4
+LEVELS = 4
 MAIN_K1 = (360, 1200)
 MAIN_K2 = (180, 600)
 ATE_LIMIT_M = 0.10
@@ -66,12 +72,12 @@ def _fail(msg):
     sys.exit(1)
 
 
-def sparse_splat(h, w, rng, frac=0.04):
+def sparse_splat(shape, rng, frac=0.04):
     """Realistic splat maps: ~frac of the cells filled with idepth sums and
     weights, as splat_idepth leaves them."""
-    wt = np.zeros((h, w), np.float32)
-    idp = np.zeros((h, w), np.float32)
-    m = rng.random((h, w)) < frac
+    wt = np.zeros(shape, np.float32)
+    idp = np.zeros(shape, np.float32)
+    m = rng.random(shape) < frac
     wt[m] = rng.uniform(1.0, 300.0, m.sum()).astype(np.float32)
     idp[m] = wt[m] * rng.uniform(0.01, 0.5, m.sum()).astype(np.float32)
     return idp, wt
@@ -84,88 +90,89 @@ def seed_map(h, w, rng, n_seeds=2000):
     return seed
 
 
-def time_ms(fn, n=25):
-    """Median CUDA-event time of fn() in ms over n runs (after warm-up)."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        out.append(a.elapsed_time(b))
-    return float(np.median(out))
+def _max_err(a, b):
+    return max(float((x - y).abs().max()) if x.numel() else 0.0
+               for x, y in zip(a, b))
 
 
 def check_kernels(device):
-    """Phase 3. Returns per-kernel records (max_abs_err, ms, plain_ms)."""
+    """Phase 3. Returns per-kernel records: max_abs_err over every check;
+    at the main-path shape the wrapper's CUDA-event time (ms), the device
+    time of the kernel (device_ms, torch.profiler), the plain version's
+    time, the bound and its share."""
     import torch
 
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.ops.photometric import (build_track_ref,
                                                     splat_idepth)
     from sdv_loam_tpu_torch.ops.pyramid import make_images
 
     rng = np.random.default_rng(0)
-    rec = {"dilate_depth": dict(max_abs_err=0.0),
+    rec = {"dilate_pyramid": dict(max_abs_err=0.0),
            "distance_transform": dict(max_abs_err=0.0)}
-    for (h, w) in K1_SHAPES:
-        idp, wt = sparse_splat(h, w, rng)
-        ti = torch.as_tensor(idp, device=device)
-        tw = torch.as_tensor(wt, device=device)
-        for diag in (True, False):
-            ki, kw = hk.dilate_depth(ti, tw, diagonal=diag)
-            pi, pw = hk.dilate_depth_plain(ti, tw, diagonal=diag)
-            torch.cuda.synchronize()
-            err = max(float((ki - pi).abs().max()),
-                      float((kw - pw).abs().max()))
-            rec["dilate_depth"]["max_abs_err"] = max(
-                rec["dilate_depth"]["max_abs_err"], err)
-            eq = torch.equal(ki, pi) and torch.equal(kw, pw)
-            print(f"K1 dilate_depth {h}x{w} diagonal={diag}: "
-                  f"equal={eq} max_abs_err={err}", flush=True)
-            if not eq:
-                _fail(f"K1 differs from its plain version at {h}x{w}")
-        if (h, w) in ((360, 1200), (180, 600), (90, 300), (45, 150)):
-            diag = h >= 180
-            t_k = time_ms(lambda: hk.dilate_depth(ti, tw, diagonal=diag))
-            t_p = time_ms(lambda: hk.dilate_depth_plain(ti, tw,
-                                                        diagonal=diag))
-            print(f"K1 time {h}x{w} diagonal={diag}: kernel {t_k:.4f} ms, "
-                  f"plain {t_p:.4f} ms", flush=True)
-            if (h, w) == MAIN_K1:
-                rec["dilate_depth"].update(ms=t_k, plain_ms=t_p)
-    for (h, w) in K2_SHAPES:
-        ts = torch.as_tensor(seed_map(h, w, rng), device=device)
-        kd = hk.distance_transform(ts, 32)
-        pd = hk.distance_transform_plain(ts, 32)
-        torch.cuda.synchronize()
-        err = float((kd - pd).abs().max())
-        rec["distance_transform"]["max_abs_err"] = max(
-            rec["distance_transform"]["max_abs_err"], err)
-        eq = torch.equal(kd, pd)
-        print(f"K2 distance_transform {h}x{w}: equal={eq} "
-              f"max_abs_err={err}", flush=True)
+
+    def flat(pyr):
+        return [t for lv in pyr for t in lv]
+
+    def hold(name, what, got, ref):
+        err = _max_err(got, ref)
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+        eq = all(torch.equal(a, b) for a, b in zip(got, ref))
+        print(f"{name} {what}: equal={eq} max_abs_err={err}", flush=True)
         if not eq:
-            _fail(f"K2 differs from its plain version at {h}x{w}")
-        if (h, w) != (37, 91):
-            t_k = time_ms(lambda: hk.distance_transform(ts, 32))
-            t_p = time_ms(lambda: hk.distance_transform_plain(ts, 32))
-            print(f"K2 time {h}x{w}: kernel {t_k:.4f} ms, plain "
-                  f"{t_p:.4f} ms", flush=True)
-            if (h, w) == MAIN_K2:
-                rec["distance_transform"].update(ms=t_k, plain_ms=t_p)
+            _fail(f"{name} differs from its plain version at {what}")
+
+    def times(name, kernel, plain, bound):
+        t_dev = kt.device_ms(kernel)
+        t_k = kt.wrapper_ms(kernel)
+        t_p = kt.wrapper_ms(plain)
+        share = bound[0] / t_dev if t_dev else None
+        print(f"{name} time: device {t_dev} ms, wrapper {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms, bound {bound[0]:.6f} ms "
+              f"({bound[1]}), share of the bound {share}", flush=True)
+        rec[name].update(ms=t_k, plain_ms=t_p, device_ms=t_dev,
+                         bound_ms=bound[0], bound_us=1e3 * bound[0],
+                         bound_by=bound[1], share=share, library_ms=None,
+                         library="none")
+
+    for lanes in (None, LANES):
+        for (h, w) in K1_SHAPES:
+            shape = (h, w) if lanes is None else (lanes, h, w)
+            idp, wt = sparse_splat(shape, rng)
+            ti = torch.as_tensor(idp, device=device)
+            tw = torch.as_tensor(wt, device=device)
+            got = flat(hk.dilate_pyramid(ti, tw, LEVELS))
+            ref = flat(hk.dilate_pyramid_plain(ti, tw, LEVELS))
+            torch.cuda.synchronize()
+            hold("dilate_pyramid", f"{shape} levels={LEVELS}", got, ref)
+            if lanes is None and (h, w) == MAIN_K1:
+                times("dilate_pyramid",
+                      lambda: hk.dilate_pyramid(ti, tw, LEVELS),
+                      lambda: hk.dilate_pyramid_plain(ti, tw, LEVELS),
+                      kt.dilate_pyramid_bound(1, h, w, LEVELS))
+    for lanes in (None, LANES):
+        for (h, w) in K2_SHAPES:
+            maps = np.stack([seed_map(h, w, rng)
+                             for _ in range(lanes or 1)])
+            ts = torch.as_tensor(maps if lanes else maps[0], device=device)
+            for iters in K2_ITERS:
+                got = hk.distance_transform(ts, iters)
+                ref = hk.distance_transform_plain(ts, iters)
+                torch.cuda.synchronize()
+                hold("distance_transform", f"{tuple(ts.shape)} iters={iters}",
+                     [got], [ref])
+            if lanes is None and (h, w) == MAIN_K2:
+                times("distance_transform",
+                      lambda: hk.distance_transform(ts, 32),
+                      lambda: hk.distance_transform_plain(ts, 32),
+                      kt.distance_transform_bound(1, h, w, 32))
 
     # deterministic splat + build_track_ref on the card
     h, w = MAIN_K1
     img = torch.as_tensor(rng.random((h, w)).astype(np.float32) * 255,
                           device=device)
-    dI, _ = make_images(img, 4)
+    dI, _ = make_images(img, LEVELS)
     n = 3000
     u = torch.as_tensor(rng.integers(4, w - 4, n), device=device)
     v = torch.as_tensor(rng.integers(4, h - 4, n), device=device)
@@ -177,7 +184,7 @@ def check_kernels(device):
     pools = []
     for _ in range(2):
         id0, w0 = splat_idepth(u, v, idp, wgt, ok, w, h)
-        pools.append(build_track_ref(dI, id0, w0, 4,
+        pools.append(build_track_ref(dI, id0, w0, LEVELS,
                                      cap=(6144, 4096, 2048, 1024)))
     same = all(torch.equal(a[k], b[k]) for a, b in zip(*pools)
                for k in ("u", "v", "idepth", "color", "valid"))
@@ -216,7 +223,7 @@ def run_slice(device):
     print(f"slice scene rendered in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # count build_track_ref calls on the main path (4 K1 launches each)
+    # count build_track_ref calls on the main path (one K1 launch each)
     n_build = [0]
     for mod in (full_system, kf_ops):
         orig = mod.build_track_ref
@@ -254,9 +261,9 @@ def run_slice(device):
         _fail("slice made fewer than 2 keyframes")
     if not np.isfinite(est).all() or not ate <= ATE_LIMIT_M:
         _fail(f"slice ATE {ate} m over the {ATE_LIMIT_M} m gate")
-    if not (launches["dilate_depth"] > 0
-            and launches["dilate_depth"] == 4 * n_build[0]):
-        _fail(f"dilate_depth launches {launches['dilate_depth']} != 4 x "
+    if not (launches["dilate_pyramid"] > 0
+            and launches["dilate_pyramid"] == n_build[0]):
+        _fail(f"dilate_pyramid launches {launches['dilate_pyramid']} != "
               f"{n_build[0]} build_track_ref calls")
     if launches["distance_transform"] < 1:
         _fail("distance_transform never launched on the main path")
@@ -394,7 +401,8 @@ def run_fleet(device):
                     not ln["max_abs"] <= FLEET_TRAJ_TOL:
                 _fail(f"{name} lane {b}: trajectory {ln['max_abs']} from "
                       f"its reference")
-        if launches["dilate_depth"] < 1 or launches["distance_transform"] < 1:
+        if launches["dilate_pyramid"] < 1 or \
+                launches["distance_transform"] < 1:
             _fail(f"{name}: a kernel was not launched ({launches})")
     return dict(single_pipelined_fps=single_fps,
                 references={k: {kk: v for kk, v in r.items() if kk != "traj"}
@@ -450,11 +458,11 @@ def main():
     print(f"fleet phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [
-        dict(name="dilate_depth", route="cuda",
-             source="sdv_loam_tpu_torch/csrc/dilate_depth.cu",
+        dict(name="dilate_pyramid", route="cuda",
+             source="sdv_loam_tpu_torch/csrc/dilate_pyramid.cu",
              replaces="sdv_loam_tpu/ops/pallas_kernels.py:122",
-             launches=summary["launches"]["dilate_depth"],
-             **rec["dilate_depth"]),
+             launches=summary["launches"]["dilate_pyramid"],
+             **rec["dilate_pyramid"]),
         dict(name="distance_transform", route="cuda",
              source="sdv_loam_tpu_torch/csrc/distance_transform.cu",
              replaces="sdv_loam_tpu/ops/pallas_kernels.py:67",

@@ -1,0 +1,315 @@
+"""Timing of the Hopper kernels on the card, and their bounds.
+
+Used by chip_smoke.py (phase 3) and, run as a script, to compare the
+kernels with those of an earlier checkout in one process on one card:
+
+    python3 -m sdv_loam_tpu_torch.eval.kernel_timing --baseline DIR \
+        [--out kernel_timing.json]
+
+DIR is the root of another checkout of this repository (for example
+`git archive` of the parent commit unpacked into an ignored directory).
+Its `sdv_loam_tpu_torch/ops/hopper_kernels.py` is loaded under another
+module name and builds its own kernels into DIR. The baseline is taken to
+be the single-pass K1 (`dilate_depth`, called once per level with the 2x2
+sum-pool between, as its `build_track_ref` did) and the single-map K2
+(`distance_transform`, at most 32 sweeps). Each measurement runs in the
+order baseline, current, current, baseline.
+
+Times:
+  * device_ms: the sum of the device time of every kernel and copy that
+    the call put on the card, from torch.profiler's records, over n calls,
+    divided by n;
+  * ms: the median CUDA-event time around one call of the Python wrapper
+    (host enqueue included, which dominates a call of a few microseconds).
+Bounds (the least time the card could take for the same work): the bytes
+that the function must move (each input read once, each output written
+once) over 3.35 TB/s, or its operations over 67 TFLOP/s (float32 outside
+the tensor cores), whichever is larger (the peak rates of the H100 SXM
+at 700 W).
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+# ---------------------------------------------------------------------------
+# bounds
+# ---------------------------------------------------------------------------
+
+def _level_shapes(h, w, levels):
+    shapes = [(h, w)]
+    for _ in range(levels - 1):
+        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
+    return shapes
+
+
+def dilate_pyramid_bound(lanes, h, w, levels):
+    """(bound_ms, bound_by) of K1's chain: two level-0 maps read, two maps
+    written per level; ~14 operations per output cell (12 sums, 2
+    divisions) and 6 per pooled cell."""
+    shapes = _level_shapes(h, w, levels)
+    cells = sum(hl * wl for hl, wl in shapes) * lanes
+    pooled = sum(hl * wl for hl, wl in shapes[1:]) * lanes
+    nbytes = 4 * (2 * h * w * lanes + 2 * cells)
+    ops = 14 * cells + 6 * pooled
+    return _bound(nbytes, ops)
+
+
+def distance_transform_bound(lanes, h, w, iters):
+    """(bound_ms, bound_by) of K2: the map read and written once; 6
+    operations per cell and sweep (the separable form: 4 mins, an add and
+    a min)."""
+    cells = lanes * h * w
+    return _bound(4 * 2 * cells, 6 * cells * iters)
+
+
+def _bound(nbytes, ops):
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * ops / FP32_OPS_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# timers
+# ---------------------------------------------------------------------------
+
+def wrapper_ms(fn, n=25):
+    """Median CUDA-event time in ms of one call of fn (after warm-up)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out))
+
+
+def device_ms(fn, n=50):
+    """Device time in ms of one call of fn: the kernels' and copies' own
+    durations from torch.profiler, summed over n calls, divided by n.
+    None when the profiler records no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    if not us:
+        return None
+    return float(sum(us)) / 1e3 / n
+
+
+# ---------------------------------------------------------------------------
+# current against a baseline checkout
+# ---------------------------------------------------------------------------
+
+def load_baseline(root):
+    path = os.path.join(root, "sdv_loam_tpu_torch", "ops",
+                        "hopper_kernels.py")
+    spec = importlib.util.spec_from_file_location("baseline_hopper_kernels",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod.build_library()
+    return mod
+
+
+def baseline_chain(old, idepth0, weight0, levels):
+    """The baseline's build_track_ref chain: one single-pass launch per
+    level, with the 2x2 sum-pool between them."""
+    from sdv_loam_tpu_torch.ops.hopper_kernels import sum_pool2
+    out = []
+    idl, wl = idepth0, weight0
+    for lvl in range(levels):
+        if lvl > 0:
+            idl, wl = sum_pool2(idl), sum_pool2(wl)
+        idl, wl = old.dilate_depth(idl.contiguous(), wl.contiguous(),
+                                   diagonal=(lvl < 2))
+        out.append((idl, wl))
+    return out
+
+
+def _splat(lanes, h, w, rng, frac=0.04):
+    wt = np.zeros((lanes, h, w), np.float32)
+    idp = np.zeros((lanes, h, w), np.float32)
+    m = rng.random((lanes, h, w)) < frac
+    wt[m] = rng.uniform(1.0, 300.0, m.sum()).astype(np.float32)
+    idp[m] = wt[m] * rng.uniform(0.01, 0.5, m.sum()).astype(np.float32)
+    return idp, wt
+
+
+def _seed_map(lanes, h, w, rng, n_seeds=2000):
+    seed = np.full((lanes, h * w), 1000.0, np.float32)
+    for b in range(lanes):
+        seed[b, rng.choice(h * w, min(n_seeds, h * w // 2),
+                           replace=False)] = 0.0
+    return seed.reshape(lanes, h, w)
+
+
+def _k2_forced_tile(hk, seed, iters, tile):
+    """The current K2 with its tile size forced (32 or 64) instead of
+    chosen from the work, through the C entry point."""
+    lanes, h, w = (1, *seed.shape) if seed.dim() == 2 else seed.shape
+    buf = torch.empty((2, *seed.shape), dtype=seed.dtype, device=seed.device)
+    stream = torch.cuda.current_stream(seed.device).cuda_stream
+    rc = hk._load().sdv_distance_transform(
+        seed.data_ptr(), buf[0].data_ptr(), buf[1].data_ptr(), lanes, h, w,
+        iters, tile, stream)
+    hk._check_rc(rc, "distance_transform")
+    return buf[0]
+
+
+def compare(baseline_root, dev):
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    old = load_baseline(baseline_root)
+    hk.build_library()
+    rng = np.random.default_rng(0)
+    rows = []
+
+    def both(name, shape, fn_old, fn_new, plain, bound):
+        eq = [torch.equal(a, b) for a, b in zip(plain(fn_old()),
+                                                plain(fn_new()))]
+        rec = dict(name=name, shape=shape, equal=all(eq),
+                   bound_ms=bound[0], bound_by=bound[1])
+        for tag, fn in (("baseline", fn_old), ("current", fn_new),
+                        ("current", fn_new), ("baseline", fn_old)):
+            rec.setdefault(f"{tag}_device_ms", []).append(device_ms(fn))
+            rec.setdefault(f"{tag}_ms", []).append(wrapper_ms(fn))
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+
+    def flat_pyr(p):
+        return [t for lv in p for t in lv]
+
+    for lanes, (h, w) in ((1, (360, 1200)), (1, (320, 424)),
+                          (4, (360, 1200))):
+        idp, wt = _splat(lanes, h, w, rng)
+        ti = torch.as_tensor(idp, device=dev)
+        tw = torch.as_tensor(wt, device=dev)
+        if lanes == 1:
+            ti, tw = ti[0], tw[0]
+
+        def fn_old(ti=ti, tw=tw, lanes=lanes):
+            if lanes == 1:
+                return baseline_chain(old, ti, tw, 4)
+            return [baseline_chain(old, ti[b], tw[b], 4)
+                    for b in range(lanes)]
+
+        def fn_new(ti=ti, tw=tw):
+            return hk.dilate_pyramid(ti, tw, 4)
+
+        def plain(p, lanes=lanes):
+            if lanes == 1:
+                return flat_pyr(p)
+            if isinstance(p, list):   # the baseline's per-lane chains
+                return [torch.stack([p[b][lv][k] for b in range(lanes)])
+                        for lv in range(4) for k in range(2)]
+            return flat_pyr(p)
+        both("dilate_pyramid", [lanes, h, w], fn_old, fn_new, plain,
+             dilate_pyramid_bound(lanes, h, w, 4))
+
+    for lanes, (h, w) in ((1, (180, 600)), (1, (160, 212)), (4, (180, 600))):
+        ts = torch.as_tensor(_seed_map(lanes, h, w, rng), device=dev)
+        if lanes == 1:
+            ts = ts[0]
+
+        def fn_old(ts=ts, lanes=lanes):
+            if lanes == 1:
+                return old.distance_transform(ts, 32)
+            return torch.stack([old.distance_transform(ts[b], 32)
+                                for b in range(lanes)])
+
+        def fn_new(ts=ts):
+            return hk.distance_transform(ts, 32)
+        both("distance_transform", [lanes, h, w], fn_old, fn_new,
+             lambda x: [x], distance_transform_bound(lanes, h, w, 32))
+        for tile in (32, 64):
+            rec = dict(name=f"distance_transform_tile{tile}",
+                       shape=[lanes, h, w],
+                       equal=torch.equal(_k2_forced_tile(hk, ts, 32, tile),
+                                         fn_new()),
+                       current_device_ms=device_ms(
+                           lambda: _k2_forced_tile(hk, ts, 32, tile)))
+            print(json.dumps(rec), flush=True)
+            rows.append(rec)
+
+    # where K1's and K2's device time goes: K1's chain cut after 1..3
+    # levels, K2 with one chunk of sweeps
+    idp, wt = _splat(1, 360, 1200, rng)
+    ti = torch.as_tensor(idp[0], device=dev)
+    tw = torch.as_tensor(wt[0], device=dev)
+    for levels in (1, 2, 3):
+        rec = dict(name=f"dilate_pyramid_levels{levels}", shape=[1, 360, 1200],
+                   equal=_pyr_equal(hk.dilate_pyramid(ti, tw, levels),
+                                    hk.dilate_pyramid_plain(ti, tw, levels)),
+                   current_device_ms=device_ms(
+                       lambda: hk.dilate_pyramid(ti, tw, levels)))
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+    ts = torch.as_tensor(_seed_map(1, 180, 600, rng)[0], device=dev)
+    for iters in (1, 16):
+        rec = dict(name=f"distance_transform_iters{iters}",
+                   shape=[1, 180, 600],
+                   equal=torch.equal(hk.distance_transform(ts, iters),
+                                     hk.distance_transform_plain(ts, iters)),
+                   current_device_ms=device_ms(
+                       lambda: hk.distance_transform(ts, iters)))
+        print(json.dumps(rec), flush=True)
+        rows.append(rec)
+    return rows
+
+
+def _pyr_equal(a, b):
+    return all(torch.equal(x, y) for (ai, aw), (bi, bw) in zip(a, b)
+               for x, y in ((ai, bi), (aw, bw)))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--baseline", required=True,
+                    help="root of the checkout to compare with")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        torch.cuda.get_device_name(0)
+    print(card, flush=True)
+    rows = compare(os.path.abspath(args.baseline), torch.device("cuda:0"))
+    if not all(r["equal"] for r in rows):
+        sys.exit("a kernel disagrees with the baseline")
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(card=card, rows=rows), f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,12 +3,16 @@
 Counterpart of `sdv_loam_tpu/ops/pallas_kernels.py`, whose two Pallas TPU
 kernels are both on the odometry main path:
 
-  * `dilate_depth` (K1, csrc/dilate_depth.cu) replaces `dilate_depth_pallas`:
-    one hole-filling pass of the tracking-reference depth maps, four
-    launches per `build_track_ref`;
+  * `dilate_pyramid` (K1, csrc/dilate_pyramid.cu) replaces the chain of
+    `dilate_depth_pallas` calls in `build_track_ref`: the hole-filling
+    pass of every pyramid level and the 2x2 sum-pools between them, in one
+    launch per `build_track_ref`;
   * `distance_transform` (K2, csrc/distance_transform.cu) replaces
     `distance_transform_pallas`: the chamfer distance map behind the
     activation spread test, one launch per keyframe.
+
+Both take one map (H, W) or a stack of lanes (L, H, W) and compute each
+lane as the single-map call would.
 
 Dispatch: a CPU tensor goes to the plain version beside each kernel; a CUDA
 tensor goes to the kernel, and a failed build or launch raises. There is no
@@ -19,8 +23,9 @@ plain C interface (bound with ctypes) under `sdv_loam_tpu_torch/build/`, at
 the first CUDA call, from the sources in `csrc/` only; a change of any
 source's hash builds a new library. Importing this module never needs nvcc.
 
-`LAUNCHES` counts kernel launches (plain-version calls do not count), so a
-run can show that the main path went through the kernels.
+`LAUNCHES` counts wrapper calls that launched their kernel (plain-version
+calls do not count), so a run can show that the main path went through
+the kernels.
 
 Threads: each launch goes to the calling thread's current stream (a fleet
 system's own stream), the counts are updated under a lock, and the first
@@ -38,15 +43,15 @@ import threading
 
 import torch
 
-LAUNCHES = {"dilate_depth": 0, "distance_transform": 0}
+LAUNCHES = {"dilate_pyramid": 0, "distance_transform": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("dilate_depth.cu", "distance_transform.cu")
+SOURCES = ("dilate_pyramid.cu", "distance_transform.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-DISTMAP_MAX_ITERS = 32     # the kernel's halo width (csrc/distance_transform.cu)
+DILATE_MAX_LEVELS = 8   # levels one K1 launch takes (csrc/dilate_pyramid.cu)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -70,14 +75,14 @@ def _count_launch(name: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _shift(x, dy, dx, fill):
-    """out[y, x] = x[y + dy, x + dx], `fill` outside the image."""
-    h, w = x.shape
+    """out[..., y, x] = x[..., y + dy, x + dx], `fill` outside the image."""
+    h, w = x.shape[-2:]
     out = torch.full_like(x, fill)
     ys = slice(max(0, -dy), min(h, h - dy))
     xs = slice(max(0, -dx), min(w, w - dx))
     yd = slice(max(0, dy), min(h, h + dy))
     xd = slice(max(0, dx), min(w, w + dx))
-    out[ys, xs] = x[yd, xd]
+    out[..., ys, xs] = x[..., yd, xd]
     return out
 
 
@@ -88,8 +93,8 @@ _CROSS_ORDER = ((0, -1), (0, 1), (-1, 0), (1, 0))      # r, l, d, u
 
 def dilate_depth_plain(idepth: torch.Tensor, weight: torch.Tensor,
                        diagonal: bool):
-    """One hole-filling pass, zero fill outside the image, summed in the
-    TPU kernel's order (`_dilate_kernel`)."""
+    """One hole-filling pass over (..., H, W) maps, zero fill outside the
+    image, summed in the TPU kernel's order (`_dilate_kernel`)."""
     ssum = torch.zeros_like(idepth)
     nsum = torch.zeros_like(idepth)
     cnt = torch.zeros_like(idepth)
@@ -107,20 +112,47 @@ def dilate_depth_plain(idepth: torch.Tensor, weight: torch.Tensor,
             torch.where(fill_ok, nsum / denom, weight))
 
 
+def sum_pool2(x):
+    """2x2 sum-pool of (..., H, W) maps, the odd row and column cropped."""
+    h, w = x.shape[-2:]
+    x = x[..., : (h // 2) * 2, : (w // 2) * 2]
+    # (row-0 pair) + (row-1 pair): the order XLA sums this 2x2 window in
+    # the JAX package's build_track_ref (make_images' pooling sums left to
+    # right instead), so the pools agree bit for bit
+    return ((x[..., 0::2, 0::2] + x[..., 0::2, 1::2])
+            + (x[..., 1::2, 0::2] + x[..., 1::2, 1::2]))
+
+
+def dilate_pyramid_plain(idepth0: torch.Tensor, weight0: torch.Tensor,
+                         levels: int):
+    """The hole-filling chain of `build_track_ref`: level 0 dilated, then
+    per coarser level the 2x2 sum-pool of the level above and its pass
+    (diagonal on levels 0-1, the cross on coarser ones). Returns a tuple
+    over levels of (idepth, weight), each (..., H_l, W_l)."""
+    out = []
+    idl, wl = idepth0, weight0
+    for lvl in range(levels):
+        if lvl > 0:
+            idl, wl = sum_pool2(idl), sum_pool2(wl)
+        idl, wl = dilate_depth_plain(idl, wl, diagonal=(lvl < 2))
+        out.append((idl, wl))
+    return tuple(out)
+
+
 def distance_transform_plain(seed: torch.Tensor, iters: int = 32):
-    """`iters` sweeps of 8-neighbour min-plus (+1) relaxation, 1000 outside
-    the image (`_distmap_kernel` / `distmap._relax_jnp`)."""
-    h, w = seed.shape
+    """`iters` sweeps of 8-neighbour min-plus (+1) relaxation over (..., H,
+    W) maps, 1000 outside the image (`_distmap_kernel` /
+    `distmap._relax_jnp`)."""
+    h, w = seed.shape[-2:]
     d = seed
     for _ in range(iters):
-        p = torch.nn.functional.pad(d[None, None], (1, 1, 1, 1),
-                                    value=1000.0)[0, 0]
+        p = torch.nn.functional.pad(d, (1, 1, 1, 1), value=1000.0)
         m = d
         for dy in (-1, 0, 1):
             for dx in (-1, 0, 1):
                 if dy == 0 and dx == 0:
                     continue
-                m = torch.minimum(m, p[1 + dy:1 + dy + h,
+                m = torch.minimum(m, p[..., 1 + dy:1 + dy + h,
                                        1 + dx:1 + dx + w] + 1.0)
         d = torch.minimum(d, m)
     return d
@@ -180,9 +212,11 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build_library())
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.sdv_dilate_depth.argtypes = [vp, vp, vp, vp, ci, ci, ci, vp]
-            lib.sdv_dilate_depth.restype = ci
-            lib.sdv_distance_transform.argtypes = [vp, vp, ci, ci, ci, vp]
+            lib.sdv_dilate_pyramid.argtypes = [vp, vp, vp, ci, ci, ci, ci,
+                                               vp]
+            lib.sdv_dilate_pyramid.restype = ci
+            lib.sdv_distance_transform.argtypes = [vp, vp, vp, ci, ci, ci,
+                                                   ci, ci, vp]
             lib.sdv_distance_transform.restype = ci
             _lib = lib
     return _lib
@@ -191,8 +225,9 @@ def _load():
 def _check_map(x: torch.Tensor, name: str):
     if x.dtype != torch.float32:
         raise TypeError(f"{name}: float32 required, got {x.dtype}")
-    if x.dim() != 2:
-        raise ValueError(f"{name}: (H, W) required, got {tuple(x.shape)}")
+    if x.dim() not in (2, 3):
+        raise ValueError(f"{name}: (H, W) or (L, H, W) required, got "
+                         f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: contiguous tensor required")
     if x.device.type not in ("cpu", "cuda"):
@@ -204,47 +239,76 @@ def _check_rc(rc: int, what: str):
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
+def _lanes_hw(x: torch.Tensor):
+    return (1, *x.shape) if x.dim() == 2 else tuple(x.shape)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
-def dilate_depth(idepth: torch.Tensor, weight: torch.Tensor, diagonal: bool):
-    """K1: one hole-filling pass. CPU -> plain version; CUDA -> kernel."""
-    _check_map(idepth, "idepth")
-    _check_map(weight, "weight")
-    if weight.shape != idepth.shape or weight.device != idepth.device:
-        raise ValueError("idepth and weight must share shape and device")
-    if idepth.device.type == "cpu":
-        return dilate_depth_plain(idepth, weight, diagonal)
+def dilate_pyramid(idepth0: torch.Tensor, weight0: torch.Tensor,
+                   levels: int):
+    """K1: the hole-filling chain of `build_track_ref` over (H, W) or
+    (L, H, W) level-0 splat maps; a tuple over levels of (idepth, weight)
+    with the input's leading dimensions. CPU -> plain version; CUDA -> one
+    launch, all levels in one buffer."""
+    _check_map(idepth0, "idepth0")
+    _check_map(weight0, "weight0")
+    if weight0.shape != idepth0.shape or weight0.device != idepth0.device:
+        raise ValueError("idepth0 and weight0 must share shape and device")
+    if not 1 <= levels <= DILATE_MAX_LEVELS:
+        raise ValueError(f"levels must be in [1, {DILATE_MAX_LEVELS}]")
+    if idepth0.device.type == "cpu":
+        return dilate_pyramid_plain(idepth0, weight0, levels)
     lib = _load()
-    h, w = idepth.shape
-    out_i = torch.empty_like(idepth)
-    out_w = torch.empty_like(weight)
-    with torch.cuda.device(idepth.device):
-        stream = torch.cuda.current_stream(idepth.device).cuda_stream
-        rc = lib.sdv_dilate_depth(idepth.data_ptr(), weight.data_ptr(),
-                                  out_i.data_ptr(), out_w.data_ptr(),
-                                  h, w, int(bool(diagonal)), stream)
-    _check_rc(rc, "dilate_depth")
-    _count_launch("dilate_depth")
-    return out_i, out_w
+    lanes, h, w = _lanes_hw(idepth0)
+    lead = idepth0.shape[:-2]
+    shapes = [(h, w)]
+    for _ in range(levels - 1):
+        shapes.append((shapes[-1][0] // 2, shapes[-1][1] // 2))
+    sizes = [lanes * hl * wl for hl, wl in shapes]
+    # D_0..D_{levels-1}, then the kernel's scratch: at most the pooled
+    # maps of the coarser levels, and a counter
+    buf = torch.empty(2 * sum(sizes) + 2 * sum(sizes[1:]) + 1,
+                      dtype=torch.float32, device=idepth0.device)
+    with torch.cuda.device(idepth0.device):
+        stream = torch.cuda.current_stream(idepth0.device).cuda_stream
+        rc = lib.sdv_dilate_pyramid(idepth0.data_ptr(), weight0.data_ptr(),
+                                    buf.data_ptr(), lanes, h, w, levels,
+                                    stream)
+    _check_rc(rc, "dilate_pyramid")
+    if idepth0.numel():
+        _count_launch("dilate_pyramid")
+    out, off = [], 0
+    for (hl, wl), n in zip(shapes, sizes):
+        out.append((buf[off:off + n].view(*lead, hl, wl),
+                    buf[off + n:off + 2 * n].view(*lead, hl, wl)))
+        off += 2 * n
+    return tuple(out)
 
 
 def distance_transform(seed: torch.Tensor, iters: int = 32):
-    """K2: chamfer distance transform. CPU -> plain version; CUDA ->
-    kernel (iters <= 32, the kernel's halo)."""
+    """K2: chamfer distance transform of (H, W) or (L, H, W) seed maps,
+    any `iters` >= 0. CPU -> plain version; CUDA -> kernel (one launch per
+    16 sweeps)."""
     _check_map(seed, "seed")
+    if iters < 0:
+        raise ValueError("iters must be >= 0")
     if seed.device.type == "cpu":
         return distance_transform_plain(seed, iters)
-    if not 0 <= iters <= DISTMAP_MAX_ITERS:
-        raise ValueError(f"iters must be in [0, {DISTMAP_MAX_ITERS}]")
     lib = _load()
-    h, w = seed.shape
-    out = torch.empty_like(seed)
+    lanes, h, w = _lanes_hw(seed)
+    # the output, and a scratch map that chunks of sweeps ping-pong through
+    buf = torch.empty((2, *seed.shape), dtype=torch.float32,
+                      device=seed.device)
+    out = buf[0]
     with torch.cuda.device(seed.device):
         stream = torch.cuda.current_stream(seed.device).cuda_stream
-        rc = lib.sdv_distance_transform(seed.data_ptr(), out.data_ptr(),
-                                        h, w, int(iters), stream)
+        rc = lib.sdv_distance_transform(
+            seed.data_ptr(), out.data_ptr(), buf[1].data_ptr(), lanes, h, w,
+            int(iters), 0, stream)
     _check_rc(rc, "distance_transform")
-    _count_launch("distance_transform")
+    if iters and seed.numel():   # 0 sweeps are a copy, not a launch
+        _count_launch("distance_transform")
     return out

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from sdv_loam_tpu_torch.ops.hopper_kernels import dilate_depth
+from sdv_loam_tpu_torch.ops.hopper_kernels import dilate_pyramid
 from sdv_loam_tpu_torch.ops.warp import bilinear_sample_packed, pack_bilinear
 from sdv_loam_tpu_torch.utils import se3
 
@@ -86,15 +86,6 @@ def splat_idepth(u, v, idepth, weight, valid, w: int, h: int):
     return acc_i[:w * h].reshape(h, w), acc_w[:w * h].reshape(h, w)
 
 
-def _sum_pool2(x):
-    h, w = x.shape
-    x = x[: (h // 2) * 2, : (w // 2) * 2]
-    # (row-0 pair) + (row-1 pair): the order XLA sums this 2x2 window in
-    # the JAX package's build_track_ref (make_images' pooling sums left to
-    # right instead), so the pools agree bit for bit
-    return (x[0::2, 0::2] + x[0::2, 1::2]) + (x[1::2, 0::2] + x[1::2, 1::2])
-
-
 def nonzero_fixed(mask: torch.Tensor, size: int, fill: int):
     """`jnp.nonzero(mask, size=size, fill_value=fill)` along the last
     dimension of `mask` ((n,) or (L, n), row by row): the first `size` set
@@ -122,21 +113,18 @@ def build_track_ref(dI_pyr, idepth0, weight0, levels: int,
 
     Returns a tuple over levels of dicts {u, v, idepth, color, valid, n}
     with fixed per-level capacity (`cap` int, or tuple with the last entry
-    repeated); overflow is stride-subsampled in scan order. One hole-filling
-    pass per level runs through the K1 kernel (`hopper_kernels.dilate_depth`,
-    diagonal neighbours on levels 0-1, the cross on coarser levels)."""
+    repeated); overflow is stride-subsampled in scan order. The maps of all
+    levels come from one call of the K1 kernel
+    (`hopper_kernels.dilate_pyramid`: per level a 2x2 sum-pool of the level
+    above and one hole-filling pass, diagonal neighbours on levels 0-1, the
+    cross on coarser levels)."""
     if isinstance(cap, int):
         caps = (cap,) * levels
     else:
         caps = tuple(cap) + (cap[-1],) * (levels - len(cap))
     pools = []
-    idl, wl = idepth0, weight0
-    for lvl in range(levels):
-        if lvl > 0:
-            idl = _sum_pool2(idl)
-            wl = _sum_pool2(wl)
-        idl, wl = dilate_depth(idl.contiguous(), wl.contiguous(),
-                               diagonal=(lvl < 2))
+    maps = dilate_pyramid(idepth0.contiguous(), weight0.contiguous(), levels)
+    for lvl, (idl, wl) in enumerate(maps):
         h, w = idl.shape
         dev = idl.device
         neg = torch.full((), -1.0, dtype=idl.dtype, device=dev)

@@ -66,7 +66,7 @@ def save(fs: FullSystem, path: str) -> None:
 
 
 def load(path: str, calib, sensor, settings: Settings | None = None,
-         device="cpu") -> FullSystem:
+         device="cuda") -> FullSystem:
     """Rebuild a port FullSystem on `device` from a checkpoint file; the
     per-slot pyramids and the tracking reference are re-derived on the
     device (the reference through the K1 kernel on a CUDA device)."""

@@ -116,13 +116,14 @@ def _unsupported(s: Settings, observers) -> list[str]:
 
 
 class FullSystem:
-    """The LiDAR-assisted semi-direct visual odometry system on one device."""
+    """The LiDAR-assisted semi-direct visual odometry system on one device
+    (CUDA unless the caller asks for the CPU)."""
 
     N_TRIES_CAP = 64
 
     def __init__(self, calib: PyramidCalib, sensor: SensorCalib,
                  settings: Settings | None = None, observers=None,
-                 telemetry=None, device="cpu"):
+                 telemetry=None, device="cuda"):
         s = settings or Settings()
         bad = _unsupported(s, observers)
         if bad:
@@ -132,6 +133,10 @@ class FullSystem:
         self.sensor = sensor
         self.s = s
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "FullSystem runs on CUDA by default and no CUDA device is "
+                "available; pass device='cpu' to run on the CPU")
         # every public call runs on this stream (CUDA); a fleet's systems
         # then overlap on the card instead of queueing behind each other
         self.stream = torch.cuda.Stream(self.device) \

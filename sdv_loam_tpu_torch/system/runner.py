@@ -20,11 +20,12 @@ from sdv_loam_tpu_torch.system.full_system import FullSystem
 RESET_FRAME_LIMIT = 250  # main.cpp:510-528
 
 
-def run_sequence(reader, settings: Settings | None = None, device="cpu",
+def run_sequence(reader, settings: Settings | None = None, device="cuda",
                  result_path: str | None = None,
                  log_path: str | None = None, max_frames: int | None = None,
                  allow_reset: bool = True, prefetch: bool = True):
-    """Run the odometry over a sequence reader on `device`.
+    """Run the odometry over a sequence reader on `device` (CUDA unless
+    the caller asks for the CPU).
 
     Returns (FullSystem, summary dict)."""
     settings = settings or Settings()

@@ -37,33 +37,81 @@ def cuda():
     return torch.device("cuda")
 
 
+def _pyramid_equal(a, b):
+    return all(torch.equal(x, y) for (ai, aw), (bi, bw) in zip(a, b)
+               for x, y in ((ai, bi), (aw, bw)))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(360, 1200), (180, 600), (45, 70)])
-def test_dilate_depth_kernel_matches_plain(cuda, shape):
-    idp, wt = _splat(*shape, seed=11)
+@pytest.mark.parametrize("lanes", [None, 4])
+@pytest.mark.parametrize("shape,levels", [
+    ((360, 1200), 4), ((320, 424), 4), ((45, 70), 4), ((90, 300), 1),
+    ((90, 300), 2), ((37, 91), 3), ((150, 212), 5), ((360, 1200), 6)])
+def test_dilate_pyramid_kernel_matches_plain(cuda, shape, levels, lanes):
+    maps = [_splat(*shape, seed=11 + b) for b in range(lanes or 1)]
+    idp = np.stack([m[0] for m in maps]) if lanes else maps[0][0]
+    wt = np.stack([m[1] for m in maps]) if lanes else maps[0][1]
     ti, tw = torch.from_numpy(idp).to(cuda), torch.from_numpy(wt).to(cuda)
-    before = hk.LAUNCHES["dilate_depth"]
-    for diag in (True, False):
-        ki, kw = hk.dilate_depth(ti, tw, diag)
-        pi, pw = hk.dilate_depth_plain(ti, tw, diag)
-        assert torch.equal(ki, pi) and torch.equal(kw, pw)   # exact
-    assert hk.LAUNCHES["dilate_depth"] == before + 2
+    before = hk.LAUNCHES["dilate_pyramid"]
+    got = hk.dilate_pyramid(ti, tw, levels)
+    assert hk.LAUNCHES["dilate_pyramid"] == before + 1
+    ref = hk.dilate_pyramid_plain(ti, tw, levels)
+    assert [g[0].shape for g in got] == [r[0].shape for r in ref]
+    assert _pyramid_equal(got, ref)                           # exact
 
 
 @pytest.mark.cuda
+def test_build_track_ref_launches_the_chain_once(cuda):
+    from sdv_loam_tpu_torch.ops.photometric import build_track_ref
+    from sdv_loam_tpu_torch.ops.pyramid import make_images
+    h, w = 320, 424
+    rng = np.random.default_rng(2)
+    img = torch.from_numpy(rng.random((h, w)).astype(np.float32) * 255)
+    dI, _ = make_images(img.to(cuda), 4)
+    idp, wt = _splat(h, w, seed=4)
+    before = hk.LAUNCHES["dilate_pyramid"]
+    pools = build_track_ref(dI, torch.from_numpy(idp).to(cuda),
+                            torch.from_numpy(wt).to(cuda), 4, cap=2048)
+    assert hk.LAUNCHES["dilate_pyramid"] == before + 1
+    assert len(pools) == 4 and all(int(p["n"]) > 0 for p in pools)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iters", [0, 1, 32, 40, 64])
 @pytest.mark.parametrize("shape", [(180, 600), (160, 212), (37, 91)])
-def test_distance_transform_kernel_matches_plain(cuda, shape):
-    s = torch.from_numpy(_seeds(*shape, seed=5)).to(cuda)
+def test_distance_transform_kernel_matches_plain(cuda, shape, iters):
+    s = torch.from_numpy(_seeds(*shape, seed=5, n=20)).to(cuda)
     before = hk.LAUNCHES["distance_transform"]
-    assert torch.equal(hk.distance_transform(s, 32),
-                       hk.distance_transform_plain(s, 32))     # exact
-    assert hk.LAUNCHES["distance_transform"] == before + 1
+    assert torch.equal(hk.distance_transform(s, iters),
+                       hk.distance_transform_plain(s, iters))   # exact
+    # 0 sweeps are a copy, not a launch
+    assert hk.LAUNCHES["distance_transform"] == before + (iters > 0)
+
+
+@pytest.mark.cuda
+def test_distance_transform_kernel_takes_lanes(cuda):
+    """L maps in one launch (more tiles than SMs: the 64x64 tiles), and
+    float maps that are not seeds: the separable sweep is exact for all."""
+    rng = np.random.default_rng(8)
+    s = np.stack([_seeds(180, 600, seed=b, n=30) for b in range(4)])
+    s[1] = rng.uniform(0.0, 2000.0, s[1].shape).astype(np.float32)
+    s[2, rng.random(s[2].shape) < 0.01] = np.inf
+    ts = torch.from_numpy(s).to(cuda)
+    for iters in (32, 64):
+        got = hk.distance_transform(ts, iters)
+        assert torch.equal(got, hk.distance_transform_plain(ts, iters))
+        for b in range(4):
+            assert torch.equal(got[b], hk.distance_transform(ts[b], iters))
 
 
 @pytest.mark.cuda
 def test_kernel_wrappers_raise_on_bad_input(cuda):
     x = torch.zeros((8, 8), device=cuda)
+    s = torch.from_numpy(_seeds(45, 70, seed=1, n=1)).to(cuda)
+    # beyond the halo runs in chunks: any iters, as the TPU kernel
+    assert torch.equal(hk.distance_transform(s, 64),
+                       hk.distance_transform_plain(s, 64))
     with pytest.raises(ValueError):
-        hk.distance_transform(x, 33)            # beyond the kernel's halo
+        hk.distance_transform(x, -1)
     with pytest.raises(ValueError):
-        hk.dilate_depth(x, torch.zeros((8, 9), device=cuda), True)
+        hk.dilate_pyramid(x, torch.zeros((8, 9), device=cuda), 4)

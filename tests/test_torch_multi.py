@@ -46,12 +46,13 @@ def frames(seqs):
 
 
 def _systems(seqs, **kw):
-    return [FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS, **kw))
-            for seq in seqs]
+    return [FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS, **kw),
+                       device="cpu") for seq in seqs]
 
 
 def _single(seq, frames, **kw):
-    fs = FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS, **kw))
+    fs = FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS, **kw),
+                    device="cpu")
     for f in frames:
         fs.add_active_frame(*f)
     return fs.get_trajectory()
@@ -123,7 +124,7 @@ def test_launch_counts_survive_threads():
     sys.setswitchinterval(1e-6)
     try:
         ts = [threading.Thread(target=lambda: [
-            hk._count_launch("dilate_depth") for _ in range(n_each)])
+            hk._count_launch("dilate_pyramid") for _ in range(n_each)])
             for _ in range(n_threads)]
         for t in ts:
             t.start()
@@ -132,7 +133,7 @@ def test_launch_counts_survive_threads():
         assert not any(t.is_alive() for t in ts)
     finally:
         sys.setswitchinterval(old)
-    assert hk.LAUNCHES["dilate_depth"] == n_threads * n_each
+    assert hk.LAUNCHES["dilate_pyramid"] == n_threads * n_each
     hk.reset_launch_counts()
 
 

@@ -42,7 +42,8 @@ def frames(seq):
 
 
 def _run(seq, frames, n=N_FRAMES, **kw):
-    fs = FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS, **kw))
+    fs = FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS, **kw),
+                    device="cpu")
     for f in frames[:n]:
         fs.add_active_frame(*f)
     fs.flush()
@@ -96,7 +97,7 @@ def test_pipelined_lags_one_frame(seq, frames, pipe_run):
     """Before the flush the last frame is still in flight: its shell
     exists, its pose is not yet tracked."""
     fs = FullSystem(seq.calib, seq.sensor,
-                    Settings(**SETTINGS, pipelined_frames=True))
+                    Settings(**SETTINGS, pipelined_frames=True), device="cpu")
     for f in frames[:6]:
         fs.add_active_frame(*f)
     assert fs._pending is not None and len(fs.shells) == 6

@@ -6,15 +6,18 @@
     whose selection draws differ between the frameworks) must agree;
   * the port alone meets test_e2e.py's accuracy bounds over 12 frames;
   * checkpoint round trip, the unported modes (deep logs, observers,
-    camera-only frames) raise, and a static check
+    camera-only frames) raise, the entry points run on CUDA unless told
+    otherwise (and raise without it), and a static check
     that the port imports neither jax nor the JAX package.
 """
 
 import ast
+import inspect
 import pathlib
 
 import numpy as np
 import pytest
+import torch
 
 from sdv_loam_tpu.config import Settings as JSettings
 from sdv_loam_tpu.data.synthetic import make_sequence
@@ -24,6 +27,7 @@ from sdv_loam_tpu.system.full_system import FullSystem as JFullSystem
 from sdv_loam_tpu_torch.config import Settings as TSettings
 from sdv_loam_tpu_torch.system import checkpoint as tcheckpoint
 from sdv_loam_tpu_torch.system.full_system import FullSystem as TFullSystem
+from sdv_loam_tpu_torch.system.runner import run_sequence
 
 PORT = pathlib.Path(__file__).resolve().parents[1] / "sdv_loam_tpu_torch"
 
@@ -114,7 +118,7 @@ def test_port_checkpoint_roundtrip(port_run, seq, frames, tmp_path):
     path = str(tmp_path / "port.npz")
     tcheckpoint.save(port_run, path)
     back = tcheckpoint.load(path, seq.calib, seq.sensor,
-                            TSettings(**SETTINGS))
+                            TSettings(**SETTINGS), device="cpu")
     assert back.order == port_run.order
     np.testing.assert_array_equal(back.pt_valid, port_run.pt_valid)
     np.testing.assert_array_equal(back.HM, port_run.HM)
@@ -130,18 +134,37 @@ def test_port_checkpoint_roundtrip(port_run, seq, frames, tmp_path):
 @pytest.mark.parametrize("kw", [dict(log_stuff=True)])
 def test_unported_modes_raise(seq, kw):
     with pytest.raises(NotImplementedError):
-        TFullSystem(seq.calib, seq.sensor, TSettings(**kw))
+        TFullSystem(seq.calib, seq.sensor, TSettings(**kw), device="cpu")
 
 
 def test_observers_raise(seq):
     with pytest.raises(NotImplementedError):
-        TFullSystem(seq.calib, seq.sensor, TSettings(), observers=[object()])
+        TFullSystem(seq.calib, seq.sensor, TSettings(), observers=[object()],
+                    device="cpu")
 
 
 def test_camera_only_frame_raises(seq, frames):
-    fs = TFullSystem(seq.calib, seq.sensor, TSettings(**SETTINGS))
+    fs = TFullSystem(seq.calib, seq.sensor, TSettings(**SETTINGS),
+                     device="cpu")
     with pytest.raises(NotImplementedError):
         fs.add_active_frame(frames[0][0], None, 0.0)
+
+
+def test_entry_points_default_to_cuda(port_run, seq, tmp_path, monkeypatch):
+    """FullSystem, run_sequence and checkpoint.load run on CUDA unless the
+    caller asks for the CPU; without a CUDA device they raise instead of
+    carrying on on the CPU."""
+    for fn in (TFullSystem.__init__, run_sequence, tcheckpoint.load):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    path = str(tmp_path / "port.npz")
+    tcheckpoint.save(port_run, path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TFullSystem(seq.calib, seq.sensor)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sequence(seq, TSettings(**SETTINGS), prefetch=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcheckpoint.load(path, seq.calib, seq.sensor, TSettings(**SETTINGS))
 
 
 def test_port_imports_no_jax():
