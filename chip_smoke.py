@@ -10,10 +10,12 @@ Phases (any failure exits nonzero; each prints its results):
   3. kernels: K1 (dilate_pyramid, build_track_ref's whole 4-level chain)
      and K2 (distance_transform) against their plain PyTorch versions on
      the card (exact equality required) at the main-path shapes, the fast
-     preset's, odd shapes and L = 4 lanes, K2 at 32 and 64 sweeps;
-     determinism of build_track_ref; at the main-path shapes each kernel's
-     device time (torch.profiler), wrapper and plain CUDA-event times,
-     bound and share;
+     preset's, odd shapes and L = 4 lanes, K2 at 32 and 64 sweeps; at the
+     main-path shapes each lane of an L = 4 launch against its one-lane
+     launch (exact); determinism of build_track_ref; at the main-path
+     shapes each kernel's device time (torch.profiler), wrapper and plain
+     CUDA-event times, bound and share; the CUDA kernels behind the
+     windowed BA's dense solve (one window, and four in one batched call);
   4. slice: the 30-frame default-preset synthetic KITTI scene (1200x360)
      through the port's run_sequence with the default Settings on cuda;
      requires not lost, >= 2 keyframes, ATE <= 0.10 m, one K1 launch per
@@ -22,12 +24,17 @@ Phases (any failure exits nonzero; each prints its results):
      pipelined mode (scene A also with the deferred keyframe readback),
      then B = 4 sequences (A, B, A, B) on the card as InterleavedFleet
      (serial, and one thread and stream per system) and as the lockstep
-     MultiSystem with batched pyramid, LiDAR and track (host work on one
+     MultiSystem: unbatched (every stage per sequence), and batched
+     (pyramid, LiDAR, track, trace, selection, activation and the keyframe
+     optimization as lanes of one call per round; host work on one
      thread, the CUDA default, and on a thread per system); requires every
-     lane not lost, ATE <= 0.10 m, its scene's keyframe count, and (for
-     the interleaved fleets) its scene's trajectory to 1e-5; prints
-     aggregate frames/s, scaling efficiency, peak memory and kernel
-     launches per composition;
+     lane not lost, ATE <= 0.10 m, its scene's keyframe count, (for the
+     interleaved fleets) its scene's trajectory to 1e-5, and of the
+     batched lockstep K1 and K2 launches that took two lanes or more and
+     fewer K1 launches than its lanes made keyframes; prints aggregate
+     frames/s, scaling efficiency, peak memory, kernel launches and the
+     lanes they took, and the keyframe stages' ms per frame per
+     composition;
 then one JSON line with the kernels, and the device JSON as the last line.
 The script imports nothing of JAX.
 """
@@ -65,6 +72,10 @@ FLEET_SCENES = {"A": dict(seed=7, yaw_rate=0.004),
 FLEET_FRAMES = 16
 FLEET_B = 4
 FLEET_TRAJ_TOL = 1e-5
+# the stages phase 5 reports per composition: per sequence, and batched
+STAGES = ("track", "track.batch", "trace", "trace.batch", "keyframe",
+          "kf.select", "kf.select.batch", "kf.activate", "kf.activate.batch",
+          "kf.opt", "kf.opt.batch")
 
 
 def _fail(msg):
@@ -146,6 +157,11 @@ def check_kernels(device):
             ref = flat(hk.dilate_pyramid_plain(ti, tw, LEVELS))
             torch.cuda.synchronize()
             hold("dilate_pyramid", f"{shape} levels={LEVELS}", got, ref)
+            if lanes and (h, w) == MAIN_K1:
+                one = [flat(hk.dilate_pyramid(ti[j], tw[j], LEVELS))
+                       for j in range(lanes)]
+                hold("dilate_pyramid", f"{shape} lanes against one-lane "
+                     "launches", got, [torch.stack(x) for x in zip(*one)])
             if lanes is None and (h, w) == MAIN_K1:
                 times("dilate_pyramid",
                       lambda: hk.dilate_pyramid(ti, tw, LEVELS),
@@ -162,6 +178,12 @@ def check_kernels(device):
                 torch.cuda.synchronize()
                 hold("distance_transform", f"{tuple(ts.shape)} iters={iters}",
                      [got], [ref])
+                if lanes and (h, w) == MAIN_K2:
+                    one = torch.stack([hk.distance_transform(ts[j], iters)
+                                       for j in range(lanes)])
+                    hold("distance_transform", f"{tuple(ts.shape)} "
+                         f"iters={iters} lanes against one-lane launches",
+                         [got], [one])
             if lanes is None and (h, w) == MAIN_K2:
                 times("distance_transform",
                       lambda: hk.distance_transform(ts, 32),
@@ -192,6 +214,45 @@ def check_kernels(device):
     if not same:
         _fail("build_track_ref is not deterministic on the card")
     return rec
+
+
+def solver_kernels(device):
+    """The CUDA kernels behind the windowed BA's dense solve
+    (`torch.linalg.solve_ex` on the (D, D) system, D = 4 + 6 * 8): one
+    window, as the lane form calls it lane by lane, and four windows in one
+    batched call, which PyTorch may route to another library."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    D = 4 + 6 * 8
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(4, D, D)).astype(np.float32)
+    A = torch.as_tensor(a @ a.transpose(0, 2, 1) + D * np.eye(D,
+                        dtype=np.float32), device=device)
+    b = torch.as_tensor(rng.normal(size=(4, D)).astype(np.float32),
+                        device=device)
+    names = {}
+    for what, fn in (("one window", lambda: torch.linalg.solve_ex(A[0],
+                                                                  b[0])),
+                     ("four windows batched",
+                      lambda: torch.linalg.solve_ex(A, b))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # the library's kernels: not PyTorch's own, not runtime calls
+        names[what] = sorted(
+            {e.key.split("(")[0].replace("void ", "")
+             for e in prof.key_averages()
+             if not any(x in e.key for x in ("at::native", "cuda", "Mem",
+                                             "Activity"))})
+        print(f"BA solve kernels, {what}: {names[what]}", flush=True)
+    one = torch.stack([torch.linalg.solve_ex(A[j], b[j])[0]
+                       for j in range(4)])
+    print("BA solve: lane by lane equals the batched call: "
+          f"{torch.equal(one, torch.linalg.solve_ex(A, b)[0])}", flush=True)
+    return names
 
 
 def run_slice(device):
@@ -350,6 +411,8 @@ def run_fleet(device):
         ("interleaved_threads",
          lambda: InterleavedFleet([system(x, pipelined_frames=True)
                                    for x in lanes], workers=FLEET_B)),
+        ("lockstep_unbatched",
+         lambda: MultiSystem([system(x) for x in lanes], batch_track=False)),
         ("lockstep_batched",
          lambda: MultiSystem([system(x) for x in lanes], batch_track=True)),
         # the same lockstep with its per-sequence host work on one thread
@@ -374,11 +437,24 @@ def run_fleet(device):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(hk.LAUNCHES)
+        kernel_lanes = dict(hk.LANES)
         agg = FLEET_B * n / wall
+        # host-clock ms per frame of the keyframe stages, the mean over the
+        # fleet's systems (a batched stage's time is entered on each of
+        # its lanes)
+        stage_ms = {k: 1000.0 * float(np.mean(
+            [fs.telemetry.stage_time.get(k, 0.0) for fs in fleet.systems]))
+            / n for k in STAGES}
+        # windowed-LM iterations: each lane's own, and (batched lockstep)
+        # the ones its batched calls ran, the group's largest count
+        counters = [fs.telemetry.counters for fs in fleet.systems]
+        lm = dict(own=sum(c["ba_lm_iters"] for c in counters),
+                  fleet=sum(c["ba_lm_iters_fleet"] for c in counters))
         rec = dict(wall_s=wall, aggregate_fps=agg,
                    scaling_efficiency=agg / (FLEET_B * single_fps),
                    peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
-                   launches=launches, lanes=[])
+                   launches=launches, kernel_lanes=kernel_lanes,
+                   stage_ms_per_frame=stage_ms, lm_iters=lm, lanes=[])
         for x, fs, traj in zip(lanes, fleet.systems, trajs):
             dt = dr = 0.0
             for a, b in zip(traj, refs[x]["traj"]):
@@ -404,6 +480,16 @@ def run_fleet(device):
         if launches["dilate_pyramid"] < 1 or \
                 launches["distance_transform"] < 1:
             _fail(f"{name}: a kernel was not launched ({launches})")
+        if name.startswith("lockstep_batched"):
+            n_kf = sum(ln["n_kf"] for ln in rec["lanes"])
+            for k in launches:
+                if not kernel_lanes[k] > launches[k]:
+                    _fail(f"{name}: {k} never took two lanes or more "
+                          f"({launches[k]} launches, {kernel_lanes[k]} "
+                          "lanes)")
+            if not launches["dilate_pyramid"] < n_kf:
+                _fail(f"{name}: {launches['dilate_pyramid']} K1 launches "
+                      f"for {n_kf} keyframes")
     return dict(single_pipelined_fps=single_fps,
                 references={k: {kk: v for kk, v in r.items() if kk != "traj"}
                             for k, r in refs.items()},
@@ -435,6 +521,8 @@ def main():
     # 3. kernels against their plain versions
     rec = check_kernels(device)
 
+    solver_kernels(device)
+
     # 4. the slice
     summary = run_slice(device)
     print(f"slice ATE {summary['ate_m']:.4f} m, keyframes "
@@ -453,8 +541,12 @@ def main():
               f"{fleet['single_pipelined_fps']:.3f} frames/s, scaling "
               f"efficiency {r['scaling_efficiency']:.3f}, peak memory "
               f"{r['peak_mem_bytes'] / 2**20:.1f} MiB, launches "
-              f"{r['launches']}, largest difference from the references "
-              f"{worst[0]:.3g} m / {worst[1]:.3g} rad", flush=True)
+              f"{r['launches']}, lanes {r['kernel_lanes']}, LM iterations "
+              f"{r['lm_iters']}, largest "
+              f"difference from the references {worst[0]:.3g} m / "
+              f"{worst[1]:.3g} rad, stage ms/frame "
+              f"{ {k: round(v, 3) for k, v in r['stage_ms_per_frame'].items() if v} }",
+              flush=True)
     print(f"fleet phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     kernels = [

@@ -308,50 +308,94 @@ def reproject_and_match_multi(pts_u, pts_v, pts_idepth, pts_host, pts_type,
                               dI0_stack, flat_pyr_stack, offsets, widths,
                               heights, T_wc_targets, aff_targets,
                               exposure_targets, K, ref_idx_stack,
-                              w: int, h: int, max_level: int,
-                              per_cell: bool = True,
-                              lane_cap_frac: float = 1.0,
-                              lane_cap: int = 0,
-                              closest_view: bool = False,
-                              frame_valid=None,
-                              exclude_slots=None,
-                              closest_view_margin=0.0,
-                              closest_view_sensor_only=False,
-                              n_iter: int = 10, target_mask=None,
-                              quad_stack=None):
+                              target_mask=None, **kw):
     """Match the point pool into several target frames (the keyframe
     matcher refresh's pass 2). flat_pyr_stack: list of S flat pyramids (None
     for targets that are skipped); `target_mask` (S,) bool host list of the
     targets to run — skipped targets return unmatched rows, which is what
-    the caller's mask makes of them anyway. Returns dict(matched (S, N),
+    the caller's mask makes of them anyway. Lane 0 of
+    `reproject_and_match_multi_lanes`. Returns dict(matched (S, N),
     px (S, N, 2), overflow (S,), diag (S, 5))."""
     S = T_wc_targets.shape[0]
-    N = pts_u.shape[0]
+    mask = [True] * S if target_mask is None else list(target_mask)
+    stand_in = next((f for f in flat_pyr_stack if f is not None), None)
+    flats = [None if f is None and stand_in is None
+             else (stand_in if f is None else f)[None]
+             for f in flat_pyr_stack]
+    mask = [m and f is not None for m, f in zip(mask, flat_pyr_stack)]
+    out = reproject_and_match_multi_lanes(
+        *(x[None] for x in (pts_u, pts_v, pts_idepth, pts_host, pts_type,
+                            pts_valid, pts_quality, pts_is_sensor,
+                            T_wc_stack, aff_stack, exposure_stack,
+                            dI0_stack)),
+        flats, offsets, widths, heights,
+        *(torch.as_tensor(x, device=pts_u.device)[None]
+          for x in (T_wc_targets, aff_targets, exposure_targets, K)),
+        ref_idx_stack[None], target_mask=[mask], **kw)
+    return {k: v[0] for k, v in out.items()}
+
+
+def reproject_and_match_multi_lanes(pts_u, pts_v, pts_idepth, pts_host,
+                                    pts_type, pts_valid, pts_quality,
+                                    pts_is_sensor, T_wc_stack, aff_stack,
+                                    exposure_stack, dI0_stack, flat_pyr_lanes,
+                                    offsets, widths, heights, T_wc_targets,
+                                    aff_targets, exposure_targets, K,
+                                    ref_idx_stack, w: int, h: int,
+                                    max_level: int, per_cell: bool = True,
+                                    lane_cap_frac: float = 1.0,
+                                    lane_cap: int = 0,
+                                    closest_view: bool = False,
+                                    frame_valid=None, exclude_slots=None,
+                                    closest_view_margin=0.0,
+                                    closest_view_sensor_only=False,
+                                    n_iter: int = 10, target_mask=None,
+                                    quad_stack=None):
+    """`reproject_and_match_multi` of L lanes: every argument carries a
+    leading L (targets (L, S, ...), ref_idx_stack (L, S, N)), and
+    `flat_pyr_lanes[s]` is the (L, T, 3) stack of the lanes' flat pyramids
+    of target s (None when no lane runs it; a lane that skips s may hold any
+    stand-in of the right shape). `target_mask` is an (L, S) host bool
+    array. Each target index runs once for all lanes through
+    `reproject_and_match_lanes`; a lane that skips the target gets
+    unmatched rows, zero overflow and zero diagnostics."""
+    L, N = pts_u.shape
+    S = T_wc_targets.shape[1]
     dev = pts_u.device
+    mask = [[True] * S] * L if target_mask is None else \
+        [list(m) for m in target_mask]
     if quad_stack is None:
         quad_stack = stack_quads(dI0_stack)
-    matched = torch.zeros((S, N), dtype=torch.bool, device=dev)
-    px = torch.zeros((S, N, 2), dtype=torch.float32, device=dev)
-    overflow = torch.zeros(S, dtype=torch.int64, device=dev)
-    diag = torch.zeros((S, 5), dtype=torch.int64, device=dev)
+    matched = torch.zeros((L, S, N), dtype=torch.bool, device=dev)
+    px = torch.zeros((L, S, N, 2), dtype=torch.float32, device=dev)
+    overflow = torch.zeros((L, S), dtype=torch.int64, device=dev)
+    diag = torch.zeros((L, S, 5), dtype=torch.int64, device=dev)
     for s in range(S):
-        if target_mask is not None and not target_mask[s]:
+        run = [bool(m[s]) for m in mask]
+        if not any(run):
             continue
         excl = -1 if exclude_slots is None else int(exclude_slots[s])
-        out = reproject_and_match(
+        out = reproject_and_match_lanes(
             pts_u, pts_v, pts_idepth, pts_host, pts_type, pts_valid,
             pts_quality, pts_is_sensor, T_wc_stack, aff_stack,
-            exposure_stack, dI0_stack, flat_pyr_stack[s], offsets, widths,
-            heights, T_wc_targets[s], aff_targets[s], exposure_targets[s], K,
-            ref_idx_stack[s], w=w, h=h, max_level=max_level,
-            per_cell=per_cell, lane_cap_frac=lane_cap_frac,
-            lane_cap=lane_cap, closest_view=closest_view,
-            frame_valid=frame_valid, exclude_slot=excl,
-            closest_view_margin=closest_view_margin,
+            exposure_stack, dI0_stack, flat_pyr_lanes[s], offsets, widths,
+            heights, T_wc_targets[:, s], aff_targets[:, s],
+            exposure_targets[:, s], K, ref_idx_stack[:, s], w=w, h=h,
+            max_level=max_level, per_cell=per_cell,
+            lane_cap_frac=lane_cap_frac, lane_cap=lane_cap,
+            closest_view=closest_view, frame_valid=frame_valid,
+            exclude_slot=excl, closest_view_margin=closest_view_margin,
             closest_view_sensor_only=closest_view_sensor_only,
             n_iter=n_iter, quad_stack=quad_stack)
-        matched[s] = out["matched"]
-        px[s] = out["px"]
-        overflow[s] = out["overflow"]
-        diag[s] = out["diag"]
+        if all(run):
+            matched[:, s] = out["matched"]
+            px[:, s] = out["px"]
+            overflow[:, s] = out["overflow"]
+            diag[:, s] = out["diag"]
+            continue
+        on = torch.as_tensor(run, device=dev)
+        matched[:, s] = out["matched"] & on[:, None]
+        px[:, s] = torch.where(on[:, None, None], out["px"], px[:, s])
+        overflow[:, s] = torch.where(on, out["overflow"], overflow[:, s])
+        diag[:, s] = torch.where(on[:, None], out["diag"], diag[:, s])
     return dict(matched=matched, px=px, overflow=overflow, diag=diag)

@@ -25,7 +25,8 @@ source's hash builds a new library. Importing this module never needs nvcc.
 
 `LAUNCHES` counts wrapper calls that launched their kernel (plain-version
 calls do not count), so a run can show that the main path went through
-the kernels.
+the kernels; `LANES` counts the lanes (maps) those launches took, so a
+fleet run can show its launches took several sequences at once.
 
 Threads: each launch goes to the calling thread's current stream (a fleet
 system's own stream), the counts are updated under a lock, and the first
@@ -44,6 +45,7 @@ import threading
 import torch
 
 LAUNCHES = {"dilate_pyramid": 0, "distance_transform": 0}
+LANES = {"dilate_pyramid": 0, "distance_transform": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -62,11 +64,13 @@ def reset_launch_counts() -> None:
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+            LANES[k] = 0
 
 
-def _count_launch(name: str) -> None:
+def _count_launch(name: str, lanes: int = 1) -> None:
     with _count_lock:
         LAUNCHES[name] += 1
+        LANES[name] += lanes
 
 
 # ---------------------------------------------------------------------------
@@ -279,7 +283,7 @@ def dilate_pyramid(idepth0: torch.Tensor, weight0: torch.Tensor,
                                     stream)
     _check_rc(rc, "dilate_pyramid")
     if idepth0.numel():
-        _count_launch("dilate_pyramid")
+        _count_launch("dilate_pyramid", lanes)
     out, off = [], 0
     for (hl, wl), n in zip(shapes, sizes):
         out.append((buf[off:off + n].view(*lead, hl, wl),
@@ -310,5 +314,5 @@ def distance_transform(seed: torch.Tensor, iters: int = 32):
             int(iters), 0, stream)
     _check_rc(rc, "distance_transform")
     if iters and seed.numel():   # 0 sweeps are a copy, not a launch
-        _count_launch("distance_transform")
+        _count_launch("distance_transform", lanes)
     return out

@@ -52,20 +52,33 @@ def aff_transfer(exposure_ref, exposure_new, aff_ref, aff_new):
 
 def splat_idepth(u, v, idepth, weight, valid, w: int, h: int):
     """Scatter-add inverse depths into level-0 maps (makeCoarseDepthL0).
+    Points (N,) -> (h, w) maps, or L lanes of points (L, N) -> (L, h, w).
 
     Deterministic, and each cell sums its points in point order (the JAX
     CPU order): a stable sort groups the points of a cell, and the r-th
     point of every cell is added in round r, where no two writes share a
-    cell. No atomics and no process-wide deterministic-algorithms switch,
-    so systems on other threads are never affected."""
+    cell. Each lane has cells of its own (index offset by lane * (w*h+1)),
+    so a lane sums exactly as it would alone. No atomics and no
+    process-wide deterministic-algorithms switch, so systems on other
+    threads are never affected."""
+    if u.dim() == 1:
+        out = splat_idepth(u[None], v[None], idepth[None], weight[None],
+                           valid[None], w, h)
+        return out[0][0], out[1][0]
+    L = u.shape[0]
     dev = u.device
-    idx = torch.where(valid, v.to(torch.int64) * w + u.to(torch.int64),
-                      torch.full_like(u, w * h, dtype=torch.int64))
+    cells = w * h + 1                    # the lane's cells and its spare
+    lane0 = (torch.arange(L, device=dev) * cells)[:, None]
+    idx = lane0 + torch.where(
+        valid, v.to(torch.int64) * w + u.to(torch.int64),
+        torch.full_like(u, w * h, dtype=torch.int64))
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     vi = torch.where(valid, (idepth * weight).to(torch.float32), zero)
     vw = torch.where(valid, weight.to(torch.float32), zero)
-    acc_i = torch.zeros(w * h + 1, dtype=torch.float32, device=dev)
-    acc_w = torch.zeros(w * h + 1, dtype=torch.float32, device=dev)
+    dump = L * cells
+    acc_i = torch.zeros(dump + 1, dtype=torch.float32, device=dev)
+    acc_w = torch.zeros(dump + 1, dtype=torch.float32, device=dev)
+    idx, vi, vw = idx.reshape(-1), vi.reshape(-1), vw.reshape(-1)
     n = idx.shape[0]
     if n:
         order = torch.sort(idx, stable=True).indices
@@ -75,15 +88,18 @@ def splat_idepth(u, v, idepth, weight, valid, w: int, h: int):
         start[1:] = idx_s[1:] != idx_s[:-1]
         seg0 = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
                             0).values
-        live = idx_s < w * h
+        live = torch.remainder(idx_s, cells) < w * h
         rank = torch.where(live, pos - seg0, torch.full_like(pos, -1))
         vi_s, vw_s = vi[order], vw[order]
-        dump = torch.full_like(idx_s, w * h)
+        spill = torch.full_like(idx_s, dump)
         for r in range(int(rank.max()) + 1):
-            tgt = torch.where(rank == r, idx_s, dump)
+            tgt = torch.where(rank == r, idx_s, spill)
             acc_i[tgt] = acc_i[tgt] + vi_s
             acc_w[tgt] = acc_w[tgt] + vw_s
-    return acc_i[:w * h].reshape(h, w), acc_w[:w * h].reshape(h, w)
+
+    def maps(acc):
+        return acc[:dump].reshape(L, cells)[:, :w * h].reshape(L, h, w)
+    return maps(acc_i), maps(acc_w)
 
 
 def nonzero_fixed(mask: torch.Tensor, size: int, fill: int):
@@ -117,7 +133,16 @@ def build_track_ref(dI_pyr, idepth0, weight0, levels: int,
     levels come from one call of the K1 kernel
     (`hopper_kernels.dilate_pyramid`: per level a 2x2 sum-pool of the level
     above and one hole-filling pass, diagonal neighbours on levels 0-1, the
-    cross on coarser levels)."""
+    cross on coarser levels).
+
+    Lanes: with (L, H, W) splat maps and (L, h_l, w_l, 3) pyramid levels,
+    one K1 launch takes every lane, each lane's pools are compacted on
+    their own, and every field carries a leading L; (H, W) maps run as
+    lane 0."""
+    if idepth0.dim() == 2:
+        pools = build_track_ref([d[None] for d in dI_pyr], idepth0[None],
+                                weight0[None], levels, cap)
+        return tuple({k: x[0] for k, x in p.items()} for p in pools)
     if isinstance(cap, int):
         caps = (cap,) * levels
     else:
@@ -125,7 +150,7 @@ def build_track_ref(dI_pyr, idepth0, weight0, levels: int,
     pools = []
     maps = dilate_pyramid(idepth0.contiguous(), weight0.contiguous(), levels)
     for lvl, (idl, wl) in enumerate(maps):
-        h, w = idl.shape
+        L, h, w = idl.shape
         dev = idl.device
         neg = torch.full((), -1.0, dtype=idl.dtype, device=dev)
         norm_id = torch.where(wl > 0, idl / torch.clamp(wl, min=1e-12), neg)
@@ -135,19 +160,19 @@ def build_track_ref(dI_pyr, idepth0, weight0, levels: int,
         interior = (xx >= 2) & (xx < w - 2) & (yy >= 2) & (yy < h - 2)
         good = interior & (norm_id > 0) & torch.isfinite(color)
         c = min(caps[lvl], w * h)
-        gf = good.reshape(-1)
-        n_all = gf.sum()
+        gf = good.reshape(L, -1)
+        n_all = gf.sum(-1, keepdim=True)
         stride = torch.clamp((n_all + c - 1) // c, min=1)
-        rank = torch.cumsum(gf.to(torch.int64), 0) - 1
+        rank = torch.cumsum(gf.to(torch.int64), 1) - 1
         keep = gf & (torch.remainder(rank, stride) == 0)
         flat_idx = nonzero_fixed(keep, c, w * h - 1)
-        n = keep.sum()
-        slot_valid = torch.arange(c, device=dev) < n
+        n = keep.sum(-1)
+        slot_valid = torch.arange(c, device=dev) < n[:, None]
         pools.append(dict(
             u=(flat_idx % w).to(torch.float32),
             v=(flat_idx // w).to(torch.float32),
-            idepth=norm_id.reshape(-1)[flat_idx],
-            color=color.reshape(-1)[flat_idx],
+            idepth=norm_id.reshape(L, -1).gather(1, flat_idx),
+            color=color.reshape(L, -1).gather(1, flat_idx),
             valid=slot_valid, n=n))
     return tuple(pools)
 

@@ -64,13 +64,3 @@ def bilinear_sample_packed(packed: torch.Tensor, h: int, w: int,
     if c == 1:
         out = out[..., 0]
     return out, valid
-
-
-def gather_patches(img: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor,
-                   offsets: torch.Tensor):
-    """Bilinear-sample a fixed (P, 2) offset pattern around each center.
-    Returns (N, P[, C]) samples and (N, P) validity."""
-    ox = offsets[:, 0].to(torch.float32)
-    oy = offsets[:, 1].to(torch.float32)
-    return bilinear_sample(img, cx[:, None] + ox[None, :],
-                           cy[:, None] + oy[None, :])

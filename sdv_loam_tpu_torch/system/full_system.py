@@ -31,7 +31,15 @@ retry ladder) and `_finish` (keyframe decision, trace or keyframe tail).
     against window constants built on the device from its outputs;
   * the lockstep fleet (`system.multi.MultiSystem`) runs the phases of B
     sequential systems side by side and batches the pyramid, LiDAR and
-    first track attempt over them.
+    first track attempt over them, then, past the keyframe decision, the
+    keyframe tail's stages: trace, selection, activation and the keyframe
+    optimization. Each of those stages is a pair of methods, one that
+    builds the device request from the host state and one that applies
+    the device result (`_trace_request` / `_trace_result`,
+    `_select_steps` / `_new_traces_result`, `_activate_request` /
+    `_activate_result`, `_kf_opt_request` / `_kf_opt_result`), so a
+    fleet can run the requests of several systems as lanes of one call
+    while the host bookkeeping between the stages stays per sequence.
 
 The JAX package's generator/yield protocol (which batches readbacks over a
 TPU link) is not ported. On CUDA every public call runs on the system's own
@@ -59,7 +67,9 @@ from sdv_loam_tpu_torch.ops.frame_step import track_frame_step
 from sdv_loam_tpu_torch.ops.photometric import build_track_ref, splat_idepth
 from sdv_loam_tpu_torch.ops.pyramid import make_images
 from sdv_loam_tpu_torch.ops.select import (cascade_direction_draws,
-                                           make_maps_compact)
+                                           drive_steps, make_maps_compact,
+                                           make_maps_compact_steps,
+                                           run_select)
 from sdv_loam_tpu_torch.system import kf_ops
 from sdv_loam_tpu_torch.utils import se3
 from sdv_loam_tpu_torch.utils.camera import PyramidCalib
@@ -75,7 +85,10 @@ KF_PULL_KEYS = ("eps", "calib", "T_cw_fej", "feth", "energy", "HM", "bM",
                 "stats_out", "idepth", "new_state", "pt_valid",
                 "num_good_res", "idepth_hessian", "res_active",
                 "match_overflow", "match_diag", "match_diag_p2", "res_diag",
-                "death_diag")
+                "death_diag", "lm_iters")
+# activation outputs the host reads back
+ACT_PULL_KEYS = ("dead", "kill", "drop_oob", "cand_idx", "lane_valid",
+                 "success", "idepth", "inlier_targets")
 
 
 def _rotation_ladder(rot_delta=0.02):
@@ -336,6 +349,12 @@ class FullSystem:
         return cascade_direction_draws(self.h, self.w, pot, self._gen,
                                        self.device)
 
+    def _dir_source(self):
+        """The direction draws of one selection call (`draw_dirs(pot)` per
+        attempt): the system's own generator, in the order the system
+        draws."""
+        return self._draw_dirs
+
     def _bucket_cloud(self, cloud: np.ndarray, cap: int | None = None):
         """Pad a raw cloud to a capacity bucket. `cap` overrides the
         per-cloud choice: the lockstep fleet pads its sequences' clouds to
@@ -567,12 +586,9 @@ class FullSystem:
     def _finish(self, frame, ok):
         """Phase 5: keyframe decision, then the keyframe tail or the
         trace."""
-        if not ok:
-            print("Initial tracking failed: LOST!")
-            self.is_lost = True
+        is_kf = self._decide(frame, ok)
+        if is_kf is None:
             return
-        need_kf = self._keyframe_decision(frame)
-        is_kf = need_kf or len(self.kf_shells) < 2
         if is_kf:
             with self.telemetry.stage("keyframe"):
                 self._make_key_frame(frame)
@@ -580,6 +596,15 @@ class FullSystem:
             with self.telemetry.stage("trace"):
                 self._trace(frame)
         self.telemetry.frame_done(is_kf)
+
+    def _decide(self, frame, ok):
+        """The keyframe decision of a tracked frame: True / False, or None
+        when tracking was lost."""
+        if not ok:
+            print("Initial tracking failed: LOST!")
+            self.is_lost = True
+            return None
+        return self._keyframe_decision(frame) or len(self.kf_shells) < 2
 
     # ------------------------------------------------------------------
     # initialization
@@ -900,8 +925,16 @@ class FullSystem:
     def _trace(self, frame):
         """Trace all immature points into the new frame (traceNewCoarse);
         the trace state stays in the device pool."""
+        req = self._trace_request(frame)
+        if req is not None:
+            self._trace_result(trace_ops.trace_points(**req, w=self.w,
+                                                      h=self.h))
+
+    def _trace_request(self, frame):
+        """The trace's device arguments (trace_points' keywords but w, h),
+        or None when the pool holds no immature point."""
         if not self.im_valid.any():
-            return
+            return None
         Km = np.eye(3)
         Km[0, 0], Km[1, 1] = self.K0[0], self.K0[1]
         Km[0, 2], Km[1, 2] = self.K0[2], self.K0[3]
@@ -918,13 +951,21 @@ class FullSystem:
             a = np.exp(frame["shell"]["aff"][0] - self.aff[slot][0])
             affp[slot] = [a, frame["shell"]["aff"][1] - a * self.aff[slot][1]]
         pool = self._im_pool_dev()
-        out = trace_ops.trace_points(
-            pool["u"], pool["v"], pool["idepth_min"], pool["idepth_max"],
-            pool["status"], pool["quality"], pool["color"], pool["weights"],
-            pool["gradH"], pool["energy_th"], pool["host"],
-            self._t(KRKi), self._t(Kt), self._t(affp), frame["dI"][0],
-            self.s.max_pix_search, self.s.huber_th, w=self.w, h=self.h)
-        self._im_pool = dict(pool, idepth_min=out["idepth_min"],
+        return dict(
+            u=pool["u"], v=pool["v"], idepth_min=pool["idepth_min"],
+            idepth_max=pool["idepth_max"], status=pool["status"],
+            quality=pool["quality"], color=pool["color"],
+            weights=pool["weights"], gradH=pool["gradH"],
+            energy_th=pool["energy_th"], host_idx=pool["host"],
+            KRKi_stack=self._t(KRKi), Kt_stack=self._t(Kt),
+            aff_stack=self._t(affp), dI_target0=frame["dI"][0],
+            max_pix_search_frac=self.s.max_pix_search,
+            huber_th=self.s.huber_th)
+
+    def _trace_result(self, out):
+        """Chain a trace's outputs into the device immature pool."""
+        self._im_pool = dict(self._im_pool_dev(),
+                             idepth_min=out["idepth_min"],
                              idepth_max=out["idepth_max"],
                              status=out["status"], quality=out["quality"],
                              pixel_interval=out["pixel_interval"])
@@ -965,6 +1006,19 @@ class FullSystem:
 
     def _make_key_frame(self, frame):
         self._trace(frame)
+        slot = self._kf_insert(frame)
+        with self.telemetry.stage("kf.select"):
+            self._make_new_traces(frame, slot)
+        self._insert_residuals(slot)
+        with self.telemetry.stage("kf.activate"):
+            self._activate(frame, slot)
+        self._commit_pool_dev(slot)
+        with self.telemetry.stage("kf.opt"):
+            self._kf_opt(frame, slot)
+
+    def _kf_insert(self, frame):
+        """The keyframe's host steps after its trace: the marginalization
+        flags, the speed test, the window slot. Returns the slot."""
         frame["bbox_area"] = float(frame["scan"]["bbox_area"])
         frame["add_feat"] = bool(frame["scan"]["add_feature_point"])
         self._flag_frames_for_marginalization()
@@ -981,21 +1035,15 @@ class FullSystem:
         slot = self._insert_frame_slot(frame, kf_id)
         frame["shell"]["is_kf"] = True
         self.kf_shells.append(frame["shell"]["id"])
+        return slot
 
-        with self.telemetry.stage("kf.select"):
-            self._make_new_traces(frame, slot)
-
+    def _insert_residuals(self, slot):
+        """Residuals of every other valid point toward the new slot."""
         pts_m = self.pt_valid & (self.pt["host"] != slot)
         self.res_active[:, slot] = pts_m
         self.res_state[:, slot] = backend.RES_IN
         self.res_is_new[:, slot] = pts_m
         self.matcher_valid[:, slot] = False
-
-        with self.telemetry.stage("kf.activate"):
-            self._activate(frame, slot)
-        self._commit_pool_dev(slot)
-        with self.telemetry.stage("kf.opt"):
-            self._kf_opt(frame, slot)
 
     def _commit_pool_dev(self, slot):
         """Mirror residual insertion + activation-row inserts into the
@@ -1022,6 +1070,12 @@ class FullSystem:
         point/frame marginalization on the device, then the host readback
         and the BA step sanity veto — now, or at the next drain with
         `deferred_kf_readback`."""
+        req = self._kf_opt_request(frame, slot)
+        self._kf_opt_result(req, self._run_kf_opt(req, req["iters"]))
+
+    def _kf_opt_request(self, frame, slot):
+        """The keyframe optimization's request: dict(args, statics) of
+        `kf_ops.kf_opt_step`, the slot and the iteration budget."""
         s = self.s
         F = self.F
         iters = s.max_opt_iterations
@@ -1062,6 +1116,7 @@ class FullSystem:
             aff=t(self.aff), exposure=t(self.exposure), HM=t(self.HM),
             bM=t(self.bM), newest=int(slot), frame_energy_th=t(self.fe_th),
             slot_flagged=t(self.slot_flagged, torch.bool),
+            flagged_slots=[int(x) for x in np.nonzero(self.slot_flagged)[0]],
             pt_u=pool["u"], pt_v=pool["v"], pt_idepth=pool["idepth"],
             pt_host=pool["host"], pt_color=pool["color"],
             pt_weights=pool["weights"], pt_is_sensor=pool["is_sensor"],
@@ -1080,8 +1135,9 @@ class FullSystem:
             dI_newest_pyr=frame["dI"],
             max_iters=iters, min_opt_iterations=s.min_opt_iterations,
             th_opt_iterations=s.th_opt_iterations,
-            force_accept=s.force_accept_step,
-            lm_diag_floor=s.ba_lm_diag_floor, prior_marg=t(prior_marg),
+            force_accept=s.force_accept_step, prior_marg=t(prior_marg))
+        statics = dict(
+            lm_diag_floor=s.ba_lm_diag_floor,
             marg_weight_fac=s.marg_weight_fac,
             min_good_active_res_for_marg=s.min_good_active_res_for_marg,
             min_good_res_for_marg=s.min_good_res_for_marg,
@@ -1089,32 +1145,45 @@ class FullSystem:
             n_frames=F, w=self.w, h=self.h, max_level=self.levels - 1,
             levels=self.levels, track_ref_cap=s.track_ref_caps,
             gate_refresh=s.ba_gate_refresh, resf_at_fej=s.ba_resf_at_fej,
-            p2_cap=p2_cap, closest_view=s.closest_view_ref,
+            p1_cap=0, p2_cap=p2_cap, closest_view=s.closest_view_ref,
             closest_view_margin=float(s.closest_view_margin),
             closest_view_sensor_only=bool(s.closest_view_sensor_only),
             align_max_iters=s.align_max_iters,
             solve_dtype=s.solve_dtype)
+        return dict(args=args, statics=statics, slot=slot, iters=iters)
 
-        def run(iters_, floor_=None):
-            return kf_ops.kf_opt_step(**dict(
-                args, max_iters=iters_,
-                lm_diag_floor=s.ba_lm_diag_floor if floor_ is None
-                else floor_))
+    def _run_kf_opt(self, req, iters, floor=None):
+        """One keyframe optimization of this system alone (`floor`: the
+        damped retry's LM diagonal floor)."""
+        statics = req["statics"]
+        if floor is not None:
+            statics = dict(statics, lm_diag_floor=floor)
+        return kf_ops.kf_opt_step(**dict(req["args"], max_iters=iters),
+                                  **statics)
 
-        out = run(iters)
+    def _kf_opt_result(self, req, out, small=None):
+        """Apply a keyframe optimization's device outputs `out`: chain the
+        device pools, then the host readback (`small`, its KF_PULL_KEYS as
+        numpy when a fleet read them back with its lanes') and the veto —
+        now, or at the next drain with `deferred_kf_readback`."""
+        s = self.s
+        slot = req["slot"]
         self._apply_kf_device_chain(out, slot)
-        ctx = dict(slot=slot, run=run, iters=iters)
-        small_dev = {k: out[k] for k in KF_PULL_KEYS}
+        ctx = dict(slot=slot, iters=req["iters"],
+                   run=lambda iters_, floor_=None: self._run_kf_opt(
+                       req, iters_, floor_))
         if s.pipelined_frames and s.deferred_kf_readback:
             # deferred control readback (the reference's mapping-thread
             # overlap): the next frame tracks against constants built on
             # the device from this optimization; the host applies mirrors,
             # veto and telemetry at the next drain, from a copy started now
             self._track_const = self._window_track_consts(out, slot)
-            self._deferred_kf = (self._to_host_async(small_dev), ctx)
+            self._deferred_kf = (self._to_host_async(
+                {k: out[k] for k in KF_PULL_KEYS}), ctx)
             return
-        self._resolve_kf_readback(
-            {k: self._np(v) for k, v in small_dev.items()}, ctx)
+        if small is None:
+            small = {k: self._np(out[k]) for k in KF_PULL_KEYS}
+        self._resolve_kf_readback(small, ctx)
 
     def _resolve_deferred_kf(self):
         """Apply a deferred keyframe control readback (host mirrors, veto,
@@ -1164,7 +1233,8 @@ class FullSystem:
             out = None
             if s.ba_veto_damped_retry > 0:
                 # trust-region retry: re-run BA heavily damped instead of
-                # disabling it; the binary veto stays the fail-safe
+                # disabling it; the binary veto stays the fail-safe (per
+                # sequence, in a fleet too)
                 out = run(ctx["iters"], s.ba_veto_damped_retry)
                 small = pull(out)
                 if step_insane(small):
@@ -1187,6 +1257,7 @@ class FullSystem:
             return
 
         ovf = small["match_overflow"]
+        self.telemetry.counters["ba_lm_iters"] += int(small["lm_iters"])
         self.telemetry.counters["match_overflow_p1"] += int(ovf[0])
         self.telemetry.counters["match_overflow_p2"] += int(ovf[1])
         self.last_match_diag = small["match_diag"]
@@ -1305,31 +1376,48 @@ class FullSystem:
 
     def _make_new_traces(self, frame, slot):
         """Point selection + immature point creation (makeNewTraces)."""
+        self._new_traces_result(frame, slot, drive_steps(
+            self._select_steps(frame, slot), run_select))
+
+    def _select_steps(self, frame, slot):
+        """The keyframe's selection as requests (a generator, see
+        `make_maps_compact_steps`): the LiDAR candidates, then the
+        camera-only candidates when the scan asks for them. Returns
+        ((out, keep), (mout, mkeep) or None)."""
         scan = frame["scan"]
         img_area = self.w * self.h
         density = (frame["bbox_area"] / img_area) * \
             self.s.desired_immature_density
         cand = scan["depth_map"] > 0
-        out, keep = make_maps_compact(
+        lidar = yield from make_maps_compact_steps(
             frame["dI"][0], frame["abs_grad"], cand, scan["depth_map"],
-            scan["px_u_map"], scan["px_v_map"], density, self._draw_dirs,
+            scan["px_u_map"], scan["px_v_map"], density, self._dir_source(),
             self.pot_state, self.s, cap=self.s.n_select_cap,
             sub_seed=self.s.seed + frame["shell"]["id"] + 1)
+        mono = None
+        if frame["add_feat"]:
+            mono = yield from make_maps_compact_steps(
+                frame["dI"][0], frame["abs_grad"],
+                torch.ones((self.h, self.w), dtype=torch.bool,
+                           device=self.device), scan["depth_map"],
+                scan["px_u_map"], scan["px_v_map"],
+                self.s.desired_immature_density, self._dir_source(),
+                self.pot_state_mono, self.s, cap=self.s.n_select_cap,
+                sub_seed=self.s.seed + 7919 + frame["shell"]["id"] + 1)
+        return lidar, mono
+
+    def _new_traces_result(self, frame, slot, sel):
+        """Insert the selected candidates into the immature pool (host and
+        device)."""
+        (out, keep), mono = sel
         lid_keep = keep & out["finite"]
         xs = out["u"][lid_keep]
         ys = out["v"][lid_keep]
         n_sens = int(lid_keep.sum())
 
         sel_src = [(out, lid_keep)]
-        if frame["add_feat"]:
-            mout, mkeep = make_maps_compact(
-                frame["dI"][0], frame["abs_grad"],
-                torch.ones((self.h, self.w), dtype=torch.bool,
-                           device=self.device), scan["depth_map"],
-                scan["px_u_map"], scan["px_v_map"],
-                self.s.desired_immature_density, self._draw_dirs,
-                self.pot_state_mono, self.s, cap=self.s.n_select_cap,
-                sub_seed=self.s.seed + 7919 + frame["shell"]["id"] + 1)
+        if mono is not None:
+            mout, mkeep = mono
             pot = self.pot_state_mono.get("pot", 3)
             dxs = np.arange(-pot, pot + 1)
             dys = np.array([-1, 0, 1])
@@ -1397,6 +1485,14 @@ class FullSystem:
 
     def _activate(self, frame, newest_slot):
         """activatePointsMT (FullSystem.cpp:569-723)."""
+        req = self._activate_request(frame, newest_slot)
+        dev = kf_ops.activate_full(**req["args"], **req["statics"])
+        self._activate_result(dev, {k: self._np(dev[k])
+                                    for k in ACT_PULL_KEYS})
+
+    def _activate_request(self, frame, newest_slot):
+        """The activation's request: dict(args, statics) of
+        `kf_ops.activate_full` (updates the activation distance)."""
         s = self.s
         n_pts = int(self.pt_valid.sum())
         d = self.current_min_act_dist
@@ -1437,27 +1533,33 @@ class FullSystem:
             Kt1[slot] = K1 @ T_h2n[:3, 3]
         R_pair, t_pair, aff_pair = self._pair_transforms()
 
-        im = self.im
-        pool_im = self._im_pool_dev()
         pool_pt = self._kf_dev_pool()
         tt = self._t
         a_cap = next((c for c in (512, 1024, 2048)
                       if int(self.im_valid.sum()) <= c), self.M)
-        dev = kf_ops.activate_full(
-            pool_im, pool_pt["u"], pool_pt["v"], pool_pt["idepth"],
-            pool_pt["host"], pool_pt["pt_valid"], int(newest_slot),
-            tt(self.slot_used, torch.bool), tt(self.slot_flagged, torch.bool),
-            tt(KRKi1), tt(Kt1), tt(R_pair), tt(t_pair), tt(aff_pair),
-            self.dI0_stack, tt(self.K0), float(self.current_min_act_dist),
-            float(s.min_trace_quality), float(s.min_idepth_h_act),
-            w=self.w, h=self.h, w1=w1, h1=h1, n_frames=F, a_cap=a_cap,
-            gn_iters=s.gn_its_on_point_activation)
-        self._im_pool = dict(pool_im, im_valid=dev["im_valid"],
-                             status=dev["im_status"])
-        out = {k: self._np(dev[k]) for k in
-               ("dead", "kill", "drop_oob", "cand_idx", "lane_valid",
-                "success", "idepth", "inlier_targets")}
+        args = dict(
+            im=self._im_pool_dev(), pt_u=pool_pt["u"], pt_v=pool_pt["v"],
+            pt_idepth=pool_pt["idepth"], pt_host=pool_pt["host"],
+            pt_valid=pool_pt["pt_valid"], newest_slot=int(newest_slot),
+            slot_used=tt(self.slot_used, torch.bool),
+            slot_flagged=tt(self.slot_flagged, torch.bool),
+            KRKi1=tt(KRKi1), Kt1=tt(Kt1), R_pair=tt(R_pair),
+            t_pair=tt(t_pair), aff_pair=tt(aff_pair),
+            dI0_stack=self.dI0_stack, K=tt(self.K0),
+            min_act_dist=float(self.current_min_act_dist),
+            min_trace_quality=float(s.min_trace_quality),
+            min_idepth_h_act=float(s.min_idepth_h_act))
+        statics = dict(w=self.w, h=self.h, w1=w1, h1=h1, n_frames=F,
+                       a_cap=a_cap, gn_iters=s.gn_its_on_point_activation)
+        return dict(args=args, statics=statics)
 
+    def _activate_result(self, dev, out):
+        """Apply an activation: `dev` its device outputs (the immature
+        pool's validity and status stay on the device), `out` its
+        ACT_PULL_KEYS as numpy."""
+        im = self.im
+        self._im_pool = dict(self._im_pool_dev(), im_valid=dev["im_valid"],
+                             status=dev["im_status"])
         self._last_act = None
         dead, kill, drop_oob = out["dead"], out["kill"], out["drop_oob"]
         for slot in self.order:

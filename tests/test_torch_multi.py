@@ -18,6 +18,7 @@ import torch
 
 from sdv_loam_tpu_torch.config import Settings
 from sdv_loam_tpu_torch.data.synthetic import make_sequence
+from sdv_loam_tpu_torch.ops import distmap, photometric
 from sdv_loam_tpu_torch.ops import hopper_kernels as hk
 from sdv_loam_tpu_torch.system.full_system import FullSystem
 from sdv_loam_tpu_torch.system.multi import InterleavedFleet, MultiSystem
@@ -72,8 +73,38 @@ def singles(seqs, frames):
 
 
 @pytest.fixture(scope="module")
-def lockstep_batched(seqs, frames):
-    return _lockstep(seqs, frames, batch_track=True, host_workers=0)
+def batched_run(seqs, frames):
+    """The batched lockstep over the two scenes, with every K1 and K2
+    wrapper call recorded (kernel, lanes) per frame round, beside the
+    systems that took a keyframe in that round."""
+    calls, rounds = [], []
+    wrapped = ((photometric, "dilate_pyramid", hk.dilate_pyramid),
+               (distmap, "distance_transform", hk.distance_transform))
+
+    def recorder(name, fn):
+        def call(x, *a, **k):
+            calls.append((name, 1 if x.dim() == 2 else x.shape[0]))
+            return fn(x, *a, **k)
+        return call
+    for mod, name, fn in wrapped:
+        setattr(mod, name, recorder(name, fn))
+    try:
+        ms = MultiSystem(_systems(seqs), batch_track=True, host_workers=0)
+        for i in range(N_FRAMES):
+            n0 = len(calls)
+            ms.add_frames([fr[i] for fr in frames])
+            rounds.append(([fs.shells[-1]["is_kf"] for fs in ms.systems],
+                           calls[n0:]))
+    finally:
+        for mod, name, fn in wrapped:
+            setattr(mod, name, fn)
+    assert not ms.any_lost
+    return [fs.get_trajectory() for fs in ms.systems], rounds, ms
+
+
+@pytest.fixture(scope="module")
+def lockstep_batched(batched_run):
+    return batched_run[0]
 
 
 def test_lockstep_matches_single(seqs, frames, singles):
@@ -85,11 +116,43 @@ def test_lockstep_matches_single(seqs, frames, singles):
 
 
 def test_batched_track_matches_unbatched(singles, lockstep_batched):
-    """Pyramid, LiDAR and first track attempt as lanes of one batch: each
-    lane's loops stop on their own conditions, so a lane comes out as its
-    unbatched run (the JAX package's bound)."""
+    """Pyramid, LiDAR and first track attempt, then trace, selection,
+    activation and the keyframe optimization as lanes of one call each:
+    each lane's loops stop on their own conditions (the windowed LM runs
+    to the fleet's largest iteration count with stopped lanes frozen), so
+    a lane comes out as its unbatched run (the JAX package's bound for its
+    batched keyframe stages, tests/test_multi.py)."""
     for a, ref in zip(lockstep_batched, singles):
         np.testing.assert_allclose(a, ref, atol=1e-5)
+
+
+def test_batched_keyframes_launch_each_kernel_once_per_round(batched_run):
+    """Every frame round in which both systems take a keyframe calls K2
+    (the activation's distance map) and K1 (the tracking reference) once,
+    with both systems as its lanes; the only one-lane K1 calls are the
+    first frames' references, one per system. Counted through the
+    hopper_kernels wrappers."""
+    _, rounds, ms = batched_run
+    both_kf = 0
+    for kfs, calls in rounds:
+        batched = [c for c in calls if c[1] >= 2]
+        if all(kfs):
+            both_kf += 1
+            assert sorted(batched) == [("dilate_pyramid", 2),
+                                       ("distance_transform", 2)], calls
+        else:
+            assert not batched, calls
+    assert both_kf >= 3
+    one_lane = [c for _, calls in rounds for c in calls if c[1] == 1]
+    assert one_lane == [("dilate_pyramid", 1)] * len(ms.systems)
+    n_k1 = sum(c[0] == "dilate_pyramid" for _, calls in rounds
+               for c in calls)
+    assert n_k1 < sum(len(fs.kf_shells) for fs in ms.systems)
+    for fs in ms.systems:
+        st = fs.telemetry.stage_time
+        for name in ("trace.batch", "kf.select.batch", "kf.activate.batch",
+                     "kf.opt.batch"):
+            assert st[name] > 0, name
 
 
 def test_threaded_host_staging_matches_serial(seqs, frames,
