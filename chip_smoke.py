@@ -35,14 +35,34 @@ Phases (any failure exits nonzero; each prints its results):
      frames/s, scaling efficiency, peak memory, kernel launches and the
      lanes they took, and the keyframe stages' ms per frame per
      composition;
+  6. CLI and camera-only, each part with its own kernel launch counts, its
+     frames/s and stage ms per frame:
+     (a) phase 4's 30 frames written as a KITTI directory (the port's own
+         PNG codec) and run through `python -m sdv_loam_tpu_torch.run`'s
+         `main` with every observer flag and a checkpoint; requires rc 0,
+         30 trajectory rows, ATE <= 0.10 m, cam_pose and keyframes events,
+         viewer and debug-plot PNGs that decode, and a checkpoint that
+         loads back to the trajectory;
+     (b) LiDAR dropout: the same frames, every third frame after the first
+         two without a cloud, sequential with the deep logs, then
+         pipelined; requires not lost, ATE <= 0.10 m and one Hessian line
+         per optimized keyframe;
+     (c) the monocular bootstrap: a 1200x360 scene with no cloud on any
+         frame; requires initialized, not lost, >= 2 keyframes, no sensor
+         points and a scale-aligned error below 0.15 x path; prints each
+         knn call's time and peak memory (level 0 first);
+     each part requires at least one K1 and one K2 launch;
 then one JSON line with the kernels, and the device JSON as the last line.
 The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -76,6 +96,18 @@ FLEET_TRAJ_TOL = 1e-5
 STAGES = ("track", "track.batch", "trace", "trace.batch", "keyframe",
           "kf.select", "kf.select.batch", "kf.activate", "kf.activate.batch",
           "kf.opt", "kf.opt.batch")
+# phase 6: where its files go (under chiprun_out/, which .gitignore lists
+# and the card's tool brings back), the dropout pattern
+# and the camera-only scene (tests/test_mono_init.py's, at full width)
+OUT_DIR = os.path.join(ROOT, "chiprun_out", "phase6")
+MONO_SCENE = dict(w=1200, h=360, fx=718.856, step=0.4, lidar_stride=8)
+MONO_FRAMES = 16
+MONO_ERR_FRAC = 0.15
+
+
+def dropped(i):
+    """LiDAR dropout: every third frame after the first two has no cloud."""
+    return i >= 2 and i % 3 == 2
 
 
 def _fail(msg):
@@ -255,8 +287,25 @@ def solver_kernels(device):
     return names
 
 
+class Rendered:
+    """A synthetic sequence with its frames rendered once (a runner reader;
+    `write_kitti_fixture` takes it in the sequence's place)."""
+
+    def __init__(self, seq, frames):
+        self.seq, self.frames = seq, frames
+        self.calib, self.sensor = seq.calib, seq.sensor
+        self.poses_wc, self.timestamps = seq.poses_wc, seq.timestamps
+
+    def __len__(self):
+        return len(self.frames)
+
+    def get(self, i):
+        return self.frames[i]
+
+
 def run_slice(device):
-    """Phase 4: the default-preset slice. Returns (summary, n_build)."""
+    """Phase 4: the default-preset slice. Returns (summary, the rendered
+    scene)."""
     import torch
 
     from sdv_loam_tpu_torch.config import Settings
@@ -269,18 +318,7 @@ def run_slice(device):
     n_frames = 30
     t0 = time.perf_counter()
     seq = make_sequence(n_frames=n_frames, **SCENE, **FLEET_SCENES["A"])
-    frames = [seq.get(i) for i in range(n_frames)]   # render up front
-
-    class Frames:
-        """The pre-rendered sequence as a runner reader."""
-        calib, sensor = seq.calib, seq.sensor
-
-        def __len__(self):
-            return n_frames
-
-        def get(self, i):
-            return frames[i]
-
+    scene = Rendered(seq, [seq.get(i) for i in range(n_frames)])
     print(f"slice scene rendered in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -297,7 +335,7 @@ def run_slice(device):
     torch.cuda.reset_peak_memory_stats()
     hk.reset_launch_counts()
     t0 = time.perf_counter()
-    fs, summary = run_sequence(Frames(), Settings(), device=device,
+    fs, summary = run_sequence(scene, Settings(), device=device,
                                prefetch=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -328,7 +366,7 @@ def run_slice(device):
               f"{n_build[0]} build_track_ref calls")
     if launches["distance_transform"] < 1:
         _fail("distance_transform never launched on the main path")
-    return summary
+    return summary, scene
 
 
 def _pose_diff(A, B):
@@ -496,6 +534,250 @@ def run_fleet(device):
                 compositions=results)
 
 
+def _kernels_ran(part, launches):
+    if launches["dilate_pyramid"] < 1 or launches["distance_transform"] < 1:
+        _fail(f"phase 6 {part}: a kernel was not launched ({launches})")
+
+
+def _stage_ms(fs, n):
+    return {k: 1000.0 * v / n for k, v in sorted(fs.telemetry.stage_time
+                                                  .items())}
+
+
+def _report(part, rec):
+    print(f"phase 6 {part}: " + json.dumps(rec), flush=True)
+
+
+def run_cli(device, scene):
+    """Phase 6 (a): the CLI on phase 4's frames written as a KITTI
+    directory."""
+    import torch
+
+    from sdv_loam_tpu_torch import run as cli
+    from sdv_loam_tpu_torch.data.kitti import KittiSequence
+    from sdv_loam_tpu_torch.data.kitti_fixture import write_kitti_fixture
+    from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.io.images import read_image
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.system import checkpoint, runner
+
+    d = os.path.join(OUT_DIR, "cli")
+    n = len(scene)
+    t0 = time.perf_counter()
+    paths = write_kitti_fixture(scene, os.path.join(d, "kitti"))
+    t_write = time.perf_counter() - t0
+    out = {k: os.path.join(d, k) for k in ("view", "dbg")}
+    files = {k: os.path.join(d, f) for k, f in (
+        ("result", "traj.txt"), ("record", "events.jsonl"),
+        ("log", "log.jsonl"), ("viewer3d", "map.html"),
+        ("checkpoint", "window.npz"))}
+    argv = ["--seq-dir", paths["seq_dir"], "--calib", paths["calib"],
+            "--sensor", paths["sensor"], "--preset", "0",
+            "--result", files["result"], "--record", files["record"],
+            "--log", files["log"], "--viewer", out["view"],
+            "--viewer3d", files["viewer3d"], "--debug-plots", out["dbg"],
+            "--checkpoint", files["checkpoint"], "--device", str(device)]
+    # the system the CLI ran, for its stage table
+    ran = []
+    orig = runner.run_sequence
+
+    def keep_system(*a, **kw):
+        out = orig(*a, **kw)
+        ran.append(out[0])
+        return out
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    runner.run_sequence = keep_system
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        runner.run_sequence = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+
+    def rows_to_T(rows):
+        T = np.tile(np.eye(4), (rows.shape[0], 1, 1))
+        T[:, :3, :] = rows.reshape(-1, 3, 4)
+        return T
+    rows = np.loadtxt(files["result"]).reshape(-1, 12)
+    ate = float(ate_rmse(rows_to_T(rows),
+                         rows_to_T(np.loadtxt(paths["poses"]))))
+    events = [json.loads(x)["event"] for x in open(files["record"])]
+    pngs = {k: sorted(os.listdir(v)) for k, v in out.items()}
+    shapes = {k: list(read_image(os.path.join(out[k], v[-1])).shape)
+              for k, v in pngs.items() if v}
+    reader = KittiSequence.open(paths["seq_dir"], paths["calib"],
+                                paths["sensor"])
+    back = checkpoint.load(files["checkpoint"], reader.calib, reader.sensor,
+                           Settings.preset_default(), device=device)
+    ck_err = float(np.abs(back.get_trajectory()[:, :3, :].reshape(-1, 12)
+                          - rows).max()) if len(back.shells) == n else None
+    rec = dict(rc=rc, rows=int(rows.shape[0]), ate_m=ate, wall_s=wall,
+               fps=n / wall, png_write_s=t_write, launches=launches,
+               events={e: events.count(e) for e in sorted(set(events))},
+               pngs={k: len(v) for k, v in pngs.items()}, png_shapes=shapes,
+               checkpoint_max_abs=ck_err,
+               stage_ms_per_frame=_stage_ms(ran[0], n),
+               summary_fps=summary["fps"])
+    _report("(a) CLI on a KITTI directory", rec)
+    if rc != 0 or rows.shape[0] != n:
+        _fail(f"CLI: rc {rc}, {rows.shape[0]} trajectory rows")
+    if not ate <= ATE_LIMIT_M:
+        _fail(f"CLI: ATE {ate} m over the {ATE_LIMIT_M} m gate")
+    if not (rec["events"].get("cam_pose") and rec["events"].get("keyframes")):
+        _fail(f"CLI: recording without cam_pose / keyframes ({events[:5]})")
+    if not (pngs["view"] and pngs["dbg"]) or \
+            any(len(v) != 3 for v in shapes.values()):
+        _fail(f"CLI: viewer / debug-plot PNGs missing or bad ({shapes})")
+    if ck_err is None or not ck_err <= 1e-6 * max(1.0, np.abs(rows).max()):
+        _fail(f"CLI: the checkpoint reads back to another trajectory "
+              f"({ck_err})")
+    _kernels_ran("(a)", launches)
+    # what comes back from the card stays small: the KITTI directory, the
+    # window file and all but the last snapshot of each observer go
+    shutil.rmtree(os.path.join(d, "kitti"))
+    os.remove(files["checkpoint"])
+    for k, v in pngs.items():
+        for f in v[:-1]:
+            os.remove(os.path.join(out[k], f))
+    return rec
+
+
+def run_dropout(device, scene):
+    """Phase 6 (b): LiDAR dropout, sequential with the deep logs, then
+    pipelined."""
+    import torch
+
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.system.runner import run_sequence
+
+    n = len(scene)
+    drop = Rendered(scene.seq, [(img, None if dropped(i) else cloud, ts)
+                                for i, (img, cloud, ts)
+                                in enumerate(scene.frames)])
+    recs, trajs = {}, {}
+    for mode, kw in (("sequential", dict(pipelined_frames=False,
+                                         log_stuff=True)),
+                     ("pipelined", dict(pipelined_frames=True))):
+        log = os.path.join(OUT_DIR, f"dropout_{mode}.jsonl")
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        fs, _ = run_sequence(drop, Settings(**kw), device=device,
+                             log_path=log, prefetch=False, allow_reset=False)
+        traj = fs.get_trajectory()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+        kinds = [json.loads(x)["kind"] for x in open(log)]
+        trajs[mode] = traj
+        recs[mode] = rec = dict(
+            lost=bool(fs.is_lost), n_keyframes=len(fs.kf_shells),
+            ate_m=float(ate_rmse(traj, scene.poses_wc[:n])), wall_s=wall,
+            fps=n / wall, launches=launches,
+            hessian_lines=kinds.count("hessian"),
+            counters=dict(fs.telemetry.counters),
+            mono_candidates=int((fs.im_valid & ~fs.im["is_sensor"]).sum()),
+            stage_ms_per_frame=_stage_ms(fs, n))
+        _report(f"(b) LiDAR dropout, {mode}", rec)
+        if rec["lost"] or not rec["ate_m"] <= ATE_LIMIT_M:
+            _fail(f"dropout {mode}: lost or ATE {rec['ate_m']}")
+        if kw.get("log_stuff") and \
+                rec["hessian_lines"] != rec["n_keyframes"] - 1:
+            _fail(f"dropout: {rec['hessian_lines']} Hessian lines for "
+                  f"{rec['n_keyframes'] - 1} optimized keyframes")
+        _kernels_ran(f"(b) {mode}", launches)
+    diff = float(np.abs(trajs["pipelined"] - trajs["sequential"]).max())
+    print(f"phase 6 (b): pipelined vs sequential, largest difference {diff}",
+          flush=True)
+    return dict(recs, pipelined_vs_sequential=diff)
+
+
+def run_mono(device):
+    """Phase 6 (c): the monocular bootstrap at full width."""
+    import torch
+
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.ops import mono_init
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+
+    n = MONO_FRAMES
+    t0 = time.perf_counter()
+    seq = make_sequence(n_frames=n, **MONO_SCENE)
+    frames = [seq.get(i) for i in range(n)]
+    print(f"phase 6 (c): scene rendered in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    knn_calls = []
+    orig = mono_init.knn
+
+    def timed_knn(points, valid, *a, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = orig(points, valid, *a, **kw)
+        torch.cuda.synchronize()
+        knn_calls.append(dict(
+            points=int(points.shape[0]), valid=int(valid.sum()),
+            ms=1000.0 * (time.perf_counter() - t),
+            peak_bytes=int(torch.cuda.max_memory_allocated()),
+            peak_above_start_bytes=int(torch.cuda.max_memory_allocated()
+                                       - base)))
+        return out
+    mono_init.knn = timed_knn
+    try:
+        fs = FullSystem(seq.calib, seq.sensor,
+                        Settings(use_struct_pose=False,
+                                 pipelined_frames=False), device=device)
+        torch.cuda.synchronize()
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        for img, _, ts in frames:
+            fs.add_active_frame(img, None, ts)
+        est = fs.get_trajectory()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        mono_init.knn = orig
+    launches = dict(hk.LAUNCHES)
+    rec = dict(initialized=bool(fs.initialized), lost=bool(fs.is_lost),
+               n_keyframes=len(fs.kf_shells), wall_s=wall, fps=n / wall,
+               launches=launches, knn_level0=knn_calls[0] if knn_calls
+               else None, knn_calls=knn_calls,
+               sensor_points=int(fs.pt["is_sensor"][fs.pt_valid].sum()),
+               stage_ms_per_frame=_stage_ms(fs, n))
+    if fs.initialized and len(fs.kf_shells) >= 2:
+        k = fs.kf_shells[1]
+        e = est[k:, :3, 3] - est[k, :3, 3]
+        g = seq.poses_wc[k:n, :3, 3] - seq.poses_wc[k, :3, 3]
+        s = float((e * g).sum() / max((e * e).sum(), 1e-12))
+        rec.update(ready_frame=k, scale=s,
+                   path_m=float(np.linalg.norm(np.diff(g, axis=0),
+                                               axis=1).sum()),
+                   err_m=float(np.linalg.norm(s * e - g, axis=1).max()))
+    _report("(c) monocular bootstrap", rec)
+    if not rec["initialized"] or rec["lost"] or rec["n_keyframes"] < 2 \
+            or rec["sensor_points"]:
+        _fail("mono bootstrap: not initialized, lost, < 2 keyframes or "
+              "sensor points")
+    if not (rec["scale"] > 0
+            and rec["err_m"] < MONO_ERR_FRAC * rec["path_m"]):
+        _fail(f"mono bootstrap: scale-aligned error {rec['err_m']} m over "
+              f"{MONO_ERR_FRAC} x path {rec['path_m']} m")
+    _kernels_ran("(c)", launches)
+    return rec
+
+
 def main():
     import torch
 
@@ -524,7 +806,7 @@ def main():
     solver_kernels(device)
 
     # 4. the slice
-    summary = run_slice(device)
+    summary, scene = run_slice(device)
     print(f"slice ATE {summary['ate_m']:.4f} m, keyframes "
           f"{summary['n_keyframes']}, {summary['fps']:.3f} frames/s, "
           f"stage ms/frame {summary['stage_ms_per_frame']}, peak memory "
@@ -549,16 +831,32 @@ def main():
               flush=True)
     print(f"fleet phase {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 6. CLI and camera-only
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    phase6 = dict(cli=run_cli(device, scene), dropout=run_dropout(device, scene),
+                  mono=run_mono(device))
+    print(f"phase 6 {time.perf_counter() - t0:.1f} s", flush=True)
+    by_path = {"cli": phase6["cli"]["launches"],
+               "dropout_sequential":
+                   phase6["dropout"]["sequential"]["launches"],
+               "dropout_pipelined": phase6["dropout"]["pipelined"]["launches"],
+               "mono": phase6["mono"]["launches"]}
+
     kernels = [
         dict(name="dilate_pyramid", route="cuda",
              source="sdv_loam_tpu_torch/csrc/dilate_pyramid.cu",
              replaces="sdv_loam_tpu/ops/pallas_kernels.py:122",
              launches=summary["launches"]["dilate_pyramid"],
+             launches_phase6={k: v["dilate_pyramid"]
+                              for k, v in by_path.items()},
              **rec["dilate_pyramid"]),
         dict(name="distance_transform", route="cuda",
              source="sdv_loam_tpu_torch/csrc/distance_transform.cu",
              replaces="sdv_loam_tpu/ops/pallas_kernels.py:67",
              launches=summary["launches"]["distance_transform"],
+             launches_phase6={k: v["distance_transform"]
+                              for k, v in by_path.items()},
              **rec["distance_transform"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

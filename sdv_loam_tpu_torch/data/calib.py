@@ -332,8 +332,8 @@ def load_photometric_calib(gamma_path: str | None,
         G = vals.astype(np.float64)
         G = 255.0 * (G - G.min()) / (G.max() - G.min())
     if vignette_path and os.path.exists(vignette_path):
-        import cv2
-        vig = cv2.imread(vignette_path, cv2.IMREAD_UNCHANGED).astype(np.float64)
+        from sdv_loam_tpu_torch.io.images import read_image
+        vig = read_image(vignette_path).astype(np.float64)
         vig = vig / vig.max()
         vig_inv = (1.0 / np.maximum(vig, 1e-3)).astype(np.float32)
     return PhotometricCalib(G, vig_inv)

@@ -13,7 +13,8 @@ Geometric undistortion uses a DSO-format calib file (see data.calib); the
 LiDAR->camera extrinsics come from a 4-line sensor file. Frames and scans in
 KITTI are strictly 1:1 paired at 10 Hz (reference README.md:68-76), so the
 reference's ±0.01 s stamp-matching queue (main.cpp:468-535) degenerates to
-index pairing here.
+index pairing here. Images decode through the port's own PNG codec
+(io/images.py), so the reader needs neither OpenCV nor PIL.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 from sdv_loam_tpu_torch.data.calib import (PhotometricCalib, SensorCalib, Undistorter,
                                      load_photometric_calib, load_sensor_calib,
                                      load_undistorter)
+from sdv_loam_tpu_torch.io.images import read_gray
 from sdv_loam_tpu_torch.utils.camera import PyramidCalib
 
 
@@ -99,8 +101,7 @@ class KittiSequence:
         return len(self.image_files)
 
     def get_image(self, i: int) -> np.ndarray:
-        import cv2
-        raw = cv2.imread(self.image_files[i], cv2.IMREAD_GRAYSCALE)
+        raw = read_gray(self.image_files[i])
         img = self.photometric.apply(raw)
         return self.undistorter.undistort(img)
 

@@ -22,6 +22,8 @@ import os
 
 import numpy as np
 
+from sdv_loam_tpu_torch.io.images import write_image
+
 
 def write_kitti_fixture(seq, root: str, seq_name: str = "00",
                         n_frames: int | None = None) -> dict:
@@ -29,8 +31,6 @@ def write_kitti_fixture(seq, root: str, seq_name: str = "00",
 
     Returns dict of the written paths (seq_dir, calib, sensor, poses).
     """
-    import cv2
-
     n = len(seq) if n_frames is None else min(n_frames, len(seq))
     seq_dir = os.path.join(root, "sequences", seq_name)
     img_dir = os.path.join(seq_dir, "image_0")
@@ -40,9 +40,8 @@ def write_kitti_fixture(seq, root: str, seq_name: str = "00",
 
     for i in range(n):
         img, cloud, _ = seq.get(i)
-        ok = cv2.imwrite(os.path.join(img_dir, f"{i:06d}.png"),
-                         np.clip(np.round(img), 0, 255).astype(np.uint8))
-        assert ok, "png write failed"
+        write_image(os.path.join(img_dir, f"{i:06d}.png"),
+                    np.clip(np.round(img), 0, 255).astype(np.uint8))
         raw = np.zeros((cloud.shape[0], 4), np.float32)
         raw[:, :3] = cloud
         raw[:, 3] = 0.5  # reflectance placeholder

@@ -10,12 +10,12 @@ current frame:
     (native/staging.cpp:105-179, sdv_prefetcher_*) when the reader exposes
     `velodyne_files` and the shared library is built — a real worker thread
     outside the GIL;
-  * images go through the reader's own `get_image` (cv2 imread + photometric
-    + undistort remap) on the staging thread — cv2 releases the GIL for the
-    heavy parts.
+  * images go through the reader's own `get_image` (PNG decode through
+    io/images.py + photometric + undistort remap) on the staging thread —
+    zlib and numpy release the GIL for the heavy parts.
 
-Because `FullSystem.add_active_frame` blocks on `jax.device_get`, the GIL is
-free while the device computes; the staging thread fills that window.
+Because `FullSystem.add_active_frame` waits on the device with the GIL
+released, the staging thread fills that window.
 """
 
 from __future__ import annotations

@@ -96,6 +96,14 @@ def _pair_rows(pt_host, F):
     return pt_host[..., None] * F + torch.arange(F, device=pt_host.device)
 
 
+def _mv(A, x):
+    """Per-lane matrix-vector product (L, m, n) x (L, n) -> (L, m), one
+    window at a time: a batched product rounds differently from one
+    window's, and the monocular points' depths (which BA owns) would then
+    depend on the fleet's composition."""
+    return torch.stack([A[i] @ x[i] for i in range(A.shape[0])])
+
+
 def _take(x, idx):
     """x (L, P, ...) at per-lane indices idx (L, ...)."""
     ar = torch.arange(x.shape[0], device=x.device).reshape(
@@ -394,7 +402,7 @@ def _accumulate(Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor,
     sc_ok = sc_mask & (~pt_is_sensor) & (n_act > 0)
     wsc = torch.where(sc_ok, HdiF, torch.zeros_like(HdiF))
     H_sc = (Vpt * wsc[..., None]).transpose(1, 2) @ Vpt
-    b_sc = (Vpt.transpose(1, 2) @ (wsc * bd)[..., None])[..., 0]
+    b_sc = _mv(Vpt.transpose(1, 2), wsc * bd)
     return H_top, b_top, H_sc, b_sc, Hdd, bd, HdiF, Vpt, n_act
 
 
@@ -452,7 +460,7 @@ def orthogonalize(vec, Ns):
     Q = torch.zeros_like(Nn)
 
     def proj(v):
-        return (Q @ (Q.transpose(1, 2) @ v[..., None]))[..., 0]
+        return _mv(Q, _mv(Q.transpose(1, 2), v))
     for j in range(Nn.shape[2]):
         v = Nn[:, :, j]
         v = v - proj(v)
@@ -500,7 +508,7 @@ def solve_system_lanes(sys_, HM, bM, delta_stitched, c_prior, c_delta,
 
     H = sys_["H_top"] - sys_["H_sc"] + HM
     b = sys_["b_top"] - sys_["b_sc"] + \
-        (bM + (HM @ delta_stitched[..., None])[..., 0])
+        (bM + _mv(HM, delta_stitched))
     H[:, ar[:4], ar[:4]] += c_prior
     b[:, :4] += c_prior * c_delta
     fp = frame_prior.reshape(L, 6 * F)
@@ -541,7 +549,7 @@ def solve_system_lanes(sys_, HM, bM, delta_stitched, c_prior, c_delta,
 
     dc = -x[:, :4]
     dframes = -x[:, 4:].reshape(L, F, 6) * frame_valid[..., None]
-    b_pt = sys_["bd"] - (sys_["Vpt"] @ x[..., None])[..., 0]
+    b_pt = sys_["bd"] - _mv(sys_["Vpt"], x)
     step = -b_pt * sys_["HdiF"]
     step = torch.where(pt_is_sensor | (sys_["n_active"] == 0),
                        torch.zeros_like(step), step)
@@ -550,8 +558,9 @@ def solve_system_lanes(sys_, HM, bM, delta_stitched, c_prior, c_delta,
 
 def marg_energy(HM, bM, delta_stitched):
     """calcMEnergyF (EnergyFunctional.cpp:284-293), per lane of (L, D)."""
-    q = 2.0 * bM + (HM @ delta_stitched[..., None])[..., 0]
-    return (delta_stitched[:, None, :] @ q[..., None])[:, 0, 0]
+    q = 2.0 * bM + _mv(HM, delta_stitched)
+    return torch.stack([delta_stitched[i] @ q[i]
+                        for i in range(q.shape[0])])
 
 
 def prior_energy(c_prior, c_delta, frame_prior, frame_delta):
@@ -842,8 +851,13 @@ def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
     rmse = torch.sqrt(torch.sum(lin_f["energy"], dim=(1, 2))
                       / torch.clamp((lin_f["new_state"] == RES_IN)
                                     .sum(dim=(1, 2)), min=1))
+    # the final assembled system and the nullspaces, exported for the
+    # deep-log streams (FullSystem.cpp:1419-1499)
     out = dict(eps=eps_out, calib=calib, idepth=idepth, feth=feth,
                T_cw_fej=T_cw_fej_out, new_state=lin_f["new_state"],
                center=lin_f["center"], Hdd=sys_f["Hdd"], energy=E_last,
-               rmse=rmse, lm_iters=lm_iters)
+               rmse=rmse, lm_iters=lm_iters,
+               H_final=sys_f["H_top"] - sys_f["H_sc"] + HM,
+               b_final=sys_f["b_top"] - sys_f["b_sc"] + bM,
+               nullspaces=make_nullspaces(T_cw_fej_out, fvalid_f))
     return out, lin_f, pairs_f

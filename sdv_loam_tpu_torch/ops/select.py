@@ -353,3 +353,69 @@ def make_maps_compact(*args, **kw):
     """`make_maps_compact_steps` of one sequence, each attempt run alone.
     Returns (out dict of host numpy arrays, keep (cap,) bool)."""
     return drive_steps(make_maps_compact_steps(*args, **kw), run_select)
+
+
+def select_cascade(dI0, ag0, ag1, ag2, ths_smoothed, cand_mask, dir_idx,
+                   pot: int, th_factor: float = 1.0,
+                   grad_downweight_per_level: float = 0.75,
+                   select_direction_distribution: bool = True):
+    """The 3-scale selection cascade of one image as the dense status
+    image (the JAX package's `select_cascade`): (status (H, W) int8 in
+    {0, 1, 2, 4}, counts (3,))."""
+    h, w = ag0.shape
+    winners, counts, (hp, wp) = _cascade_winners(
+        dI0[None], ag0[None], ag1[None], ag2[None], ths_smoothed[None],
+        cand_mask[None], tuple(d[None] for d in dir_idx), pot, th_factor,
+        grad_downweight_per_level, select_direction_distribution)
+    status = torch.zeros(hp * wp, dtype=torch.int64, device=ag0.device)
+    for sel, idx, code in winners[::-1]:
+        status.scatter_reduce_(
+            0, torch.where(sel, idx, torch.full_like(idx, hp * wp - 1))
+            .reshape(-1), (sel.to(torch.int64) * code).reshape(-1),
+            reduce="amax")
+    return status.reshape(hp, wp)[:h, :w].to(torch.int8), counts[0]
+
+
+def make_maps(dI0, abs_grads, cand_mask, density, draw_dirs, draw_keep,
+              pot_state: dict, settings: Settings, th_factor: float = 1.0):
+    """Host-driven density feedback around `select_cascade` (makeMaps /
+    makeMapsFromLidar, PixelSelector2.cpp:108-207 & 354-457; the JAX
+    package's status-map `make_maps`): at most one re-run with an adjusted
+    pot, then random subsampling of the status map toward the density.
+
+    The two random draws are arguments: `draw_dirs(pot)` gives the three
+    direction grids of an attempt and `draw_keep(shape)` the (H, W)
+    uniform [0, 1) draws of the keep mask, so a caller can feed the JAX
+    package's draws. `pot_state`: mutable {"pot": int} carried across calls
+    (the reference's currentPotential).
+
+    Returns (status (H, W) int8 numpy array, n_selected int)."""
+    ths = grad_hist_thresholds(abs_grads[0], settings.min_grad_hist_cut,
+                               settings.min_grad_hist_add)
+    pot = max(1, int(pot_state.get("pot", 3)))
+    for recursion in range(2):  # initial + up to 1 re-run (recursionsLeft=1)
+        status, counts = select_cascade(
+            dI0, abs_grads[0], abs_grads[1], abs_grads[2], ths, cand_mask,
+            draw_dirs(pot), pot, th_factor,
+            settings.grad_downweight_per_level,
+            settings.select_direction_distribution)
+        num_have = float(counts.sum())
+        quotia = density / max(num_have, 1.0)
+        K = num_have * (pot + 1) * (pot + 1)
+        ideal_pot = max(1, int(np.sqrt(K / max(density, 1.0)) - 1))
+        if recursion == 0 and quotia > 1.25 and pot > 1:
+            pot = min(ideal_pot, pot - 1)
+            continue
+        if recursion == 0 and quotia < 0.25:
+            pot = max(ideal_pot, pot + 1)
+            continue
+        break
+
+    status_np = status.cpu().numpy()
+    n_have = int((status_np != 0).sum())
+    if quotia < 0.95 and n_have > 0:
+        keep = np.asarray(draw_keep(status_np.shape)) < quotia
+        status_np = np.where(keep, status_np, 0).astype(np.int8)
+        n_have = int((status_np != 0).sum())
+    pot_state["pot"] = ideal_pot
+    return status_np, n_have

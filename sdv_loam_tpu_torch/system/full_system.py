@@ -41,11 +41,18 @@ retry ladder) and `_finish` (keyframe decision, trace or keyframe tail).
     fleet can run the requests of several systems as lanes of one call
     while the host bookkeeping between the stages stays per sequence.
 
+A frame without a cloud is camera-only: the first one starts the
+monocular bootstrap (ops/mono_init), whose ready frame becomes the second
+keyframe with the initializer's pose; a later one (LiDAR dropout) takes a
+null scan, so its keyframe selection runs the monocular branch only.
+Observers (io/observer) get every tracked pose and, after each keyframe's
+host readback, the window; `Settings.log_stuff` adds the deep-log streams
+(track, nums and Hessian lines).
+
 The JAX package's generator/yield protocol (which batches readbacks over a
 TPU link) is not ported. On CUDA every public call runs on the system's own
 stream, and a stage boundary waits for that stream only, so systems on
-other streams keep running. Not ported: camera-only frames, deep logs and
-observers — asking for one raises NotImplementedError.
+other streams keep running.
 """
 
 from __future__ import annotations
@@ -64,12 +71,14 @@ from sdv_loam_tpu_torch.ops import lidar as lidar_ops
 from sdv_loam_tpu_torch.ops import trace as trace_ops
 from sdv_loam_tpu_torch.ops.align import flatten_pyramid
 from sdv_loam_tpu_torch.ops.frame_step import track_frame_step
+from sdv_loam_tpu_torch.ops.mono_init import MonoInitializer
 from sdv_loam_tpu_torch.ops.photometric import build_track_ref, splat_idepth
 from sdv_loam_tpu_torch.ops.pyramid import make_images
 from sdv_loam_tpu_torch.ops.select import (cascade_direction_draws,
                                            drive_steps, make_maps_compact,
                                            make_maps_compact_steps,
                                            run_select)
+from sdv_loam_tpu_torch.ops.trace import pattern_colors
 from sdv_loam_tpu_torch.system import kf_ops
 from sdv_loam_tpu_torch.utils import se3
 from sdv_loam_tpu_torch.utils.camera import PyramidCalib
@@ -86,6 +95,8 @@ KF_PULL_KEYS = ("eps", "calib", "T_cw_fej", "feth", "energy", "HM", "bM",
                 "num_good_res", "idepth_hessian", "res_active",
                 "match_overflow", "match_diag", "match_diag_p2", "res_diag",
                 "death_diag", "lm_iters")
+# ... and, with Settings.log_stuff, the deep-log exports
+KF_LOG_KEYS = ("H_final", "b_final", "nullspaces")
 # activation outputs the host reads back
 ACT_PULL_KEYS = ("dead", "kill", "drop_oob", "cand_idx", "lane_valid",
                  "success", "idepth", "inlier_targets")
@@ -119,15 +130,6 @@ def _rotation_ladder(rot_delta=0.02):
     return out
 
 
-def _unsupported(s: Settings, observers) -> list[str]:
-    bad = []
-    if s.log_stuff:
-        bad.append("log_stuff")
-    if observers:
-        bad.append("observers")
-    return bad
-
-
 class FullSystem:
     """The LiDAR-assisted semi-direct visual odometry system on one device
     (CUDA unless the caller asks for the CPU)."""
@@ -138,13 +140,10 @@ class FullSystem:
                  settings: Settings | None = None, observers=None,
                  telemetry=None, device="cuda"):
         s = settings or Settings()
-        bad = _unsupported(s, observers)
-        if bad:
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(bad))
         self.calib = calib
         self.sensor = sensor
         self.s = s
+        self.observers = list(observers or [])
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -261,6 +260,7 @@ class FullSystem:
         self.initialized = False
         self.is_lost = False
         self.init_failed = False
+        self._mono = None          # camera-only bootstrap (ops/mono_init)
         self._first_frame = None
         # the selection cascade's random direction grids; the keep
         # sub-sampling draws from numpy's default_rng(seed) like the JAX
@@ -476,14 +476,12 @@ class FullSystem:
     # main entry (addActiveFrame)
     # ------------------------------------------------------------------
 
-    def add_active_frame(self, image: np.ndarray, cloud: np.ndarray,
+    def add_active_frame(self, image: np.ndarray, cloud: np.ndarray | None,
                          timestamp: float, exposure: float = 1.0):
         """Process one frame (image (H, W) intensities, cloud (N, 3)
-        LiDAR-frame points). In pipelined mode the frame's readback and
-        keyframe work happen in the next call (or `flush`)."""
-        if cloud is None:
-            raise NotImplementedError(
-                "camera-only frames (ops/mono_init) are not ported yet")
+        LiDAR-frame points, or None for a camera-only frame). In pipelined
+        mode the frame's readback and keyframe work happen in the next call
+        (or `flush`)."""
         with self._on_stream():
             if self.s.pipelined_frames and self.initialized \
                     and not self.is_lost and len(self.shells) >= 2:
@@ -564,6 +562,18 @@ class FullSystem:
                      exposure=float(exposure), flat=flatten_pyramid(dI))
 
         if not self.initialized:
+            if self._mono is not None:
+                self._bootstrap_frame(frame)
+                return None
+            if cloud is None:
+                # no LiDAR on the first frame: start the camera-only
+                # bootstrap (the reference's setFirst path)
+                self._mono = MonoInitializer(self.calib, self.s)
+                self._mono.set_first(dI, abs_grad)
+                frame.pop("cloud")
+                self._first_frame = frame
+                self.telemetry.frame_done(False)
+                return None
             self._lidar(frame)
             self._first_frame = frame
             self.initialized = True
@@ -574,11 +584,33 @@ class FullSystem:
             self._initialize()
         return frame
 
+    def _bootstrap_frame(self, frame):
+        """A frame of the camera-only bootstrap: feed the mono initializer
+        until it snaps and settles (trackFrame, CoarseInitializer.cpp:
+        50-230); the ready frame becomes the second keyframe with the
+        initializer's pose (initializeFromInitializer), without
+        photometric tracking."""
+        frame.pop("cloud")
+        if not self._mono.track_frame(frame["dI"]):
+            self.telemetry.frame_done(False)
+            return
+        self._initialize_mono(frame)
+        frame["scan"] = self._null_scan()
+        frame["flow"] = np.zeros(3)
+        frame["track_rmse"] = 0.0
+        with self.telemetry.stage("keyframe"):
+            self._make_key_frame(frame)
+        self.telemetry.frame_done(True)
+
     def _lidar(self, frame, scan=None):
         """Phase 2: LiDAR preprocessing (or `scan`, a lane of the lockstep
-        fleet's batch). Not staging: the projection uses the BA-refined
-        intrinsics, which the previous frame's keyframe may change."""
+        fleet's batch); a camera-only frame takes the null scan. Not
+        staging: the projection uses the BA-refined intrinsics, which the
+        previous frame's keyframe may change."""
         cloud = frame.pop("cloud")
+        if scan is None and cloud is None:
+            frame["scan"] = self._null_scan()
+            return
         with self.telemetry.stage("lidar"):
             frame["scan"] = scan if scan is not None \
                 else self._preprocess(cloud)
@@ -604,6 +636,9 @@ class FullSystem:
             print("Initial tracking failed: LOST!")
             self.is_lost = True
             return None
+        sh = frame["shell"]
+        for ob in self.observers:
+            ob.publish_cam_pose(sh["id"], sh["timestamp"], sh["T_wc"])
         return self._keyframe_decision(frame) or len(self.kf_shells) < 2
 
     # ------------------------------------------------------------------
@@ -653,6 +688,63 @@ class FullSystem:
         fr["shell"]["is_kf"] = True
         self.kf_shells.append(fr["shell"]["id"])
         self._build_track_ref_first_frame(slot)
+
+    def _null_scan(self):
+        """The scan of a camera-only frame, on the system's device: an empty
+        depth map (no LiDAR candidates), the full-image bbox, and
+        add_feature_point set, so selection runs the monocular branch."""
+        z = torch.zeros((self.h, self.w), dtype=torch.float32,
+                        device=self.device)
+        return dict(depth_map=z, px_u_map=z, px_v_map=z,
+                    bbox_area=self._t(float(self.w * self.h)),
+                    add_feature_point=self._t(True, torch.bool))
+
+    def _initialize_mono(self, frame):
+        """initializeFromInitializer for the camera-only bootstrap: KF0 =
+        the stashed first frame with the mono initializer's gauge-fixed
+        points (is_sensor False: BA owns their depths); `frame`'s pose
+        comes from the initializer, its translation rescaled by the same
+        gauge factor (MonoInitializer.level0_points)."""
+        fr = self._first_frame
+        slot = self._insert_frame_slot(fr, kf_id=0)
+        self.frame_prior[slot] = np.array([1e10] * 3 + [1e11] * 3)
+
+        u, v, idep, fac = self._mono.level0_points()
+        color, weights, _, finite, gcen = (self._np(x) for x in
+                                           pattern_colors(fr["dI"][0],
+                                                          self._t(u),
+                                                          self._t(v)))
+        good = finite & np.isfinite(idep) & (idep > 0)
+        if good.sum() < 50:
+            self.init_failed = True
+        rows = self._free_pt_rows(int(good.sum()))
+        sel = np.nonzero(good)[0][:len(rows)]
+        self.pt_valid[rows] = True
+        self.pt["u"][rows] = u[sel]
+        self.pt["v"][rows] = v[sel]
+        self.pt["idepth"][rows] = idep[sel]
+        self.pt["host"][rows] = slot
+        self.pt["color"][rows] = color[sel]
+        self.pt["weights"][rows] = weights[sel]
+        self.pt["is_sensor"][rows] = False      # monocular: BA owns depth
+        self.pt["type"][rows] = CORNER
+        self.pt["prior"][rows] = 0.0            # no depth prior
+        self.pt["quality"][rows] = gcen[sel]
+        self.res_active[rows, :] = False
+        self.matcher_valid[rows, :] = False
+
+        fr["shell"]["is_kf"] = True
+        self.kf_shells.append(fr["shell"]["id"])
+        self._build_track_ref_first_frame(slot)
+
+        # first -> new from the initializer, translation in the point
+        # gauge; world == first frame
+        T_fn = np.asarray(self._mono.T, np.float64).copy()
+        T_fn[:3, 3] *= fac
+        frame["shell"]["T_wc"] = np.linalg.inv(T_fn)
+        frame["shell"]["aff"] = np.asarray(self._mono.aff, np.float64)
+        self.initialized = True
+        self._mono = None
 
     def _splat_and_build(self, slot, u, v, idp, weight, ok):
         t = self._t
@@ -891,6 +983,11 @@ class FullSystem:
             self.first_coarse_rmse = res[0]
         frame["flow"] = flow
         frame["track_rmse"] = res[0]
+        if s.log_stuff:
+            self.telemetry.track_line(
+                shell["id"], shell["timestamp"], 1.0,
+                se3.se3_log_np(np.asarray(T_wc, np.float64)), aff_fh,
+                res[0], int(out["best_try"]))
         return bool(np.isfinite(flow).all() and np.isfinite(res[0]))
 
     def _keyframe_decision(self, frame) -> bool:
@@ -1179,11 +1276,15 @@ class FullSystem:
             # veto and telemetry at the next drain, from a copy started now
             self._track_const = self._window_track_consts(out, slot)
             self._deferred_kf = (self._to_host_async(
-                {k: out[k] for k in KF_PULL_KEYS}), ctx)
+                {k: out[k] for k in self.kf_pull_keys()}), ctx)
             return
         if small is None:
-            small = {k: self._np(out[k]) for k in KF_PULL_KEYS}
+            small = {k: self._np(out[k]) for k in self.kf_pull_keys()}
         self._resolve_kf_readback(small, ctx)
+
+    def kf_pull_keys(self):
+        """The keyframe optimization outputs the host reads back."""
+        return KF_PULL_KEYS + (KF_LOG_KEYS if self.s.log_stuff else ())
 
     def _resolve_deferred_kf(self):
         """Apply a deferred keyframe control readback (host mirrors, veto,
@@ -1203,7 +1304,7 @@ class FullSystem:
         slot, run = ctx["slot"], ctx["run"]
 
         def pull(out_):
-            return {k: self._np(out_[k]) for k in KF_PULL_KEYS}
+            return {k: self._np(out_[k]) for k in self.kf_pull_keys()}
 
         def step_insane(sm):
             worst_t = worst_r = np.inf
@@ -1250,6 +1351,11 @@ class FullSystem:
             self._apply_kf_device_chain(out, slot)
             if s.pipelined_frames and s.deferred_kf_readback:
                 self._track_const = self._window_track_consts(out, slot)
+
+        if s.log_stuff:
+            self.telemetry.log_hessian(len(self.kf_shells) - 1,
+                                       small["H_final"], small["b_final"],
+                                       small["nullspaces"])
 
         if not np.isfinite(small["energy"]):
             print("KF Tracking failed: LOST!")
@@ -1306,9 +1412,45 @@ class FullSystem:
             self.flat_slots[sl] = None
             self.eps[sl] = 0.0
             self.frame_prior[sl] = 0.0
+        self._kf_publish()
+
+    def _kf_publish(self):
+        """Per-keyframe telemetry line, deep-log nums line and observer
+        publication, after the keyframe optimization's readback has reached
+        the host mirrors (in deferred-readback mode one frame later)."""
         self.telemetry.kf_line(len(self.order), int(self.pt_valid.sum()),
                                int(self.res_active.sum()),
                                float(self.last_coarse_rmse[0]))
+        if self.s.log_stuff and self.order:
+            # numsLog stream (FullSystem.cpp:1392-1411)
+            newest_sh = self.shells[self.frame_shell_idx[self.order[-1]]]
+            span = newest_sh["id"] - \
+                self.shells[self.frame_shell_idx[self.order[0]]]["id"]
+            self.telemetry.nums_line(
+                len(self.kf_shells) - 1, float(self.last_coarse_rmse[0]),
+                int(getattr(self, "last_new_traces", 0)),
+                int(np.size(self._last_act)),
+                int(self.slot_stats_out.sum()),
+                int(self.s.max_opt_iterations),
+                int((self.res_active & self.pt_valid[:, None]).sum()),
+                int(self.telemetry.counters.get("res_marginalized", 0)),
+                newest_sh["aff"], span, len(self.order))
+        if not self.observers:
+            return
+        m = self.pt_valid
+        xn = (self.pt["u"][m] - self.K0[2]) / self.K0[0]
+        yn = (self.pt["v"][m] - self.K0[3]) / self.K0[1]
+        pr = np.stack([xn, yn, np.ones(m.sum())], -1) / \
+            np.maximum(self.pt["idepth"][m], 1e-9)[:, None]
+        T_wc = np.linalg.inv(self.T_cw)
+        Th = T_wc[self.pt["host"][m]]
+        pw = np.einsum("nij,nj->ni", Th[:, :3, :3], pr) + Th[:, :3, 3]
+        # a full-state observer reads the immature pool's host mirror
+        self._sync_immature()
+        for ob in self.observers:
+            ob.publish_keyframes([self.frame_kf_id[sl] for sl in self.order],
+                                 T_wc[self.order], pw, self.pt["host"][m])
+            ob.on_keyframe(self)
 
     def _apply_kf_device_chain(self, out, slot):
         """Chain the kf_opt outputs that later device stages consume."""

@@ -442,7 +442,10 @@ def kf_opt_step_lanes(
         idepth=idepth_f, new_state=new_state, pt_valid=pt_valid4,
         center=centers, num_good_res=num_good_res, idepth_hessian=Hdd_f,
         res_active=res_active3, matcher_px=matcher_px,
-        matcher_valid=matcher_valid, track_ref=track_ref)
+        matcher_valid=matcher_valid, track_ref=track_ref,
+        # deep-log exports (read back only with Settings.log_stuff)
+        H_final=out["H_final"], b_final=out["b_final"],
+        nullspaces=out["nullspaces"])
 
 
 POOL_FIELDS = ("u", "v", "idepth", "host", "color", "weights", "is_sensor",

@@ -20,7 +20,10 @@ throughput axis is B independent sequences sharing one device):
     K2 and K1 then run once per batched round, over all its lanes).
     Requests whose shapes or statics differ (lane caps widened to the
     fleet's widest), host retry attempts, the BA veto's damped retry and
-    the host bookkeeping between the stages run per sequence.
+    the host bookkeeping between the stages run per sequence. A lane
+    whose frame has no cloud stays out of the LiDAR batch and takes the
+    null scan; a lane still in the camera-only bootstrap ends its round
+    at staging.
 
 Per-sequence results do not depend on the composition: systems share
 only the device, never state.
@@ -41,8 +44,7 @@ from sdv_loam_tpu_torch.ops.select import (SELECT_LANE_ARGS, run_select,
                                            select_compact_lanes)
 from sdv_loam_tpu_torch.ops.trace import trace_points, trace_points_lanes
 from sdv_loam_tpu_torch.system import kf_ops
-from sdv_loam_tpu_torch.system.full_system import (ACT_PULL_KEYS,
-                                                   KF_PULL_KEYS, TRACK_KEYS)
+from sdv_loam_tpu_torch.system.full_system import ACT_PULL_KEYS, TRACK_KEYS
 
 
 def _run_all(pool, fns):
@@ -193,10 +195,6 @@ class MultiSystem:
 
     def _round(self, frames):
         live = [i for i, fr in enumerate(frames) if fr is not None]
-        for i in live:
-            if frames[i][1] is None:
-                raise NotImplementedError(
-                    "camera-only frames (ops/mono_init) are not ported yet")
 
         # 1. pyramids: one batch over the systems that will stage one
         pyr = {}
@@ -214,20 +212,22 @@ class MultiSystem:
         ).items() if f is not None}
         ids = sorted(staged)
 
-        # 2. LiDAR: one batch, clouds padded to the fleet's largest bucket
+        # 2. LiDAR: one batch, clouds padded to the fleet's largest bucket;
+        # camera-only frames stay out of it and take the null scan
         scans = {}
-        if self.batch_track and len(ids) >= 2 and self._same(
-                [(fs.w, fs.h) for fs in (self.systems[i] for i in ids)]):
+        lid = [i for i in ids if staged[i]["cloud"] is not None]
+        if self.batch_track and len(lid) >= 2 and self._same(
+                [(fs.w, fs.h) for fs in (self.systems[i] for i in lid)]):
             cap = max(self.systems[i]._bucket_cloud(staged[i]["cloud"])[2]
-                      for i in ids)
-            with self._stages(ids, "lidar"):
+                      for i in lid)
+            with self._stages(lid, "lidar"):
                 lanes = [self.systems[i]._lidar_args(staged[i]["cloud"], cap)
-                         for i in ids]
+                         for i in lid]
                 out = preprocess_scan_batch(
                     *(torch.stack(a) for a in zip(*lanes)),
-                    w=self.systems[ids[0]].w, h=self.systems[ids[0]].h)
+                    w=self.systems[lid[0]].w, h=self.systems[lid[0]].h)
                 scans = {i: {k: v[j] for k, v in out.items()}
-                         for j, i in enumerate(ids)}
+                         for j, i in enumerate(lid)}
         self._each(ids, lambda i, fs: fs._lidar(staged[i], scans.get(i)))
 
         # 3. track requests, and the first attempts as one batch
@@ -390,8 +390,9 @@ class MultiSystem:
             out = kf_ops.kf_opt_step_lanes(
                 **lanes, **_widen([r["statics"] for r in rs],
                                   ("p1_cap", "p2_cap")))
-            host = {k: self.systems[grp[0]]._np(out[k])
-                    for k in KF_PULL_KEYS}
+            keys = dict.fromkeys(k for i in grp
+                                 for k in self.systems[i].kf_pull_keys())
+            host = {k: self.systems[grp[0]]._np(out[k]) for k in keys}
         # the windowed LM ran every lane to the group's largest count
         fleet_iters = int(host["lm_iters"].max())
         for j, i in enumerate(grp):
