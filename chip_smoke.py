@@ -52,6 +52,13 @@ Phases (any failure exits nonzero; each prints its results):
          points and a scale-aligned error below 0.15 x path; prints each
          knn call's time and peak memory (level 0 first);
      each part requires at least one K1 and one K2 launch;
+  7. long horizon, sequential through run_sequence, each part with its own
+     kernel launch counts: (a) tests/test_drift_gate.py's scene and
+     Settings (320x96, 100 frames); (b) phase 4's scene A at the default
+     preset and full width (1200x360), 100 frames; each requires not lost,
+     ATE under 2 % of the path and at least one K1 and one K2 launch, and
+     prints ATE, the BA step vetoes (`ba_step_veto`, `ba_step_veto_hard`),
+     keyframes and frames/s;
 then one JSON line with the kernels, and the device JSON as the last line.
 The script imports nothing of JAX.
 """
@@ -103,11 +110,46 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "phase6")
 MONO_SCENE = dict(w=1200, h=360, fx=718.856, step=0.4, lidar_stride=8)
 MONO_FRAMES = 16
 MONO_ERR_FRAC = 0.15
+# phase 7: tests/test_drift_gate.py's scene and Settings, and scene A at
+# full width, 100 frames each; the drift gate's ATE limit (share of path)
+DRIFT_SCENE = dict(w=320, h=96, step=0.8, yaw_rate=0.0, lidar_stride=4)
+DRIFT_SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
+                      n_active_cap=2048, n_immature_cap=2048,
+                      closest_view_track=False)
+LONG_FRAMES = 100
+LONG_ATE_FRAC = 0.02
+# the renderer's worker processes run one thread each: eight processes of
+# eight BLAS threads each ran at half the speed on an 8-core host
+RENDER_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                      "MKL_NUM_THREADS")
 
 
 def dropped(i):
     """LiDAR dropout: every third frame after the first two has no cloud."""
     return i >= 2 and i % 3 == 2
+
+
+def render(seq, n):
+    """Frames 0..n-1 of a synthetic sequence (host raycasting; each frame
+    depends only on its index), rendered by spawned worker processes with
+    one BLAS / OpenMP thread each, which exit before this returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    workers = max(1, min(8, os.cpu_count() or 1, n))
+    saved = {k: os.environ.get(k) for k in RENDER_THREAD_VARS}
+    os.environ.update({k: "1" for k in RENDER_THREAD_VARS})
+    try:
+        with ProcessPoolExecutor(
+                workers,
+                mp_context=multiprocessing.get_context("spawn")) as ex:
+            return list(ex.map(seq.get, range(n)))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _fail(msg):
@@ -318,7 +360,7 @@ def run_slice(device):
     n_frames = 30
     t0 = time.perf_counter()
     seq = make_sequence(n_frames=n_frames, **SCENE, **FLEET_SCENES["A"])
-    scene = Rendered(seq, [seq.get(i) for i in range(n_frames)])
+    scene = Rendered(seq, render(seq, n_frames))
     print(f"slice scene rendered in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -396,7 +438,7 @@ def run_fleet(device):
     scenes = {}
     for name, kw in FLEET_SCENES.items():
         seq = make_sequence(n_frames=n, **SCENE, **kw)
-        scenes[name] = (seq, [seq.get(i) for i in range(n)])
+        scenes[name] = (seq, render(seq, n))
     print(f"fleet scenes rendered in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -714,7 +756,7 @@ def run_mono(device):
     n = MONO_FRAMES
     t0 = time.perf_counter()
     seq = make_sequence(n_frames=n, **MONO_SCENE)
-    frames = [seq.get(i) for i in range(n)]
+    frames = render(seq, n)
     print(f"phase 6 (c): scene rendered in {time.perf_counter() - t0:.1f} s",
           flush=True)
     knn_calls = []
@@ -778,6 +820,59 @@ def run_mono(device):
     return rec
 
 
+def run_long(device):
+    """Phase 7: the two long-horizon parts, sequential through
+    run_sequence (no reset: a lost run fails)."""
+    import torch
+
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.system.runner import run_sequence
+
+    n_frames = LONG_FRAMES
+    parts = {}
+    for name, scene, settings in (
+            ("drift_gate", DRIFT_SCENE, Settings(**DRIFT_SETTINGS)),
+            ("scene_a", dict(SCENE, **FLEET_SCENES["A"]), Settings())):
+        t0 = time.perf_counter()
+        seq = make_sequence(n_frames=n_frames, **scene)
+        run = Rendered(seq, render(seq, n_frames))
+        t_render = time.perf_counter() - t0
+        torch.cuda.synchronize(device)
+        hk.reset_launch_counts()
+        t0 = time.perf_counter()
+        fs, _ = run_sequence(run, settings, device=device, prefetch=False,
+                             allow_reset=False)
+        est = fs.get_trajectory()
+        torch.cuda.synchronize(device)
+        wall = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+        gt = seq.poses_wc[:n_frames]
+        path = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0),
+                                    axis=1).sum())
+        ate = float(ate_rmse(est, gt))
+        c = fs.telemetry.counters
+        parts[name] = rec = dict(
+            frames=n_frames, lost=bool(fs.is_lost), ate_m=ate, path_m=path,
+            ate_share_of_path=ate / path,
+            ba_step_veto=int(c["ba_step_veto"]),
+            ba_step_veto_hard=int(c["ba_step_veto_hard"]),
+            n_keyframes=len(fs.kf_shells), wall_s=wall, fps=n_frames / wall,
+            render_s=t_render, launches=launches,
+            stage_ms_per_frame=_stage_ms(fs, n_frames))
+        print(f"phase 7 {name}: " + json.dumps(rec), flush=True)
+        if rec["lost"] or not np.isfinite(est).all() \
+                or not ate < LONG_ATE_FRAC * path:
+            _fail(f"phase 7 {name}: lost or ATE {ate} m over "
+                  f"{LONG_ATE_FRAC} x path {path} m")
+        if launches["dilate_pyramid"] < 1 or \
+                launches["distance_transform"] < 1:
+            _fail(f"phase 7 {name}: a kernel was not launched ({launches})")
+    return parts
+
+
 def main():
     import torch
 
@@ -837,6 +932,20 @@ def main():
     phase6 = dict(cli=run_cli(device, scene), dropout=run_dropout(device, scene),
                   mono=run_mono(device))
     print(f"phase 6 {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 7. long horizon
+    t0 = time.perf_counter()
+    phase7 = run_long(device)
+    print(f"phase 7 {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, r in phase7.items():
+        print(f"phase 7 {name}: ATE {r['ate_m']:.4f} m "
+              f"({100 * r['ate_share_of_path']:.3f} % of {r['path_m']:.1f} m),"
+              f" ba_step_veto {r['ba_step_veto']}, ba_step_veto_hard "
+              f"{r['ba_step_veto_hard']}, keyframes {r['n_keyframes']}, "
+              f"{r['fps']:.3f} frames/s, K1 launches "
+              f"{r['launches']['dilate_pyramid']}, K2 launches "
+              f"{r['launches']['distance_transform']}", flush=True)
+
     by_path = {"cli": phase6["cli"]["launches"],
                "dropout_sequential":
                    phase6["dropout"]["sequential"]["launches"],
@@ -850,6 +959,8 @@ def main():
              launches=summary["launches"]["dilate_pyramid"],
              launches_phase6={k: v["dilate_pyramid"]
                               for k, v in by_path.items()},
+             launches_phase7={k: v["launches"]["dilate_pyramid"]
+                              for k, v in phase7.items()},
              **rec["dilate_pyramid"]),
         dict(name="distance_transform", route="cuda",
              source="sdv_loam_tpu_torch/csrc/distance_transform.cu",
@@ -857,6 +968,8 @@ def main():
              launches=summary["launches"]["distance_transform"],
              launches_phase6={k: v["distance_transform"]
                               for k, v in by_path.items()},
+             launches_phase7={k: v["launches"]["distance_transform"]
+                              for k, v in phase7.items()},
              **rec["distance_transform"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -340,7 +340,10 @@ class Settings:
     trace_max_steps: int = 64      # discrete epipolar search budget (see
                                    #   ops/trace.TRACE_STEPS)
     align_max_iters: int = 10      # Reprojector align2D GN iterations
-    solve_dtype: str = "float32"   # device solve dtype; float64 on CPU tests
+    solve_dtype: str = "float32"   # the BA's dense solve dtype; float32 as
+                                   # the JAX package solves (float64 only
+                                   # to measure the solve's share of a
+                                   # difference)
     seed: int = 0                  # torch.Generator seed replacing libc rand()
 
     @classmethod

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from sdv_loam_tpu.config import ANG_RES_Y
+from jax_parity import mid_bin
 from sdv_loam_tpu.data.synthetic import make_sequence
 from sdv_loam_tpu.ops import lidar as jl
 from sdv_loam_tpu_torch.ops import lidar as tl
@@ -23,19 +23,6 @@ def _pad(cloud, cap):
     mask = np.zeros(cap, bool)
     mask[:cloud.shape[0]] = True
     return out, mask
-
-
-def _mid_bin(cloud):
-    """Move every point half a ring up, keeping its range and azimuth: the
-    synthetic scans sit exactly on ring edges, where the last-ulp
-    difference between XLA's and torch's atan2 flips the floor()."""
-    c = cloud.astype(np.float64)
-    r = np.linalg.norm(c, axis=1)
-    el = np.arcsin(c[:, 2] / r) + np.deg2rad(0.5 * ANG_RES_Y)
-    az = np.arctan2(c[:, 0], c[:, 1])
-    hd = r * np.cos(el)
-    return np.stack([hd * np.sin(az), hd * np.cos(az), r * np.sin(el)],
-                    -1).astype(np.float32)
 
 
 def _with_ties(cloud, rng, n=400):
@@ -66,7 +53,7 @@ def _run_both(cloud, mask, calib, sensor, w, h):
 @pytest.mark.parametrize("frame,ties", [(0, False), (3, True)])
 def test_preprocess_scan_matches(frame, ties):
     seq = make_sequence(n_frames=4, w=320, h=96, lidar_stride=2)
-    cloud = _mid_bin(seq.get_cloud(frame))
+    cloud = mid_bin(seq.get_cloud(frame))
     if ties:
         cloud = _with_ties(cloud, np.random.default_rng(frame))
     cloud, mask = _pad(cloud, 1 << 17)

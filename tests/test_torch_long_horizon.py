@@ -1,0 +1,232 @@
+"""The port over long horizons, on the CPU: the JAX package's long-horizon
+gates, and the port's trajectory against the JAX package's.
+
+  * drift gate: tests/test_drift_gate.py's scene and Settings, 100 frames
+    of the port: ATE under 2 % of the path, and no more BA step vetoes
+    than this file records;
+  * the hand-over at the drift gate's first veto: the port's state just
+    before it loads into both packages, each takes the keyframe, and both
+    keyframe optimizations must agree to float level (the same residual
+    sets and decisions, the same veto);
+  * window churn: tests/test_e2e.py's churn fixture (28 frames): ATE under
+    1 % of the path and that test's RPE bounds;
+  * trajectory against trajectory: tests/test_e2e.py's scene, 30 frames,
+    both packages, the JAX selection draws injected and the scans
+    mid-binned: the per-frame position gap under the JAX package's own
+    gap between its two float precisions.
+
+Why the veto count is not required to be the JAX package's. Whether the
+window's BA is vetoed from some keyframe on is decided by float-level
+differences, in either package. On the drift-gate scene (100 frames, CPU,
+vetoes / ATE in % of the 79.2 m path):
+  * JAX package, x64 on (as tests/conftest.py sets it), selection seeds
+    0-8: 0, 0, 0, 18 (from frame 64), 12, 18, 0, 1, 0 vetoes; ATE 0.33-2.63
+    % (seed 4 is over the 2 % gate).
+  * JAX package, x64 off (as on the TPU), seeds 0-8: 0, 0, 0, 0, 0, 0, 8,
+    28 (from frame 44), 0; ATE 0.23-1.09 %.
+  * the port, one torch thread, seeds 0-8: 2 (frames 80 and 82), 3, 0, 0,
+    7, 0, 0, 16, 0; ATE 0.14-3.95 %. Seed 0 with the dense solve in
+    float64 (`Settings.solve_dtype`): 1 veto, at frame 78.
+Handed the port's state before frame 80, the JAX package takes the same
+six LM decisions (E0 41619.25 against 41619.27) and vetoes the same step.
+So the test holds the seed-0 count measured here, DRIFT_VETOES, as a
+ceiling, and the hand-over holds the two optimizations together.
+
+The trajectory bound. The JAX package against itself, x64 on against off,
+both mid-binned, on tests/test_e2e.py's 30 frames: positions up to 0.075 m
+apart over frames 0-19 and 0.681 m over frames 0-29 (the gap grows at the
+keyframes after frame 20). The port against the JAX package with x64 off:
+0.049 m and 0.398 m (against x64 on: 0.107 m and 1.071 m).
+
+About 160 s on one torch thread of an 8-core x86 host: the port's 100
+drift-gate frames ~75 s, the trajectory test ~45 s.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from jax_parity import checkpoint_key, jax_dir_source, load_jax, mid_bin, \
+    mid_binned
+from sdv_loam_tpu.config import Settings as JSettings
+from sdv_loam_tpu.data.synthetic import make_sequence
+from sdv_loam_tpu.eval.ate import ate_rmse, rpe
+from sdv_loam_tpu.system import kf_ops as jkf_ops
+from sdv_loam_tpu.system.full_system import FullSystem as JFullSystem
+from sdv_loam_tpu_torch.config import Settings as TSettings
+from sdv_loam_tpu_torch.system import checkpoint as tcheckpoint
+from sdv_loam_tpu_torch.system import kf_ops as tkf_ops
+from sdv_loam_tpu_torch.system.full_system import FullSystem as TFullSystem
+
+# one intra-op thread per test process (tests/test_torch_fleet_parity.py)
+torch.set_num_threads(1)
+
+# tests/test_drift_gate.py's scene and Settings
+DRIFT_N = 100
+DRIFT_SCENE = dict(w=320, h=96, step=0.8, yaw_rate=0.0, lidar_stride=4)
+DRIFT_SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
+                      n_active_cap=2048, n_immature_cap=2048,
+                      closest_view_track=False)
+# the port's seed-0 run: BA step vetoes at the keyframes of frames 80, 82
+DRIFT_VETOES = 2
+VETO_ONSET = 80
+# tests/test_e2e.py's scenes and Settings
+E2E_SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
+                    n_active_cap=2048, n_immature_cap=2048,
+                    ba_resf_at_fej=False)
+CHURN_N = 28
+CHURN_SCENE = dict(w=320, h=96, step=0.8, yaw_rate=0.004, lidar_stride=2)
+TRAJ_N = 30
+TRAJ_SCENE = dict(w=320, h=96, step=0.8, yaw_rate=0.01, lidar_stride=2)
+# the JAX package's own position gap, x64 on against off (module
+# docstring): (frames, metres)
+TRAJ_BOUNDS = ((20, 0.075), (30, 0.681))
+
+
+def _path_m(poses):
+    return float(np.linalg.norm(np.diff(poses[:, :3, 3], axis=0),
+                                axis=1).sum())
+
+
+@pytest.fixture(scope="module")
+def drift_run(tmp_path_factory):
+    """The port on the drift-gate scene, with a checkpoint of its state
+    just before frame VETO_ONSET and the frames whose keyframe was
+    vetoed."""
+    seq = make_sequence(n_frames=DRIFT_N, **DRIFT_SCENE)
+    fs = TFullSystem(seq.calib, seq.sensor, TSettings(**DRIFT_SETTINGS),
+                     device="cpu")
+    path = str(tmp_path_factory.mktemp("drift") / "onset.npz")
+    vetoed = []
+    for i in range(DRIFT_N):
+        if i == VETO_ONSET:
+            tcheckpoint.save(fs, path)
+        before = fs.telemetry.counters["ba_step_veto"]
+        fs.add_active_frame(*seq.get(i))
+        if fs.telemetry.counters["ba_step_veto"] > before:
+            vetoed.append(i)
+    return dict(fs=fs, seq=seq, path=path, vetoed=vetoed)
+
+
+def test_port_drift_gate(drift_run):
+    fs, seq = drift_run["fs"], drift_run["seq"]
+    assert not fs.is_lost
+    est = fs.get_trajectory()
+    gt = seq.poses_wc[:len(est)]
+    dist = _path_m(gt)
+    a = ate_rmse(est, gt)
+    print(f"\n[port drift gate] path {dist:.1f} m  ATE {a:.3f} m "
+          f"({100 * a / dist:.2f}%), vetoes at frames {drift_run['vetoed']}")
+    assert a < 0.02 * dist, (a, dist)
+    assert len(fs.kf_shells) >= 40
+    assert fs.telemetry.counters["ba_step_veto"] == len(drift_run["vetoed"])
+    assert len(drift_run["vetoed"]) <= DRIFT_VETOES, drift_run["vetoed"]
+
+
+def _capture(monkeypatch, module, to_numpy):
+    """Record every keyframe optimization's outputs of `module`."""
+    calls = []
+    orig = module.kf_opt_step
+
+    def wrapped(*a, **kw):
+        out = orig(*a, **kw)
+        calls.append({k: to_numpy(v) for k, v in out.items()
+                      if k != "track_ref"})
+        return out
+    monkeypatch.setattr(module, "kf_opt_step", wrapped)
+    return calls
+
+
+def test_handover_at_veto_onset(drift_run, monkeypatch):
+    """The port's state before frame VETO_ONSET loads into both packages
+    (the JAX one with its pyramid stack, the port with the JAX draws);
+    both take the frame, a keyframe whose BA step the port's own run
+    vetoed. Both keyframe optimizations (the BA, then its vetoed re-run)
+    must agree: the residual sets, the matcher and death diagnostics and
+    the veto exactly; the energy, the step and the marginalization prior
+    to float level. Measured (relative to each output's largest value):
+    energy 6.6e-7, eps 4.3e-6 (2.7e-6 of a 0.63 step), T_cw_fej 3.6e-7,
+    HM 3.9e-8, bM 5.4e-7; every mask equal; both veto once; poses
+    afterwards 3.6e-7 apart."""
+    seq, path = drift_run["seq"], drift_run["path"]
+    jfs = load_jax(path, seq.calib, seq.sensor, JSettings(**DRIFT_SETTINGS))
+    tfs = tcheckpoint.load(path, seq.calib, seq.sensor,
+                           TSettings(**DRIFT_SETTINGS), device="cpu")
+    tfs._dir_source = jax_dir_source(checkpoint_key(path), tfs.h, tfs.w)
+    jcalls = _capture(monkeypatch, jkf_ops, np.asarray)
+    tcalls = _capture(monkeypatch, tkf_ops, lambda v: v.numpy())
+    img, cloud, ts = seq.get(VETO_ONSET)
+    for fs in (jfs, tfs):
+        fs.add_active_frame(img, mid_bin(cloud), ts)
+    assert jfs.shells[VETO_ONSET]["is_kf"] and tfs.shells[VETO_ONSET]["is_kf"]
+    assert tfs.telemetry.counters["ba_step_veto"] == \
+        jfs.telemetry.counters["ba_step_veto"]
+    assert len(tcalls) == len(jcalls) >= 1
+    for j, t in zip(jcalls, tcalls):
+        for k in ("new_state", "res_active", "pt_valid", "matcher_valid",
+                  "res_diag", "match_diag", "death_diag", "stats_out"):
+            np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+        for k, rel in (("energy", 1e-5), ("eps", 1e-4), ("T_cw_fej", 1e-5),
+                       ("HM", 1e-5), ("bM", 1e-5), ("feth", 1e-5),
+                       ("idepth", 1e-5)):
+            diff = float(np.abs(t[k].astype(np.float64) - j[k]).max())
+            scale = max(float(np.abs(j[k]).max()), 1e-9)
+            assert diff <= rel * scale, (k, diff, scale)
+    np.testing.assert_allclose(tfs.get_trajectory(), jfs.get_trajectory(),
+                               atol=1e-5)
+
+
+def test_port_window_churn():
+    """tests/test_e2e.py::test_window_churn on the port: measured ATE
+    0.075 m over 21.6 m (0.35 %), RPE 0.042 m and 0.0186 rad."""
+    seq = make_sequence(n_frames=CHURN_N, **CHURN_SCENE)
+    fs = TFullSystem(seq.calib, seq.sensor, TSettings(**E2E_SETTINGS),
+                     device="cpu")
+    for i in range(CHURN_N):
+        fs.add_active_frame(*seq.get(i))
+    assert not fs.is_lost
+    est = fs.get_trajectory()
+    gt = seq.poses_wc[:CHURN_N]
+    assert len(fs.kf_shells) >= fs.s.max_frames + 3
+    assert len(fs.order) <= fs.s.max_frames + 1
+    assert np.isfinite(fs.HM).all() and np.isfinite(fs.bM).all()
+    assert np.abs(fs.HM).max() > 0
+    dist = _path_m(gt)
+    a = ate_rmse(est, gt)
+    t_rpe, r_rpe = rpe(est, gt)
+    print(f"\n[port window churn] path {dist:.1f} m  ATE {a:.3f} m "
+          f"({100 * a / dist:.2f}%)  RPE {t_rpe:.3f} m, {r_rpe:.4f} rad")
+    assert a < 0.010 * dist, (a, dist)
+    assert t_rpe < 0.15, t_rpe
+    assert r_rpe < 0.032, r_rpe
+
+
+def test_trajectory_matches_jax():
+    """30 frames of tests/test_e2e.py's scene, mid-binned, through both
+    packages (the JAX package with x64 off, as on the TPU; the port with
+    the JAX selection draws): the positions may part by no more than the
+    JAX package parts from itself between its two float precisions
+    (TRAJ_BOUNDS, module docstring)."""
+    seq = make_sequence(n_frames=TRAJ_N, **TRAJ_SCENE)
+    frames = mid_binned([seq.get(i) for i in range(TRAJ_N)])
+    with jax.enable_x64(False):
+        jfs = JFullSystem(seq.calib, seq.sensor, JSettings(**E2E_SETTINGS))
+        for fr in frames:
+            jfs.add_active_frame(*fr)
+        jtraj = jfs.get_trajectory()
+        key = jax.random.PRNGKey(jfs.s.seed)
+    tfs = TFullSystem(seq.calib, seq.sensor, TSettings(**E2E_SETTINGS),
+                      device="cpu")
+    tfs._dir_source = jax_dir_source(key, tfs.h, tfs.w)
+    for fr in frames:
+        tfs.add_active_frame(*fr)
+    assert not tfs.is_lost and not jfs.is_lost
+    gap = np.linalg.norm(tfs.get_trajectory()[:, :3, 3] - jtraj[:, :3, 3],
+                         axis=1)
+    print(f"\n[trajectory gap] {np.round(gap, 4).tolist()}")
+    for n, bound in TRAJ_BOUNDS:
+        assert gap[:n].max() <= bound, (n, gap[:n].max(), bound)
+    # and the port's own accuracy: 0.157 m over 23.2 m measured
+    a = ate_rmse(tfs.get_trajectory(), seq.poses_wc)
+    assert a < 0.01 * _path_m(seq.poses_wc), a

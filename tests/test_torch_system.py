@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from jax_parity import pose_diff
 from sdv_loam_tpu.config import Settings as JSettings
 from sdv_loam_tpu.data.synthetic import make_sequence
 from sdv_loam_tpu.eval.ate import ate_rmse, rpe
@@ -49,12 +50,6 @@ def frames(seq):
     return [seq.get(i) for i in range(12)]
 
 
-def _pose_diff(A, B):
-    d = np.linalg.inv(A) @ B
-    return (float(np.linalg.norm(d[:3, 3])),
-            float(np.arccos(np.clip((np.trace(d[:3, :3]) - 1) / 2, -1, 1))))
-
-
 def test_handover_tracking_matches_jax(seq, frames, tmp_path):
     jfs = JFullSystem(seq.calib, seq.sensor, JSettings(**SETTINGS))
     for i in range(6):
@@ -70,22 +65,23 @@ def test_handover_tracking_matches_jax(seq, frames, tmp_path):
     tfs.add_active_frame(*frames[6])
     assert not tfs.is_lost and not jres.is_lost
     # the photometric stage (hypothesis ladder + coarse-to-fine LM),
-    # measured 1.2e-7 m / 1.0e-5 rad apart: bound 1 mm and 1e-4 rad
-    dt, dr = _pose_diff(jres.shells[6]["T_wc_photo"],
-                        tfs.shells[6]["T_wc_photo"])
-    assert dt < 1e-3, dt
-    assert dr < 1e-4, dr
-    # after the struct-pose stage (36 matches, MAD-standardized Tukey LM;
-    # sub-0.05 px differences of the aligned matches move it), measured
-    # 3.3e-6 m / 2.0e-4 rad apart: bound 1 mm and 5e-4 rad
-    dt, dr = _pose_diff(jres.shells[6]["T_wc_tracked"],
-                        tfs.shells[6]["T_wc_tracked"])
-    assert dt < 1e-3, dt
-    assert dr < 5e-4, dr
+    # measured 1.2e-7 m / 7.4e-9 rad apart: bound 1e-5 m and 1e-6 rad
+    # (pose_diff's atan2 angle: an arccos one cannot resolve float32
+    # rotations under ~3e-4 rad)
+    dt, dr = pose_diff(jres.shells[6]["T_wc_photo"],
+                       tfs.shells[6]["T_wc_photo"])
+    assert dt < 1e-5, dt
+    assert dr < 1e-6, dr
+    # after the struct-pose stage (36 matches, MAD-standardized Tukey LM),
+    # measured 1.5e-6 m / 6.4e-8 rad apart: bound 1e-4 m and 1e-6 rad
+    dt, dr = pose_diff(jres.shells[6]["T_wc_tracked"],
+                       tfs.shells[6]["T_wc_tracked"])
+    assert dt < 1e-4, dt
+    assert dr < 1e-6, dr
     assert tfs.shells[6]["n_matched"] == jres.shells[6]["n_matched"]
     assert tfs.shells[6]["n_matched"] > 10
     # and the tracked pose is the ground truth's to within test_e2e's scale
-    gt_dt, _ = _pose_diff(seq.poses_wc[6], tfs.shells[6]["T_wc_tracked"])
+    gt_dt, _ = pose_diff(seq.poses_wc[6], tfs.shells[6]["T_wc_tracked"])
     assert gt_dt < 0.1, gt_dt
 
 
