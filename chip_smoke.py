@@ -59,6 +59,25 @@ Phases (any failure exits nonzero; each prints its results):
      ATE under 2 % of the path and at least one K1 and one K2 launch, and
      prints ATE, the BA step vetoes (`ba_step_veto`, `ba_step_veto_hard`),
      keyframes and frames/s;
+Every iterated stage (the tracking LM and its cutoff pre-loop, the
+matcher's alignment, the struct-pose LM, the windowed BA, the LiDAR
+components sweeps) runs as replayed CUDA graphs (utils/device_loop); each
+phase prints the graphs' captures, capture seconds, replays and flag reads
+per frame. Besides:
+  * graph against eager, per stage: the loops of phase 4's fifth frame
+    (LiDAR scan, track step) and of its first keyframe optimization, and of
+    the batched lockstep's fifth round and first batched keyframe
+    optimization (lanes), each replayed through graphs and run by the eager
+    early-exit loop on the card; every output and iteration count must be
+    bit for bit equal (chunk size, replays and reads printed per stage);
+  * phase 4 again with eager loops (`device_loop.reference`): the same LM
+    decisions (iteration counts per level and per keyframe BA), keyframes
+    and trajectory are required;
+  * the results recorded with eager loops on the card (PERF.md section 5),
+    read again (phases 4, 6, 7), printed beside this run's;
+  * profile windows (torch.profiler): phase 4's frames 10-20 and five
+    rounds of the batched lockstep: host launch calls, device kernels,
+    device busy share, replays, reads, captures and stage ms, per frame;
 then one JSON line with the kernels, and the device JSON as the last line.
 The script imports nothing of JAX.
 """
@@ -118,6 +137,21 @@ DRIFT_SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
                       closest_view_track=False)
 LONG_FRAMES = 100
 LONG_ATE_FRAC = 0.02
+# what the eager-loop port read on the card (PERF.md section 5): ATE to
+# 4 decimals (m), BA step vetoes, keyframes, K1 launches; the bootstrap's
+# ready frame and error
+RECORDED = {"phase4": dict(ate_m=0.0176, n_keyframes=16),
+            "phase6_cli": dict(ate_m=0.0164),
+            "phase6_dropout": dict(ate_m=0.0371, ba_step_veto=4, k1=20),
+            "phase6_mono": dict(ready_frame=7, err_m=0.305),
+            "phase7_drift_gate": dict(ate_m=0.8673, ba_step_veto=4,
+                                      n_keyframes=51, k1=55),
+            "phase7_scene_a": dict(ate_m=0.6838, ba_step_veto=0, k1=51)}
+# the frame (round) whose loops are compared graph against eager, and the
+# profile windows: phase 4's frames, the batched lockstep's rounds
+COMPARE_FRAME = 4
+PROFILE_FRAMES = (10, 20)
+PROFILE_ROUNDS = (5, 10)
 # the renderer's worker processes run one thread each: eight processes of
 # eight BLAS threads each ran at half the speed on an 8-core host
 RENDER_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
@@ -150,6 +184,26 @@ def render(seq, n):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+class _Tee:
+    """Standard output also written to a log under chiprun_out/, which
+    keeps the whole of a long run's output."""
+
+    def __init__(self, stream, path):
+        self.stream, self.log = stream, open(path, "w")
+
+    def write(self, text):
+        self.stream.write(text)
+        self.log.write(text)
+
+    def flush(self):
+        self.stream.flush()
+        self.log.flush()
+
+
+def _brief(loops):
+    return {k: v for k, v in loops.items() if k != "per_stage"}
 
 
 def _fail(msg):
@@ -329,6 +383,91 @@ def solver_kernels(device):
     return names
 
 
+def loop_counts(n_frames, caches=()):
+    """The loop driver's counts since its last reset: per stage, and per
+    frame (replays, flag reads, captures), capture seconds, graphs held."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    c = dl.counts()
+    a = c.pop("all", {})
+    return dict(replays_per_frame=a.get("replays", 0) / n_frames,
+                reads_per_frame=a.get("reads", 0) / n_frames,
+                captures=a.get("captures", 0),
+                capture_s=a.get("capture_s", 0.0),
+                graphs=sum(len(x) for x in caches),
+                per_stage={k: {kk: v[kk] for kk in ("calls", "replays",
+                                                    "reads", "captures")}
+                           for k, v in sorted(c.items())})
+
+
+def keep_records(log, frame, keep, have_ba, lanes=1):
+    """Of one frame's (round's) recorded loops, keep those of the compared
+    frame and of the first keyframe optimization with at least `lanes`
+    lanes; returns whether that optimization is now kept."""
+    if frame == COMPARE_FRAME:
+        keep.extend(log)
+    ba = [r for r in log if r["stage"] == "ba0"
+          and r["st"]["eps"].shape[0] >= lanes]
+    if ba and not have_ba:
+        ids = {id(r) for r in keep}
+        keep.extend(r for r in log if id(r) not in ids)
+        return True
+    return have_ba
+
+
+def compare_stages(records, what):
+    """Each recorded loop through graph replays and through the eager
+    early-exit loop on the card: bit for bit, or the run fails. The
+    graphs of one kind are captured on its first record and replayed on
+    the others."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    out = []
+    with dl.use(dl.LoopCache()):
+        for rec in records:
+            res = dl.compare(rec)
+            res.update(rows=int(next(iter(rec["st"].values())).shape[0]),
+                       max_iters=rec["max_iters"])
+            out.append(res)
+            if not res["equal"]:
+                _fail(f"{what}: the {res['stage']} loop's graph replays "
+                      f"differ from its eager loop in {res['differ']}")
+    stages = {}
+    for r in out:
+        st = stages.setdefault(r["stage"], dict(loops=0, chunk=set(),
+                                                rows=set(), replays=0,
+                                                reads=0))
+        st["loops"] += 1
+        st["chunk"].add(r["chunk"])
+        st["rows"].add(r["rows"])
+        st["replays"] += r["replays"]
+        st["reads"] += r["reads"]
+    stages = {k: dict(v, rows=sorted(v["rows"]), chunk=sorted(v["chunk"]))
+              for k, v in stages.items()}
+    print(f"graph against eager, {what}: {len(out)} loops, every output "
+          f"bit for bit equal; per stage {json.dumps(stages)}", flush=True)
+    missing = {"lm", "align", "struct", "ba0", "sweep"} - set(stages)
+    if missing:
+        _fail(f"{what}: no {sorted(missing)} loop recorded")
+    return stages
+
+
+def recorded(part, now):
+    """This run's numbers beside what `RECORDED` holds for `part`."""
+    was = RECORDED[part]
+    rows = {}
+    for k, v in was.items():
+        x = now.get(k)
+        if isinstance(v, float):
+            d = len(repr(v).split(".")[1])
+            held = x is not None and f"{x:.{d}f}" == f"{v:.{d}f}"
+        else:
+            held = x == v
+        rows[k] = dict(recorded=v, now=x, held=held)
+    print(f"recorded results, {part}: {json.dumps(rows)}", flush=True)
+    return rows
+
+
 class Rendered:
     """A synthetic sequence with its frames rendered once (a runner reader;
     `write_kitti_fixture` takes it in the sequence's place)."""
@@ -355,7 +494,9 @@ def run_slice(device):
     from sdv_loam_tpu_torch.eval.ate import ate_rmse, rpe
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.system import full_system, kf_ops
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
     from sdv_loam_tpu_torch.system.runner import run_sequence
+    from sdv_loam_tpu_torch.utils import device_loop as dl
 
     n_frames = 30
     t0 = time.perf_counter()
@@ -376,12 +517,15 @@ def run_slice(device):
 
     torch.cuda.reset_peak_memory_stats()
     hk.reset_launch_counts()
+    dl.reset_counts()
     t0 = time.perf_counter()
     fs, summary = run_sequence(scene, Settings(), device=device,
                                prefetch=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(hk.LAUNCHES)
+    n_build_main = n_build[0]
+    loops = loop_counts(n_frames, [fs.loops])
     est = fs.get_trajectory()
     ate = float(ate_rmse(est, seq.poses_wc[:n_frames]))
     t_rpe, r_rpe = rpe(est, seq.poses_wc[:n_frames])
@@ -393,8 +537,43 @@ def run_slice(device):
     summary.update(ate_m=ate, t_rpe=float(t_rpe), r_rpe=float(r_rpe),
                    wall_s=wall, fps=n_frames / wall,
                    peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
-                   launches=launches, build_track_ref_calls=n_build[0],
-                   n_keyframes=len(fs.kf_shells), lost=bool(fs.is_lost))
+                   launches=launches, build_track_ref_calls=n_build_main,
+                   n_keyframes=len(fs.kf_shells), lost=bool(fs.is_lost),
+                   loops=loops)
+
+    # the same frames with eager loops: the same LM decisions (per level
+    # iterations of every track step, per keyframe BA iterations), the same
+    # keyframes and trajectory; the loops of the compared frame and of the
+    # first keyframe optimization are recorded for the per-stage check
+    ref = FullSystem(seq.calib, seq.sensor, Settings(), device=device)
+    records, have_ba = [], False
+    t0 = time.perf_counter()
+    with dl.reference():
+        for i, fr in enumerate(scene.frames):
+            log = []
+            with dl.recording(log) if (i == COMPARE_FRAME or not have_ba) \
+                    else contextlib.nullcontext():
+                ref.add_active_frame(*fr)
+            have_ba = keep_records(log, i, records, have_ba)
+    est_ref = ref.get_trajectory()
+    torch.cuda.synchronize()
+    eager = dict(wall_s=time.perf_counter() - t0,
+                 n_keyframes=len(ref.kf_shells),
+                 track_iters_equal=_same_iters(fs.track_iters_hist,
+                                               ref.track_iters_hist),
+                 ba_lm_iters=[fs.telemetry.counters["ba_lm_iters"],
+                              ref.telemetry.counters["ba_lm_iters"]],
+                 trajectory_equal=bool(np.array_equal(est, est_ref)),
+                 trajectory_max_abs=float(np.abs(est - est_ref).max()))
+    eager["fps"] = n_frames / eager["wall_s"]
+    summary["eager_loops"] = eager
+    print("slice, eager loops against graphs: " + json.dumps(eager),
+          flush=True)
+    if not (eager["track_iters_equal"] and eager["n_keyframes"]
+            == summary["n_keyframes"] and eager["ba_lm_iters"][0]
+            == eager["ba_lm_iters"][1] and eager["trajectory_equal"]):
+        _fail("slice: the graph and eager loops took other decisions")
+    summary["stage_check"] = compare_stages(records, "slice (one lane)")
     print("slice: " + json.dumps(summary), flush=True)
     if fs.is_lost:
         _fail("slice lost tracking")
@@ -403,12 +582,48 @@ def run_slice(device):
     if not np.isfinite(est).all() or not ate <= ATE_LIMIT_M:
         _fail(f"slice ATE {ate} m over the {ATE_LIMIT_M} m gate")
     if not (launches["dilate_pyramid"] > 0
-            and launches["dilate_pyramid"] == n_build[0]):
+            and launches["dilate_pyramid"] == n_build_main):
         _fail(f"dilate_pyramid launches {launches['dilate_pyramid']} != "
-              f"{n_build[0]} build_track_ref calls")
+              f"{n_build_main} build_track_ref calls")
     if launches["distance_transform"] < 1:
         _fail("distance_transform never launched on the main path")
     return summary, scene
+
+
+def profile_slice(device, scene):
+    """The profile window of phase 4: frames PROFILE_FRAMES of the slice
+    (a fresh system; the frames before the window run unprofiled)."""
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.eval.profile import profile_window
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+
+    fs = FullSystem(scene.calib, scene.sensor, Settings(), device=device)
+    a, b = PROFILE_FRAMES
+    for fr in scene.frames[:a]:
+        fs.add_active_frame(*fr)
+    prof, ka = profile_window(lambda i: fs.add_active_frame(
+        *scene.frames[a + i]), b - a, [fs])
+    print(f"profile, slice frames {a}-{b}: " + json.dumps(prof), flush=True)
+    out = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "profile_slice.txt"), "w") as f:
+        f.write(key_table(ka))
+    return prof
+
+
+def key_table(ka):
+    """The profiler's table sorted by device time (the key's name differs
+    between PyTorch versions)."""
+    try:
+        return ka.table(sort_by="self_device_time_total", row_limit=60)
+    except Exception:
+        return ka.table(sort_by="self_cuda_time_total", row_limit=60)
+
+
+def _same_iters(a, b):
+    """Two systems' per-frame track-step LM iteration records equal."""
+    return len(a) == len(b) and all(
+        np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
 
 
 def _pose_diff(A, B):
@@ -429,9 +644,11 @@ def run_fleet(device):
     from sdv_loam_tpu_torch.config import Settings
     from sdv_loam_tpu_torch.data.synthetic import make_sequence
     from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.eval.profile import profile_window
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.system.full_system import FullSystem
     from sdv_loam_tpu_torch.system.multi import InterleavedFleet, MultiSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
 
     n = FLEET_FRAMES
     t0 = time.perf_counter()
@@ -503,20 +720,33 @@ def run_fleet(device):
                              host_workers=FLEET_B)),
     )
     results = {}
+    records, have_ba = [], False
     for name, make in comps:
         fleet = make()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         hk.reset_launch_counts()
+        dl.reset_counts()
+        # the batched lockstep's loops of the compared round and of its
+        # first batched keyframe optimization (two lanes or more)
+        rec = name == "lockstep_batched"
         t0 = time.perf_counter()
         for i in range(n):
-            fleet.add_frames([scenes[x][1][i] for x in lanes])
+            log = []
+            with dl.recording(log) if rec and (i == COMPARE_FRAME
+                                               or not have_ba) \
+                    else contextlib.nullcontext():
+                fleet.add_frames([scenes[x][1][i] for x in lanes])
+            if rec:
+                have_ba = keep_records(log, i, records, have_ba, lanes=2)
         if hasattr(fleet, "flush"):
             fleet.flush()
         trajs = [fs.get_trajectory() for fs in fleet.systems]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(hk.LAUNCHES)
+        loops = loop_counts(FLEET_B * n, [fs.loops for fs in fleet.systems]
+                            + [getattr(fleet, "loops", ())])
         kernel_lanes = dict(hk.LANES)
         agg = FLEET_B * n / wall
         # host-clock ms per frame of the keyframe stages, the mean over the
@@ -534,7 +764,8 @@ def run_fleet(device):
                    scaling_efficiency=agg / (FLEET_B * single_fps),
                    peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
                    launches=launches, kernel_lanes=kernel_lanes,
-                   stage_ms_per_frame=stage_ms, lm_iters=lm, lanes=[])
+                   stage_ms_per_frame=stage_ms, lm_iters=lm, loops=loops,
+                   lanes=[])
         for x, fs, traj in zip(lanes, fleet.systems, trajs):
             dt = dr = 0.0
             for a, b in zip(traj, refs[x]["traj"]):
@@ -570,10 +801,27 @@ def run_fleet(device):
             if not launches["dilate_pyramid"] < n_kf:
                 _fail(f"{name}: {launches['dilate_pyramid']} K1 launches "
                       f"for {n_kf} keyframes")
+    stage_check = compare_stages(records, "batched lockstep (lanes)")
+    if not any(r["stage"] == "ba0" and r["st"]["eps"].shape[0] >= 2
+               for r in records):
+        _fail("batched lockstep: no keyframe optimization of two lanes or "
+              "more was recorded")
+
+    # the profile window: five rounds of the batched lockstep
+    fleet = MultiSystem([system(x) for x in lanes], batch_track=True)
+    a, b = PROFILE_ROUNDS
+    for i in range(a):
+        fleet.add_frames([scenes[x][1][i] for x in lanes])
+    prof, _ = profile_window(
+        lambda i: fleet.add_frames([scenes[x][1][a + i] for x in lanes]),
+        b - a, fleet.systems, frames_per_step=FLEET_B)
+    print("profile, batched lockstep rounds "
+          f"{a}-{b}: " + json.dumps(prof), flush=True)
     return dict(single_pipelined_fps=single_fps,
                 references={k: {kk: v for kk, v in r.items() if kk != "traj"}
                             for k, r in refs.items()},
-                compositions=results)
+                compositions=results, stage_check=stage_check,
+                profile=prof)
 
 
 def _kernels_ran(part, launches):
@@ -603,6 +851,7 @@ def run_cli(device, scene):
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.config import Settings
     from sdv_loam_tpu_torch.system import checkpoint, runner
+    from sdv_loam_tpu_torch.utils import device_loop as dl
 
     d = os.path.join(OUT_DIR, "cli")
     n = len(scene)
@@ -630,6 +879,7 @@ def run_cli(device, scene):
         return out
     torch.cuda.synchronize()
     hk.reset_launch_counts()
+    dl.reset_counts()
     t0 = time.perf_counter()
     buf = io.StringIO()
     runner.run_sequence = keep_system
@@ -666,7 +916,8 @@ def run_cli(device, scene):
                pngs={k: len(v) for k, v in pngs.items()}, png_shapes=shapes,
                checkpoint_max_abs=ck_err,
                stage_ms_per_frame=_stage_ms(ran[0], n),
-               summary_fps=summary["fps"])
+               summary_fps=summary["fps"],
+               loops=loop_counts(n, [ran[0].loops]))
     _report("(a) CLI on a KITTI directory", rec)
     if rc != 0 or rows.shape[0] != n:
         _fail(f"CLI: rc {rc}, {rows.shape[0]} trajectory rows")
@@ -700,6 +951,7 @@ def run_dropout(device, scene):
     from sdv_loam_tpu_torch.eval.ate import ate_rmse
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.system.runner import run_sequence
+    from sdv_loam_tpu_torch.utils import device_loop as dl
 
     n = len(scene)
     drop = Rendered(scene.seq, [(img, None if dropped(i) else cloud, ts)
@@ -712,6 +964,7 @@ def run_dropout(device, scene):
         log = os.path.join(OUT_DIR, f"dropout_{mode}.jsonl")
         torch.cuda.synchronize()
         hk.reset_launch_counts()
+        dl.reset_counts()
         t0 = time.perf_counter()
         fs, _ = run_sequence(drop, Settings(**kw), device=device,
                              log_path=log, prefetch=False, allow_reset=False)
@@ -728,7 +981,8 @@ def run_dropout(device, scene):
             hessian_lines=kinds.count("hessian"),
             counters=dict(fs.telemetry.counters),
             mono_candidates=int((fs.im_valid & ~fs.im["is_sensor"]).sum()),
-            stage_ms_per_frame=_stage_ms(fs, n))
+            stage_ms_per_frame=_stage_ms(fs, n),
+            loops=loop_counts(n, [fs.loops]))
         _report(f"(b) LiDAR dropout, {mode}", rec)
         if rec["lost"] or not rec["ate_m"] <= ATE_LIMIT_M:
             _fail(f"dropout {mode}: lost or ATE {rec['ate_m']}")
@@ -752,6 +1006,7 @@ def run_mono(device):
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.ops import mono_init
     from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
 
     n = MONO_FRAMES
     t0 = time.perf_counter()
@@ -783,6 +1038,7 @@ def run_mono(device):
                                  pipelined_frames=False), device=device)
         torch.cuda.synchronize()
         hk.reset_launch_counts()
+        dl.reset_counts()
         t0 = time.perf_counter()
         for img, _, ts in frames:
             fs.add_active_frame(img, None, ts)
@@ -797,7 +1053,8 @@ def run_mono(device):
                launches=launches, knn_level0=knn_calls[0] if knn_calls
                else None, knn_calls=knn_calls,
                sensor_points=int(fs.pt["is_sensor"][fs.pt_valid].sum()),
-               stage_ms_per_frame=_stage_ms(fs, n))
+               stage_ms_per_frame=_stage_ms(fs, n),
+            loops=loop_counts(n, [fs.loops]))
     if fs.initialized and len(fs.kf_shells) >= 2:
         k = fs.kf_shells[1]
         e = est[k:, :3, 3] - est[k, :3, 3]
@@ -830,6 +1087,7 @@ def run_long(device):
     from sdv_loam_tpu_torch.eval.ate import ate_rmse
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.system.runner import run_sequence
+    from sdv_loam_tpu_torch.utils import device_loop as dl
 
     n_frames = LONG_FRAMES
     parts = {}
@@ -842,6 +1100,7 @@ def run_long(device):
         t_render = time.perf_counter() - t0
         torch.cuda.synchronize(device)
         hk.reset_launch_counts()
+        dl.reset_counts()
         t0 = time.perf_counter()
         fs, _ = run_sequence(run, settings, device=device, prefetch=False,
                              allow_reset=False)
@@ -861,7 +1120,8 @@ def run_long(device):
             ba_step_veto_hard=int(c["ba_step_veto_hard"]),
             n_keyframes=len(fs.kf_shells), wall_s=wall, fps=n_frames / wall,
             render_s=t_render, launches=launches,
-            stage_ms_per_frame=_stage_ms(fs, n_frames))
+            stage_ms_per_frame=_stage_ms(fs, n_frames),
+            loops=loop_counts(n_frames, [fs.loops]))
         print(f"phase 7 {name}: " + json.dumps(rec), flush=True)
         if rec["lost"] or not np.isfinite(est).all() \
                 or not ate < LONG_ATE_FRAC * path:
@@ -880,6 +1140,9 @@ def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
     device = torch.device("cuda:0")
+    os.makedirs(os.path.dirname(OUT_DIR), exist_ok=True)
+    sys.stdout = _Tee(sys.stdout, os.path.join(os.path.dirname(OUT_DIR),
+                                               "chip_smoke.log"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
@@ -903,9 +1166,14 @@ def main():
     # 4. the slice
     summary, scene = run_slice(device)
     print(f"slice ATE {summary['ate_m']:.4f} m, keyframes "
-          f"{summary['n_keyframes']}, {summary['fps']:.3f} frames/s, "
+          f"{summary['n_keyframes']}, {summary['fps']:.3f} frames/s "
+          f"(eager loops {summary['eager_loops']['fps']:.3f}), "
           f"stage ms/frame {summary['stage_ms_per_frame']}, peak memory "
-          f"{summary['peak_mem_bytes'] / 2**20:.1f} MiB", flush=True)
+          f"{summary['peak_mem_bytes'] / 2**20:.1f} MiB, loop graphs "
+          f"{json.dumps(_brief(summary['loops']))}", flush=True)
+    recorded("phase4", dict(ate_m=summary["ate_m"],
+                            n_keyframes=summary["n_keyframes"]))
+    profile_slice(device, scene)
 
     # 5. the fleet
     t0 = time.perf_counter()
@@ -922,8 +1190,8 @@ def main():
               f"{r['lm_iters']}, largest "
               f"difference from the references {worst[0]:.3g} m / "
               f"{worst[1]:.3g} rad, stage ms/frame "
-              f"{ {k: round(v, 3) for k, v in r['stage_ms_per_frame'].items() if v} }",
-              flush=True)
+              f"{ {k: round(v, 3) for k, v in r['stage_ms_per_frame'].items() if v} }"
+              f", loop graphs {json.dumps(_brief(r['loops']))}", flush=True)
     print(f"fleet phase {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 6. CLI and camera-only
@@ -932,6 +1200,13 @@ def main():
     phase6 = dict(cli=run_cli(device, scene), dropout=run_dropout(device, scene),
                   mono=run_mono(device))
     print(f"phase 6 {time.perf_counter() - t0:.1f} s", flush=True)
+    recorded("phase6_cli", dict(ate_m=phase6["cli"]["ate_m"]))
+    d = phase6["dropout"]["sequential"]
+    recorded("phase6_dropout", dict(
+        ate_m=d["ate_m"], ba_step_veto=d["counters"]["ba_step_veto"],
+        k1=d["launches"]["dilate_pyramid"]))
+    recorded("phase6_mono", dict(ready_frame=phase6["mono"].get(
+        "ready_frame"), err_m=phase6["mono"].get("err_m")))
 
     # 7. long horizon
     t0 = time.perf_counter()
@@ -944,7 +1219,11 @@ def main():
               f"{r['ba_step_veto_hard']}, keyframes {r['n_keyframes']}, "
               f"{r['fps']:.3f} frames/s, K1 launches "
               f"{r['launches']['dilate_pyramid']}, K2 launches "
-              f"{r['launches']['distance_transform']}", flush=True)
+              f"{r['launches']['distance_transform']}, loop graphs "
+              f"{json.dumps(_brief(r['loops']))}", flush=True)
+        recorded(f"phase7_{name}", dict(
+            ate_m=r["ate_m"], ba_step_veto=r["ba_step_veto"],
+            n_keyframes=r["n_keyframes"], k1=r["launches"]["dilate_pyramid"]))
 
     by_path = {"cli": phase6["cli"]["launches"],
                "dropout_sequential":

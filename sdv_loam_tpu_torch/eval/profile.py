@@ -1,0 +1,189 @@
+"""A profile window of the port on the card: torch.profiler (CPU + CUDA)
+around a run of frames, read into per-frame numbers.
+
+    summary = profile_window(step, n, systems)
+
+`step(i)` advances frame (or lockstep round) i of the window; `systems`
+are the FullSystems whose telemetry gives the stage times. The summary
+holds, per frame (a round of B sequences counts as B frames when
+`frames_per_step` is B):
+
+  * host_launch_calls: the runtime's kernel-launch and graph-launch calls
+    (`cudaLaunchKernel`, `cudaLaunchKernelExC`, `cuLaunchKernel`,
+    `cudaGraphLaunch`), graph_launches the last of them;
+  * device_kernels: kernels the device ran (a graph's kernels each count);
+  * device_kernel_ms and device_busy_share: their summed device time, and
+    its share of the window's wall time (overlap between streams is not
+    subtracted);
+  * replays, reads, captures: the loop driver's counts
+    (`utils/device_loop.STATS`) over the window;
+  * stage_ms: host-clock ms of each telemetry stage per frame of one
+    system, the mean over `systems` (each stage ends in a wait for the
+    system's stream; a batched stage is entered on each of its lanes).
+
+`count_dispatches(step, n)` counts, on the CPU, the ops a window
+dispatches per frame inside and outside the iterated stages' loops: the
+kernel launches each loop would cost on the card run eagerly. From the
+command line, on phase 4's scene of chip_smoke.py:
+
+    python -m sdv_loam_tpu_torch.eval.profile [--window 4 8] [--w 1200 --h 360]
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from sdv_loam_tpu_torch.utils import device_loop
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+GRAPH_CALLS = ("cudaGraphLaunch", "cuGraphLaunch")
+
+
+def _dev_us(e):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return float(getattr(e, attr))
+    return 0.0
+
+
+def _is_device(e):
+    return e.device_type is not None and "cuda" in str(e.device_type).lower()
+
+
+def profile_window(step, n_steps: int, systems, frames_per_step: int = 1,
+                   top: int = 15):
+    """Profile `step(0) .. step(n_steps - 1)`; returns (summary dict, the
+    profiler's key averages)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    stage0 = [dict(fs.telemetry.stage_time) for fs in systems]
+    loops0 = device_loop.counts().get("all", {})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(n_steps):
+            step(i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    loops1 = device_loop.counts().get("all", {})
+    ka = prof.key_averages()
+    n = n_steps * frames_per_step
+    kernels = [e for e in ka if _dev_us(e) > 0 and _is_device(e)
+               and not any(s in e.key for s in ("Memcpy", "Memset"))]
+    copies = [e for e in ka if _dev_us(e) > 0 and _is_device(e)
+              and any(s in e.key for s in ("Memcpy", "Memset"))]
+    calls = {e.key: int(e.count) for e in ka if e.key in LAUNCH_CALLS}
+    dev_us = sum(_dev_us(e) for e in kernels)
+    stages = {}
+    for fs, s0 in zip(systems, stage0):
+        for k, v in fs.telemetry.stage_time.items():
+            stages[k] = stages.get(k, 0.0) + v - s0.get(k, 0.0)
+    # a batched stage's time is entered on each of its lanes: the mean over
+    # the systems, per frame of one system
+    per_sys = max(1, len(systems))
+    summary = dict(
+        frames=n, wall_ms_per_frame=1000.0 * wall / n,
+        host_launch_calls_per_frame=sum(calls.values()) / n,
+        graph_launches_per_frame=sum(calls.get(k, 0)
+                                     for k in GRAPH_CALLS) / n,
+        launch_calls=calls,
+        device_kernels_per_frame=sum(int(e.count) for e in kernels) / n,
+        device_kernel_ms_per_frame=dev_us / 1000.0 / n,
+        device_copy_ms_per_frame=sum(_dev_us(e) for e in copies) / 1000.0
+        / n,
+        device_busy_share=dev_us / 1e6 / wall,
+        **{f"{k}_per_frame": (loops1.get(k, 0) - loops0.get(k, 0)) / n
+           for k in ("replays", "reads", "captures")},
+        stage_ms_per_frame={k: 1000.0 * v / per_sys / n_steps
+                            for k, v in sorted(stages.items())},
+        top_kernels=[dict(name=e.key[:120],
+                          device_ms_per_frame=_dev_us(e) / 1000.0 / n,
+                          calls_per_frame=e.count / n)
+                     for e in sorted(kernels, key=_dev_us,
+                                     reverse=True)[:top]])
+    return summary, ka
+
+
+# ops that make a view or alias and launch no kernel
+_VIEW_OPS = frozenset((
+    "view", "_unsafe_view", "expand", "select", "slice", "as_strided", "t",
+    "transpose", "unsqueeze", "permute", "squeeze", "alias", "detach",
+    "unbind", "split", "split_with_sizes", "diagonal", "lift_fresh",
+    "reshape", "chunk", "narrow", "view_as_real", "unfold",
+    "_reshape_alias"))
+
+
+def count_dispatches(step, n_steps: int) -> dict:
+    """Ops the port dispatches per frame, outside and inside the iterated
+    stages' loops (views excluded): what each loop costs in kernel
+    launches when it runs eagerly. Run on the CPU, where every loop is the
+    eager one; returns dict(all, in_loops, per_stage), each per frame."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    counts = {"all": 0, "in_loops": 0}
+    stage = []
+    eager = device_loop.eager_loop
+
+    def counted_loop(name, *a, **kw):
+        stage.append(name)
+        try:
+            return eager(name, *a, **kw)
+        finally:
+            stage.pop()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in _VIEW_OPS:
+                counts["all"] += 1
+                if stage:
+                    counts["in_loops"] += 1
+                    key = "stage:" + stage[0]
+                    counts[key] = counts.get(key, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    device_loop.eager_loop = counted_loop
+    try:
+        with Count():
+            for i in range(n_steps):
+                step(i)
+    finally:
+        device_loop.eager_loop = eager
+    per = {k: v / n_steps for k, v in counts.items()}
+    return dict(all=per.pop("all"), in_loops=per.pop("in_loops"),
+                per_stage={k[6:]: v for k, v in sorted(per.items())})
+
+
+def main():
+    """CPU dispatch counts of a frame window of phase 4's scene
+    (chip_smoke.py's SCENE, seed 7, default Settings)."""
+    import argparse
+    import json
+
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--window", type=int, nargs=2, default=(4, 8))
+    ap.add_argument("--w", type=int, default=1200)
+    ap.add_argument("--h", type=int, default=360)
+    args = ap.parse_args()
+    a, b = args.window
+    seq = make_sequence(n_frames=b, w=args.w, h=args.h, fx=718.856,
+                        cy_offset=0.0, step=0.7, lidar_stride=2,
+                        half_width=16.0, ground_contrast=0.25,
+                        follow_path=True, seed=7, yaw_rate=0.004)
+    fs = FullSystem(seq.calib, seq.sensor, Settings(), device="cpu")
+    for i in range(a):
+        fs.add_active_frame(*seq.get(i))
+    out = count_dispatches(lambda i: fs.add_active_frame(*seq.get(a + i)),
+                           b - a)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -20,7 +20,7 @@ import torch
 from sdv_loam_tpu_torch.config import CPARS, PATTERN_P
 from sdv_loam_tpu_torch.ops.align import _quad_bilinear
 from sdv_loam_tpu_torch.ops.trace import stack_quad12
-from sdv_loam_tpu_torch.utils import se3
+from sdv_loam_tpu_torch.utils import device_loop, se3
 
 RES_IN = 0
 RES_OOB = 1
@@ -36,8 +36,9 @@ _SHARED_PAIR_KEYS = ("host", "target")
 
 
 def _bmm_idx(F, device):
-    hi = torch.arange(F, device=device).repeat_interleave(F)   # host of pair
-    ti = torch.arange(F, device=device).repeat(F)              # target
+    ar = torch.arange(F, device=device)
+    hi = ar[:, None].expand(F, F).reshape(-1)                  # host of pair
+    ti = ar.repeat(F)                                          # target
     return hi, ti
 
 
@@ -111,6 +112,18 @@ def _take(x, idx):
     return x[ar, idx]
 
 
+_PATTERN: dict = {}
+
+
+def _pattern(dev):
+    """PATTERN_P on `dev`, made once (a host copy cannot run inside a
+    graph capture)."""
+    if dev not in _PATTERN:
+        _PATTERN[dev] = torch.as_tensor(PATTERN_P, dtype=torch.float32,
+                                        device=dev)
+    return _PATTERN[dev]
+
+
 def photometric_gate(pt_u, pt_v, pt_idepth, pt_host, pt_color, pt_weights,
                      pairs, dI0_stack, w: int, h: int, huber_th: float = 6.0,
                      quad12=None):
@@ -137,7 +150,7 @@ def photometric_gate_lanes(pt_u, pt_v, pt_idepth, pt_host, pt_color,
     a_rel = _take(pairs["aff_a"], pair_idx)
     b_rel = _take(pairs["aff_b"], pair_idx)
 
-    pat = torch.as_tensor(PATTERN_P, dtype=torch.float32, device=dev)
+    pat = _pattern(dev)
     up = pt_u[..., None] + pat[:, 0]
     vp = pt_v[..., None] + pat[:, 1]
     pix = torch.stack([up, vp, torch.ones_like(up)], -1)        # (L,N,8,3)
@@ -517,8 +530,8 @@ def solve_system_lanes(sys_, HM, bM, delta_stitched, c_prior, c_delta,
     b[:, 4:] += fp * fd
 
     slot_mask = torch.cat([torch.ones((L, 4), dtype=torch.bool, device=dev),
-                           frame_valid.to(torch.bool).repeat_interleave(
-                               6, dim=1)], 1)
+                           frame_valid.to(torch.bool)[..., None]
+                           .expand(L, F, 6).reshape(L, 6 * F)], 1)
     zero = torch.zeros((), dtype=dtype, device=dev)
     H = torch.where(slot_mask[:, :, None] & slot_mask[:, None, :], H, zero)
     H[:, ar, ar] += torch.where(slot_mask, zero, torch.ones_like(zero))
@@ -712,6 +725,122 @@ def ba_core(T_cw_fej, eps, calib, calib_zero, frame_valid,
             {k: v[0] for k, v in lin_f.items()}, _unlane(pairs_f))
 
 
+_BA_LIN_KEYS = ("resF", "Jxi", "Jc", "Jd", "new_state")
+
+
+def _ba_pair_keys(gate_refresh):
+    return ("adH", "adT") + (("KRKi", "Kt", "aff_a", "aff_b")
+                             if gate_refresh else ())
+
+
+def _ba_linearize(x, eps_, calib_, idepth_, feth_, gate, quad12, F, w, h,
+                  img, gate_refresh, resf_at_fej, **_):
+    """The BA's pairs and residual linearization at (eps, calib, idepth)
+    from a loop's inputs `x`."""
+    L = eps_.shape[0]
+    pairs = make_pairs_lanes(_expT(eps_, x["T_cw_fej"]), x["T_cw_fej"],
+                             x["aff"], x["exposure"], calib_)
+    # the image stack's shape (quad12 holds its pixels)
+    shape = torch.zeros((), device=eps_.device).expand((L, F) + img + (3,))
+    lin = linearize_residuals_lanes(
+        x["pt_u"], x["pt_v"], idepth_, x["pt_host"], x["pt_color"],
+        x["pt_weights"], x["res_active"], x["res_state"], x["matcher_px"],
+        x["matcher_valid"], pairs, shape, feth_, calib_, w=w, h=h,
+        gate=gate, resf_at_fej=resf_at_fej, quad12=quad12)
+    return lin, pairs
+
+
+def _ba_update_feth(x, lin, feth_):
+    ar = torch.arange(feth_.shape[0], device=feth_.device)
+    newest = x["newest"]
+    mask = _at_newest(x["res_active"], newest) & \
+        (_at_newest(lin["new_state"], newest) != RES_OOB)
+    out = feth_.clone()
+    out[ar, newest] = frame_energy_quantile(
+        _at_newest(lin["energy_phot"], newest), mask)
+    return out
+
+
+def _ba_total_energy(x, lin, eps_, calib_):
+    c_delta = calib_ - x["calib_zero"]
+    fvalid_f = x["fvalid_f"]
+    dstt = stitched_delta(c_delta, eps_, fvalid_f)
+    return (torch.sum(lin["energy"], dim=(1, 2))
+            + marg_energy(x["HM"], x["bM"], dstt)
+            + prior_energy(x["c_prior"], c_delta, x["frame_prior"],
+                           eps_ * fvalid_f[..., None]))
+
+
+def _ba_body(x, st, F, w, h, img, gate_refresh, resf_at_fej, lm_diag_floor,
+             solve_dtype, orthogonalize):
+    """One windowed-LM iteration of every lane (FullSystem::optimize's
+    loop body); a lane that has stopped keeps every carry."""
+    static = dict(F=F, w=w, h=h, img=img, gate_refresh=gate_refresh,
+                  resf_at_fej=resf_at_fej)
+    quad12 = x.get("quad12")
+    eps, calib, idepth, feth = st["eps"], st["calib"], st["idepth"], \
+        st["feth"]
+    lam, active, it = st["lam"], st["active"], st["it"]
+    lin = {k: st["lin_" + k] for k in _BA_LIN_KEYS}
+    pairs = {k: st["pairs_" + k] for k in _ba_pair_keys(gate_refresh)}
+    gate = (st["gate_e"], st["gate_w"]) if gate_refresh else \
+        (x["gate_e"], x["gate_w"])
+    fvalid_f, frame_valid = x["fvalid_f"], x["frame_valid"]
+    pt_host, pt_is_sensor = x["pt_host"], x["pt_is_sensor"]
+
+    c_delta = calib - x["calib_zero"]
+    fd = eps * fvalid_f[..., None]
+    sys_ = build_system_lanes(lin, pt_host, pt_is_sensor, x["pt_prior"],
+                              pairs, fd, c_delta, n_frames=F)
+    sol = solve_system_lanes(
+        sys_, x["HM"], x["bM"], stitched_delta(c_delta, eps, fvalid_f),
+        x["c_prior"], c_delta, x["frame_prior"], fd, frame_valid,
+        x["nullspaces"], lam, pt_host, pt_is_sensor, pairs, n_frames=F,
+        orthogonalize_x=orthogonalize, diag_floor_rel=lm_diag_floor,
+        solve_dtype=solve_dtype)
+    eps_n = eps + sol["dframes"]
+    calib_n = calib + sol["dc"]
+    idepth_n = torch.where(pt_is_sensor, idepth, idepth + sol["didepth"])
+    lin_n, pairs_n = _ba_linearize(x, eps_n, calib_n, idepth_n, feth, gate,
+                                   quad12, **static)
+    feth_n = _ba_update_feth(x, lin_n, feth)
+    E_new = _ba_total_energy(x, lin_n, eps_n, calib_n)
+
+    d = sol["dframes"]
+    nvf = x["n_valid_frames"]
+    sumT = torch.sum(d[..., :3] ** 2, dim=(1, 2)).to(torch.float64) / nvf
+    sumR = torch.sum(d[..., 3:] ** 2, dim=(1, 2)).to(torch.float64) / nvf
+    brk = x["brk"]
+    canbreak = (torch.sqrt(sumR) < brk) & (torch.sqrt(sumT) < brk)
+    accept = (E_new < st["E_last"]) | x["forced"]
+    acc = accept & active
+    out = dict(eps=_where_lanes(acc, eps_n, eps),
+               calib=_where_lanes(acc, calib_n, calib),
+               idepth=_where_lanes(acc, idepth_n, idepth),
+               feth=_where_lanes(acc, feth_n, feth),
+               E_last=_where_lanes(acc, E_new, st["E_last"]),
+               lam=torch.where(active, torch.where(accept, lam * 0.25,
+                                                   lam * 1e2), lam))
+    out.update({"lin_" + k: _where_lanes(acc, lin_n[k], lin[k])
+                for k in _BA_LIN_KEYS})
+    out.update({"pairs_" + k: _where_lanes(acc, pairs_n[k], pairs[k])
+                for k in pairs})
+    if gate_refresh:
+        pairs_a = {k: out["pairs_" + k] for k in pairs}
+        ge, gw = photometric_gate_lanes(
+            x["pt_u"], x["pt_v"], out["idepth"], pt_host, x["pt_color"],
+            x["pt_weights"], pairs_a,
+            torch.zeros((), device=eps.device).expand(
+                (eps.shape[0], F) + img + (3,)), w=w, h=h, quad12=quad12)
+        out.update(gate_e=_where_lanes(acc, ge, gate[0]),
+                   gate_w=_where_lanes(acc, gw, gate[1]))
+    out["lm_iters"] = st["lm_iters"] + active.to(torch.int64)
+    act_n = active & ~(canbreak & (it >= x["min_it"])) & \
+        (it + 1 < x["max_it"])
+    out.update(active=act_n, it=it + active.any().to(torch.int64))
+    return out, act_n.any()
+
+
 def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
                   frame_prior, c_prior, aff, exposure, HM, bM, newest,
                   frame_energy_th, pt_u, pt_v, pt_idepth, pt_host,
@@ -727,8 +856,9 @@ def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
     `min_opt_iterations`, `th_opt_iterations` and `force_accept` are
     per-lane host lists. Each lane keeps its own lambda, accept and break
     state and iteration count; the loop runs until every lane has stopped
-    (fleet-max iterations), a stopped lane's carries frozen, and reads the
-    host once per iteration for the whole fleet. `out["lm_iters"]` counts
+    (fleet-max iterations), a stopped lane's carries frozen, through
+    `device_loop.run` (graph replays on CUDA; one host read per replay for
+    the whole fleet). `out["lm_iters"]` counts
     the iterations each lane ran. Returns (out dict, lin_f, pairs_f), each
     with a leading L."""
     F = n_frames
@@ -738,100 +868,66 @@ def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
     fvalid_f = frame_valid.to(T_cw_fej.dtype)
     quad12 = stack_quad12(dI0_stack)
     newest_t = torch.as_tensor([int(x) for x in newest], device=dev)
+    x = dict(T_cw_fej=T_cw_fej, calib_zero=calib_zero,
+             frame_valid=frame_valid, fvalid_f=fvalid_f,
+             frame_prior=frame_prior, c_prior=c_prior, aff=aff,
+             exposure=exposure, HM=HM, bM=bM, newest=newest_t, pt_u=pt_u,
+             pt_v=pt_v, pt_host=pt_host, pt_color=pt_color,
+             pt_weights=pt_weights, pt_is_sensor=pt_is_sensor,
+             pt_prior=pt_prior, res_active=res_active, res_state=res_state,
+             matcher_px=matcher_px, matcher_valid=matcher_valid)
+    static = dict(F=F, w=w, h=h, img=tuple(dI0_stack.shape[2:4]),
+                  gate_refresh=bool(gate_refresh),
+                  resf_at_fej=bool(resf_at_fej),
+                  lm_diag_floor=float(lm_diag_floor), solve_dtype=solve_dtype)
+    if gate_refresh:
+        x["quad12"] = quad12
 
-    def linearize(eps_, calib_, idepth_, feth_, gate=None):
-        pairs = make_pairs_lanes(_expT(eps_, T_cw_fej), T_cw_fej, aff,
-                                 exposure, calib_)
-        lin = linearize_residuals_lanes(
-            pt_u, pt_v, idepth_, pt_host, pt_color, pt_weights,
-            res_active, res_state, matcher_px, matcher_valid,
-            pairs, dI0_stack, feth_, calib_, w=w, h=h, gate=gate,
-            resf_at_fej=resf_at_fej, quad12=quad12)
-        return lin, pairs
-
-    def update_feth(lin, feth_):
-        mask = _at_newest(res_active, newest_t) & \
-            (_at_newest(lin["new_state"], newest_t) != RES_OOB)
-        out = feth_.clone()
-        out[ar, newest_t] = frame_energy_quantile(
-            _at_newest(lin["energy_phot"], newest_t), mask)
-        return out
-
-    def total_energy(lin, eps_, calib_):
-        c_delta = calib_ - calib_zero
-        dstt = stitched_delta(c_delta, eps_, fvalid_f)
-        return (torch.sum(lin["energy"], dim=(1, 2))
-                + marg_energy(HM, bM, dstt)
-                + prior_energy(c_prior, c_delta, frame_prior,
-                               eps_ * fvalid_f[..., None]))
-
-    nullspaces = make_nullspaces(T_cw_fej, fvalid_f)
-    lin0, _ = linearize(eps, calib, pt_idepth, frame_energy_th)
+    lin0, _ = _ba_linearize(x, eps, calib, pt_idepth, frame_energy_th, None,
+                            quad12, **static)
     gate = (lin0["energy_phot"], lin0["wJI2"])
-    feth = update_feth(lin0, frame_energy_th)
-    lin, pairs = linearize(eps, calib, pt_idepth, feth, gate)
-    E_last = total_energy(lin, eps, calib)
-    idepth = pt_idepth
-    n_valid_frames = torch.clamp(frame_valid.to(torch.int64).sum(1),
-                                 min=1).to(torch.float64)
-    lam = torch.full((L,), 1e-1, dtype=torch.float64, device=dev)
-    # the break thresholds, products of host floats as one window forms
-    # them
-    brk = torch.tensor([0.00005 * float(t) for t in th_opt_iterations],
-                       dtype=torch.float64, device=dev)
-    min_it = torch.as_tensor([int(x) for x in min_opt_iterations],
-                             device=dev)
-    max_it = [int(x) for x in max_iters]
-    max_it_t = torch.as_tensor(max_it, device=dev)
-    forced = torch.as_tensor([bool(x) for x in force_accept], device=dev)
-    active = max_it_t > 0
-    lm_iters = torch.zeros(L, dtype=torch.int64, device=dev)
+    feth = _ba_update_feth(x, lin0, frame_energy_th)
+    lin, pairs = _ba_linearize(x, eps, calib, pt_idepth, feth, gate, quad12,
+                               **static)
+    x.update(nullspaces=make_nullspaces(T_cw_fej, fvalid_f),
+             n_valid_frames=torch.clamp(frame_valid.to(torch.int64).sum(1),
+                                        min=1).to(torch.float64),
+             # the break thresholds, products of host floats as one window
+             # forms them
+             brk=torch.tensor([0.00005 * float(t)
+                               for t in th_opt_iterations],
+                              dtype=torch.float64, device=dev),
+             min_it=torch.as_tensor([int(v) for v in min_opt_iterations],
+                                    device=dev),
+             max_it=torch.as_tensor([int(v) for v in max_iters], device=dev),
+             forced=torch.as_tensor([bool(v) for v in force_accept],
+                                    device=dev))
+    st = dict(eps=eps, calib=calib, idepth=pt_idepth, feth=feth,
+              E_last=_ba_total_energy(x, lin, eps, calib),
+              lam=torch.full((L,), 1e-1, dtype=torch.float64, device=dev),
+              active=x["max_it"] > 0,
+              lm_iters=torch.zeros(L, dtype=torch.int64, device=dev),
+              it=torch.zeros((), dtype=torch.int64, device=dev))
+    st.update({"lin_" + k: lin[k] for k in _BA_LIN_KEYS})
+    st.update({"pairs_" + k: pairs[k]
+               for k in _ba_pair_keys(gate_refresh)})
+    if gate_refresh:
+        st.update(gate_e=gate[0], gate_w=gate[1])
+    else:
+        x.update(gate_e=gate[0], gate_w=gate[1])
 
-    it = 0
-    while it < max(max_it, default=0):
-        c_delta = calib - calib_zero
-        fd = eps * fvalid_f[..., None]
-        sys_ = build_system_lanes(lin, pt_host, pt_is_sensor, pt_prior,
-                                  pairs, fd, c_delta, n_frames=F)
-        sol = solve_system_lanes(
-            sys_, HM, bM, stitched_delta(c_delta, eps, fvalid_f), c_prior,
-            c_delta, frame_prior, fd, frame_valid, nullspaces, lam, pt_host,
-            pt_is_sensor, pairs, n_frames=F, orthogonalize_x=(it >= 2),
-            diag_floor_rel=lm_diag_floor, solve_dtype=solve_dtype)
-        eps_n = eps + sol["dframes"]
-        calib_n = calib + sol["dc"]
-        idepth_n = torch.where(pt_is_sensor, idepth, idepth + sol["didepth"])
-        lin_n, pairs_n = linearize(eps_n, calib_n, idepth_n, feth, gate)
-        feth_n = update_feth(lin_n, feth)
-        E_new = total_energy(lin_n, eps_n, calib_n)
-
-        d = sol["dframes"]
-        sumT = torch.sum(d[..., :3] ** 2, dim=(1, 2)).to(torch.float64) / \
-            n_valid_frames
-        sumR = torch.sum(d[..., 3:] ** 2, dim=(1, 2)).to(torch.float64) / \
-            n_valid_frames
-        canbreak = (torch.sqrt(sumR) < brk) & (torch.sqrt(sumT) < brk)
-        accept = (E_new < E_last) | forced
-        acc = accept & active
-        eps, calib, idepth, feth = (_where_lanes(acc, n, o) for n, o in (
-            (eps_n, eps), (calib_n, calib), (idepth_n, idepth),
-            (feth_n, feth)))
-        lin = _where_lanes(acc, lin_n, lin)
-        pairs = _where_lanes(acc, pairs_n, pairs)
-        E_last = _where_lanes(acc, E_new, E_last)
-        lam = torch.where(active, torch.where(accept, lam * 0.25, lam * 1e2),
-                          lam)
-        if gate_refresh:
-            gate = tuple(_where_lanes(acc, n, o) for n, o in zip(
-                photometric_gate_lanes(pt_u, pt_v, idepth, pt_host,
-                                       pt_color, pt_weights, pairs,
-                                       dI0_stack, w=w, h=h, quad12=quad12),
-                gate))
-        lm_iters = lm_iters + active.to(torch.int64)
-        active = active & ~(canbreak & (it >= min_it)) & (it + 1 < max_it_t)
-        it += 1
-        if not bool(active.any()):       # the iteration's one host read
-            break
+    # iterations 0-1 solve without the nullspace projection, the rest with
+    # it: one loop each, the second entered after a host read that a lane
+    # is still running
+    max_all = max((int(v) for v in max_iters), default=0)
+    st = device_loop.run("ba0", _ba_body, x, st, min(2, max_all),
+                         dict(static, orthogonalize=False))
+    if max_all > 2 and device_loop.read("ba", st["active"].any()):
+        st = device_loop.run("ba", _ba_body, x, st, max_all - 2,
+                             dict(static, orthogonalize=True))
+    eps, calib, idepth, feth = st["eps"], st["calib"], st["idepth"], \
+        st["feth"]
+    E_last, lm_iters = st["E_last"], st["lm_iters"]
 
     # fix the newest frame's eval point, then the final linearization
     T_cw = _expT(eps, T_cw_fej)

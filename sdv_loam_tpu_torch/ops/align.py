@@ -14,6 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as tnf
 
+from sdv_loam_tpu_torch.utils import device_loop
+
 HALF_PATCH = 4
 PATCH = 8
 BORDER_PATCH = PATCH + 2
@@ -126,6 +128,43 @@ def _patch_grads(border_patch):
     return inner.reshape(m, -1), dx.reshape(m, -1), dy.reshape(m, -1)
 
 
+def _align_body(x, st):
+    """One Gauss-Newton step of every candidate still running (alive,
+    valid, not converged); the others keep every carry."""
+    u, v, conv, alive = st["u"], st["v"], st["conv"], st["alive"]
+    valid, is_edge, direction = x["valid"], x["is_edge"], x["direction"]
+    wv, hv = x["wv"], x["hv"]
+    po_x, po_y = _patch_offsets(PATCH, u.device)
+    po_x = po_x - HALF_PATCH
+    po_y = po_y - HALF_PATCH
+    running = alive & valid & (~conv)
+    ur = torch.floor(u)
+    vr = torch.floor(v)
+    inb = ((ur >= HALF_PATCH) & (vr >= HALF_PATCH)
+           & (ur < wv[:, 0] - HALF_PATCH) & (vr < hv - HALF_PATCH))
+    act = running & inb
+    xx = torch.minimum(torch.clamp(u[:, None], min=HALF_PATCH),
+                       (wv - HALF_PATCH).to(u.dtype)) + po_x[None, :]
+    yy = torch.minimum(torch.clamp(v[:, None], min=HALF_PATCH),
+                       (hv[:, None] - HALF_PATCH).to(v.dtype)) + po_y[None, :]
+    cur = _quad_bilinear(x["quad_pyr"], x["base"], wv, xx, yy)
+    res = cur - x["target"] + st["mean_diff"][:, None]
+    Jres = -torch.einsum("mp,mpi->mi", res, x["J"])
+    upd = torch.einsum("mij,mj->mi", x["Hinv"], Jres)
+    upd = torch.where(act[:, None], upd, torch.zeros_like(upd))
+    du = torch.where(is_edge, upd[:, 0] * direction[:, 0], upd[:, 0])
+    dv = torch.where(is_edge, upd[:, 0] * direction[:, 1], upd[:, 1])
+    dmd = torch.where(is_edge, upd[:, 1], upd[:, 2])
+    step_sq = upd[:, 0] ** 2 + upd[:, 1] ** 2
+    conv = conv | (act & (step_sq < MIN_UPDATE_SQ))
+    # a candidate leaves when it walks out of bounds; one that has stopped
+    # keeps its state (the reference's per-candidate loop has ended)
+    alive = torch.where(running, inb, alive)
+    st = dict(u=u + du, v=v + dv, mean_diff=st["mean_diff"] + dmd,
+              conv=conv, alive=alive)
+    return st, (alive & valid & (~conv)).any()
+
+
 def align_batch(quad_pyr, offsets, widths, heights, search_level,
                 border_patch, px_init_scaled, direction, is_edge,
                 aff_a, aff_b, valid, n_iter: int = 10, n_lanes: int = 0):
@@ -133,8 +172,9 @@ def align_batch(quad_pyr, offsets, widths, heights, search_level,
     alignment in one loop over the quad-packed target pyramid.
 
     Edgelet lanes use J = [dgrad, 1, 0] with the update moved along
-    `direction`. The loop runs at most `n_iter` iterations and stops early
-    once no lane is still active. Returns (px (M, 2) on the search level,
+    `direction`. The loop (`device_loop.run`: graph replays on CUDA) runs at
+    most `n_iter` iterations and stops early once no candidate is still
+    active. Returns (px (M, 2) on the search level,
     converged (M,), [n walked out of bounds, n out of iterations]); with
     `n_lanes` the M rows are that many sequences' candidates, lane after
     lane, and the counts come per sequence, (n_lanes, 2)."""
@@ -154,46 +194,15 @@ def align_batch(quad_pyr, offsets, widths, heights, search_level,
     Hinv = torch.linalg.inv_ex(H + eye * 1e-9)[0]
     Hinv = torch.where(torch.isfinite(Hinv), Hinv, torch.zeros_like(Hinv))
 
-    base = offsets[search_level][:, None]
-    wv = widths[search_level][:, None]
-    hv = heights[search_level]
-    po_x, po_y = _patch_offsets(PATCH, border_patch.device)
-    po_x = po_x - HALF_PATCH
-    po_y = po_y - HALF_PATCH
-    target = aff_a[:, None] * ref + aff_b[:, None]
-
+    x = dict(quad_pyr=quad_pyr, base=offsets[search_level][:, None],
+             wv=widths[search_level][:, None], hv=heights[search_level],
+             target=aff_a[:, None] * ref + aff_b[:, None], J=J, Hinv=Hinv,
+             is_edge=is_edge, direction=direction, valid=valid)
     u = px_init_scaled[:, 0]
-    v = px_init_scaled[:, 1]
-    mean_diff = torch.zeros_like(u)
-    conv = torch.zeros_like(valid)
-    alive = valid.clone()
-    for _ in range(n_iter):
-        if not bool((alive & valid & (~conv)).any()):
-            break
-        ur = torch.floor(u)
-        vr = torch.floor(v)
-        inb = ((ur >= HALF_PATCH) & (vr >= HALF_PATCH)
-               & (ur < wv[:, 0] - HALF_PATCH) & (vr < hv - HALF_PATCH))
-        act = alive & inb & (~conv) & valid
-        x = torch.minimum(torch.clamp(u[:, None], min=HALF_PATCH),
-                          (wv - HALF_PATCH).to(u.dtype)) + po_x[None, :]
-        y = torch.minimum(torch.clamp(v[:, None], min=HALF_PATCH),
-                          (hv[:, None] - HALF_PATCH).to(v.dtype)) \
-            + po_y[None, :]
-        cur = _quad_bilinear(quad_pyr, base, wv, x, y)
-        res = cur - target + mean_diff[:, None]
-        Jres = -torch.einsum("mp,mpi->mi", res, J)
-        upd = torch.einsum("mij,mj->mi", Hinv, Jres)
-        upd = torch.where(act[:, None], upd, torch.zeros_like(upd))
-        du = torch.where(is_edge, upd[:, 0] * direction[:, 0], upd[:, 0])
-        dv = torch.where(is_edge, upd[:, 0] * direction[:, 1], upd[:, 1])
-        dmd = torch.where(is_edge, upd[:, 1], upd[:, 2])
-        u = u + du
-        v = v + dv
-        mean_diff = mean_diff + dmd
-        step_sq = upd[:, 0] ** 2 + upd[:, 1] ** 2
-        conv = conv | (act & (step_sq < MIN_UPDATE_SQ))
-        alive = alive & inb
+    st = dict(u=u, v=px_init_scaled[:, 1], mean_diff=torch.zeros_like(u),
+              conv=torch.zeros_like(valid), alive=valid.clone())
+    st = device_loop.run("align", _align_body, x, st, n_iter)
+    u, v, conv, alive = st["u"], st["v"], st["conv"], st["alive"]
     fail_oob = valid & ~conv & ~alive
     fail_iters = valid & ~conv & alive
     if n_lanes:

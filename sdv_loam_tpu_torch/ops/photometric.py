@@ -23,14 +23,23 @@ import torch
 
 from sdv_loam_tpu_torch.ops.hopper_kernels import dilate_pyramid
 from sdv_loam_tpu_torch.ops.warp import bilinear_sample_packed, pack_bilinear
-from sdv_loam_tpu_torch.utils import se3
+from sdv_loam_tpu_torch.utils import device_loop, se3
 
 STEP_SCALE = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
 LAMBDA_EXTRAPOLATION_LIMIT = 0.001
 
 
+_STEP_SCALE: dict = {}
+
+
 def _step_scale(like):
-    return torch.tensor(STEP_SCALE, dtype=like.dtype, device=like.device)
+    """STEP_SCALE on `like`'s device and dtype, made once (a host copy
+    cannot run inside a graph capture)."""
+    key = (like.dtype, like.device)
+    if key not in _STEP_SCALE:
+        _STEP_SCALE[key] = torch.tensor(STEP_SCALE, dtype=like.dtype,
+                                        device=like.device)
+    return _STEP_SCALE[key]
 
 
 def aff_transfer(exposure_ref, exposure_new, aff_ref, aff_new):
@@ -195,16 +204,17 @@ def _lane_inputs(pool, K, B, lane, device):
 
 
 def calc_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b, cutoff,
-                huber_th, packed=None, lane=None):
+                huber_th, packed=None, lane=None, hw=None):
     """Fused residual + 8x8 system evaluation for one level.
 
     T_ref_to_new: (B, 4, 4); aff_rel: (B, 2); `cutoff` and `ref_aff_b` a
     float or (B,) tensor. `packed` is `pack_bilinear(dI_new)` when the
     caller hoists it out of an LM loop. With `lane` (B,), the pool fields
     are (L, N), K (L, 4), dI_new (L, H, W, 3) and `packed` their stacked
-    packs. Returns dict(E, n, sat_frac, H (B,8,8), b (B,8), flow_t,
-    flow_rt), each with leading dimension B."""
-    h, w = dI_new.shape[-3], dI_new.shape[-2]
+    packs; `hw` = (h, w) stands for `dI_new` when `packed` is given.
+    Returns dict(E, n, sat_frac, H (B,8,8), b (B,8), flow_t, flow_rt),
+    each with leading dimension B."""
+    h, w = hw if hw is not None else (dI_new.shape[-3], dI_new.shape[-2])
     if packed is None:
         packed = pack_bilinear(dI_new)
     B = T_ref_to_new.shape[0]
@@ -319,67 +329,111 @@ def _select(mask, new, old):
     return torch.where(m, new, old)
 
 
+_POOL_FIELDS = ("u", "v", "idepth", "color", "valid")
+
+
+def _level_res(x, T, aff, cutoff, h, w, huber_th, lanes):
+    """The level's residual and system at (T, aff, cutoff) from a loop's
+    inputs `x` (see track_level)."""
+    pool = {k: x["pool_" + k] for k in _POOL_FIELDS}
+    aff_rel = aff_transfer(x["exposures"][..., 0], x["exposures"][..., 1],
+                           x["ref_aff"], aff)
+    return calc_res_gs(pool, None, x["K"], T, aff_rel, x["ref_aff"][..., 1],
+                       cutoff, huber_th, packed=x["packed"],
+                       lane=x["lane"] if lanes else None, hw=(h, w))
+
+
+def _cutoff_body(x, st, h, w, huber_th, lanes):
+    """One doubling of the rows more than 60 % saturated (:694-701)."""
+    r0 = {k[2:]: v for k, v in st.items() if k.startswith("r_")}
+    rep = st["rep"]
+    go = (r0["sat_frac"] > 0.6) & (rep < 50.0)
+    rep_n = torch.where(go, rep * 2.0, rep)
+    r_n = _level_res(x, x["T0"], x["aff0"], x["cutoff_base"] * rep_n, h, w,
+                     huber_th, lanes)
+    r0 = _select(go, r_n, r0)
+    out = dict({"r_" + k: v for k, v in r0.items()}, rep=rep_n)
+    return out, ((r0["sat_frac"] > 0.6) & (rep_n < 50.0)).any()
+
+
+def _lm_body(x, st, h, w, huber_th, lanes):
+    """One LM iteration of every row; rows that have stopped keep their
+    carries."""
+    r = {k[2:]: v for k, v in st.items() if k.startswith("r_")}
+    T, aff, lam, done = st["T"], st["aff"], st["lam"], st["done"]
+    act = ~done
+    inc = _solve_scaled(r["H"], r["b"], lam)
+    inc_scaled = inc * _step_scale(inc)
+    T_new = se3.se3_exp(inc_scaled[:, :6]) @ T
+    aff_new = aff + inc_scaled[:, 6:]
+    r_new = _level_res(x, T_new, aff_new, x["cutoff"], h, w, huber_th, lanes)
+    accept = (r_new["E"] / torch.clamp(r_new["n"], min=1)) < \
+        (r["E"] / torch.clamp(r["n"], min=1))
+    acc = accept & act
+    T = _select(acc, T_new, T)
+    aff = _select(acc, aff_new, aff)
+    lam_n = torch.where(accept, lam * 0.5,
+                        torch.clamp(lam * 4.0,
+                                    min=LAMBDA_EXTRAPOLATION_LIMIT))
+    lam = torch.where(act, lam_n, lam)
+    r = _select(acc, r_new, r)
+    done = done | (act & ~(torch.linalg.vector_norm(inc, dim=-1) > 1e-3))
+    n_it = st["n_it"] + act.to(torch.int64)
+    out = dict({"r_" + k: v for k, v in r.items()}, T=T, aff=aff, lam=lam,
+               done=done, n_it=n_it)
+    return out, (~done).any()
+
+
 def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
-                huber_th, max_iters: int, packed=None, lane=None):
+                huber_th, max_iters: int, packed=None, lane=None,
+                chunk=None):
     """One pyramid level of trackNewestCoarse for B pose rows: the
-    cutoff-doubling pre-loop and the LM loop. T0 (B,4,4), aff0 (B,2),
+    cutoff-doubling pre-loop and the LM loop, each through
+    `device_loop.run` (graph replays on CUDA). T0 (B,4,4), aff0 (B,2),
     `cutoff_base` float or (B,); `ref_aff` and `exposures` (2,), or (B, 2)
-    per row with `lane` (see calc_res_gs). Returns (T, aff, stats dict,
-    cutoff_rep)."""
+    per row with `lane` (see calc_res_gs); `chunk`: the LM's iterations
+    per replay (default `device_loop.CHUNK["lm"]`). Returns (T, aff, stats
+    dict, cutoff_rep); stats["doubled"] is a host bool, whether any row's
+    cutoff was raised."""
     if packed is None:
         packed = pack_bilinear(dI_new)
     B = T0.shape[0]
     dev = T0.device
+    h, w = dI_new.shape[-3], dI_new.shape[-2]
     cutoff_base = torch.as_tensor(cutoff_base, dtype=torch.float32,
                                   device=dev).expand(B)
+    lanes = lane is not None
+    x = {"pool_" + k: pool[k] for k in _POOL_FIELDS}
+    x.update(K=K, packed=packed, ref_aff=ref_aff, exposures=exposures)
+    if lanes:
+        x["lane"] = lane
+    static = dict(h=int(h), w=int(w), huber_th=float(huber_th), lanes=lanes)
 
-    def res(T, aff, cutoff):
-        aff_rel = aff_transfer(exposures[..., 0], exposures[..., 1], ref_aff,
-                               aff)
-        return calc_res_gs(pool, dI_new, K, T, aff_rel, ref_aff[..., 1],
-                           cutoff, huber_th, packed=packed, lane=lane)
-
-    # cutoff doubling while > 60% saturated (:694-701)
+    # cutoff doubling while > 60% saturated (:694-701): one host read says
+    # whether any row needs it, the doublings (at most 6) run as a loop
     cutoff_rep = torch.ones(B, dtype=torch.float32, device=dev)
-    r0 = res(T0, aff0, cutoff_base)
-    while True:
-        go = (r0["sat_frac"] > 0.6) & (cutoff_rep < 50.0)
-        if not bool(go.any()):
-            break
-        rep_n = torch.where(go, cutoff_rep * 2.0, cutoff_rep)
-        r_n = res(T0, aff0, cutoff_base * rep_n)
-        r0 = _select(go, r_n, r0)
-        cutoff_rep = rep_n
+    r0 = _level_res(x, T0, aff0, cutoff_base, **static)
+    doubled = device_loop.read(
+        "cutoff", ((r0["sat_frac"] > 0.6) & (cutoff_rep < 50.0)).any())
+    if doubled:
+        out = device_loop.run(
+            "cutoff", _cutoff_body,
+            dict(x, T0=T0, aff0=aff0, cutoff_base=cutoff_base),
+            dict({"r_" + k: v for k, v in r0.items()}, rep=cutoff_rep), 6,
+            static)
+        r0 = {k[2:]: v for k, v in out.items() if k.startswith("r_")}
+        cutoff_rep = out["rep"]
     cutoff = cutoff_base * cutoff_rep
 
-    S = _step_scale(T0)
-    T, aff, r = T0, aff0, r0
-    lam = torch.full((B,), 0.01, dtype=torch.float32, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    n_it = torch.zeros(B, dtype=torch.int64, device=dev)
-    for _ in range(max_iters):
-        act = ~done
-        if not bool(act.any()):
-            break
-        inc = _solve_scaled(r["H"], r["b"], lam)
-        inc_scaled = inc * S
-        T_new = se3.se3_exp(inc_scaled[:, :6]) @ T
-        aff_new = aff + inc_scaled[:, 6:]
-        r_new = res(T_new, aff_new, cutoff)
-        accept = (r_new["E"] / torch.clamp(r_new["n"], min=1)) < \
-            (r["E"] / torch.clamp(r["n"], min=1))
-        acc = accept & act
-        T = _select(acc, T_new, T)
-        aff = _select(acc, aff_new, aff)
-        lam_n = torch.where(accept, lam * 0.5,
-                            torch.clamp(lam * 4.0,
-                                        min=LAMBDA_EXTRAPOLATION_LIMIT))
-        lam = torch.where(act, lam_n, lam)
-        r = _select(acc, r_new, r)
-        done = done | (act & ~(torch.linalg.vector_norm(inc, dim=-1) > 1e-3))
-        n_it = n_it + act.to(torch.int64)
-    r = dict(r, n_iters=n_it)
-    return T, aff, r, cutoff_rep
+    st = dict({"r_" + k: v for k, v in r0.items()}, T=T0, aff=aff0,
+              lam=torch.full((B,), 0.01, dtype=torch.float32, device=dev),
+              done=torch.zeros(B, dtype=torch.bool, device=dev),
+              n_it=torch.zeros(B, dtype=torch.int64, device=dev))
+    out = device_loop.run("lm", _lm_body, dict(x, cutoff=cutoff), st,
+                          max_iters, static, chunk=chunk)
+    r = {k[2:]: v for k, v in out.items() if k.startswith("r_")}
+    r = dict(r, n_iters=out["n_it"], doubled=doubled)
+    return out["T"], out["aff"], r, cutoff_rep
 
 
 def track_pyramid(pools, dI_new_pyr, Ks, T_init, aff_init, ref_aff,
@@ -421,11 +475,14 @@ def track_pyramid(pools, dI_new_pyr, Ks, T_init, aff_init, ref_aff,
                                mi, packed=packed, lane=lane)
 
         T, aff, r, cutoff_rep = run_level(T, aff)
-        # single level-repeat when the cutoff was raised (:826-833)
+        doubled = r.pop("doubled")
+        # single level-repeat when the cutoff was raised (:826-833): the
+        # level's one host read, and none when no row's cutoff was raised
         do_repeat = (cutoff_rep > 1.0) & (~have_repeated)
         have_repeated = have_repeated | do_repeat
-        if bool(do_repeat.any()):
+        if doubled and device_loop.read("repeat", do_repeat.any()):
             T2, aff2, r2, _ = run_level(T, aff)
+            r2.pop("doubled")
             T = _select(do_repeat, T2, T)
             aff = _select(do_repeat, aff2, aff)
             r = _select(do_repeat, r2, r)
@@ -449,11 +506,12 @@ def track_coarsest_batch(pool, dI_new, K, T_tries, aff_init, ref_aff,
                          exposures, cutoff_th, huber_th, max_iters: int = 10,
                          packed=None, lane=None):
     """LM-refine ALL pose hypotheses on the coarsest level at once
-    (`aff_init` (2,), or (B, 2) per row with `lane`).
-    Returns dict(T (B,4,4), E (B,), n (B,))."""
+    (`aff_init` (2,), or (B, 2) per row with `lane`): some hypothesis runs
+    to the iteration cap on nearly every frame, so the LM is one replay of
+    `max_iters` iterations. Returns dict(T (B,4,4), E (B,), n (B,))."""
     B = T_tries.shape[0]
     aff0 = aff_init.expand(B, 2)
     T, _, r, _ = track_level(pool, dI_new, K, T_tries, aff0, ref_aff,
                              exposures, cutoff_th, huber_th, max_iters,
-                             packed=packed, lane=lane)
+                             packed=packed, lane=lane, chunk=max_iters)
     return dict(T=T, E=r["E"], n=r["n"])

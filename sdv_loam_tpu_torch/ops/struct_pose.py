@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from sdv_loam_tpu_torch.utils import se3
+from sdv_loam_tpu_torch.utils import device_loop, se3
 
 TUKEY_B = 4.6851
 LAMBDA_EXTRAPOLATION_LIMIT = 0.001
@@ -85,7 +85,7 @@ def _build_system(res_n, ok, pf, standardize: bool):
     wgt = torch.where(ok, _tukey(rn / sigma), zero)
     L = res_n.shape[0]
     J = torch.stack([Jx, Jy], dim=2).reshape(L, -1, 6)     # (L, N*2, 6)
-    Jw = J * wgt.repeat_interleave(2, dim=1)[..., None]
+    Jw = J * wgt[..., None].expand(-1, -1, 2).reshape(L, -1)[..., None]
     # H and b from ONE batched product: a matrix-vector product of a
     # single lane takes another kernel than a batch's, and a lane's sums
     # must not depend on the lane count
@@ -102,7 +102,8 @@ def struct_pose_estimate(T_cur_to_world, pts_world, obs_uv, valid, K, w, h,
     valid (L, N) and K (L, 4) refine L poses at once, each lane with its own
     damping and its own stop test (a lane that has stopped no longer
     changes, as under the JAX package's vmap); outputs then carry a leading
-    L. One lane's unbatched inputs run as lane 0."""
+    L. One lane's unbatched inputs run as lane 0. The LM runs through
+    `device_loop.run` (graph replays on CUDA)."""
     single = T_cur_to_world.dim() == 2
     if single:
         T_cur_to_world, pts_world, obs_uv, valid, K = (
@@ -116,51 +117,64 @@ def struct_pose_estimate(T_cur_to_world, pts_world, obs_uv, valid, K, w, h,
                                         ok0), min=1e-5)[:, None]
     else:
         sigma0 = torch.ones((), dtype=torch.float32, device=dev)
-    b2_6 = TUKEY_B * TUKEY_B / 6.0
-
-    def _rho(x):
-        t = 1.0 - torch.square(x / TUKEY_B)
-        return torch.where(torch.abs(x) <= TUKEY_B, b2_6 * (1.0 - t * t * t),
-                           torch.full_like(t, b2_6))
-
-    def energy(Twc):
-        res_n, ok, _ = _residuals(Twc, pts_world, obs_uv, valid, K, w, h)
-        rn = torch.linalg.vector_norm(res_n, dim=-1)
-        pe = torch.where(ok, _rho(rn / sigma0), torch.zeros_like(rn))
-        n = ok.sum(-1)
-        return pe.sum(-1) / torch.clamp(n, min=1), n
-
-    e_old, _ = energy(T_wc)
-    lam = torch.full((L,), 0.01, dtype=torch.float32, device=dev)
-    eye = torch.eye(6, dtype=torch.float32, device=dev)
-    done = torch.zeros(L, dtype=torch.bool, device=dev)
-    for _ in range(max_iters):
-        act = ~done
-        if not bool(act.any()):
-            break
-        res_n, ok, pf = _residuals(T_wc, pts_world, obs_uv, valid, K, w, h)
-        H, b = _build_system(res_n, ok, pf, standardize)
-        Hl = H + torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) \
-            * lam[:, None, None] + eye * 1e-12
-        inc = torch.linalg.solve_ex(Hl, -b)[0]
-        extrap = torch.where(
-            lam < LAMBDA_EXTRAPOLATION_LIMIT,
-            torch.sqrt(torch.sqrt(LAMBDA_EXTRAPOLATION_LIMIT
-                                  / torch.clamp(lam, min=1e-12))),
-            torch.ones_like(lam))
-        inc = inc * extrap[:, None]
-        inc = torch.where(torch.isfinite(inc), inc, torch.zeros_like(inc))
-        Twc_new = se3.se3_exp(inc) @ T_wc
-        e_new, n_new = energy(Twc_new)
-        e_new = torch.where(n_new == 0, torch.full_like(e_new, 1e6), e_new)
-        accept = e_new < e_old
-        acc = accept & act
-        T_wc = torch.where(acc[:, None, None], Twc_new, T_wc)
-        e_old = torch.where(acc, e_new, e_old)
-        lam = torch.where(act, torch.where(
-            accept, lam * 0.5,
-            torch.clamp(lam * 4.0, min=LAMBDA_EXTRAPOLATION_LIMIT)), lam)
-        done = done | (act & ~(torch.linalg.vector_norm(inc, dim=-1) > 1e-5))
-    _, n = energy(T_wc)
+    x = dict(pts_world=pts_world, obs_uv=obs_uv, valid=valid, K=K,
+             sigma0=sigma0)
+    static = dict(w=int(w), h=int(h), standardize=bool(standardize))
+    e_old, _ = _energy(x, T_wc, w, h)
+    st = dict(T_wc=T_wc, e_old=e_old,
+              lam=torch.full((L,), 0.01, dtype=torch.float32, device=dev),
+              done=torch.zeros(L, dtype=torch.bool, device=dev))
+    st = device_loop.run("struct", _lm_body, x, st, max_iters, static)
+    T_wc, e_old = st["T_wc"], st["e_old"]
+    _, n = _energy(x, T_wc, w, h)
     out = dict(T_cur_to_world=se3.inverse(T_wc), energy=e_old, n_inliers=n)
     return {k: v[0] for k, v in out.items()} if single else out
+
+
+def _rho(x):
+    b2_6 = TUKEY_B * TUKEY_B / 6.0
+    t = 1.0 - torch.square(x / TUKEY_B)
+    return torch.where(torch.abs(x) <= TUKEY_B, b2_6 * (1.0 - t * t * t),
+                       torch.full_like(t, b2_6))
+
+
+def _energy(x, Twc, w, h):
+    res_n, ok, _ = _residuals(Twc, x["pts_world"], x["obs_uv"], x["valid"],
+                              x["K"], w, h)
+    rn = torch.linalg.vector_norm(res_n, dim=-1)
+    pe = torch.where(ok, _rho(rn / x["sigma0"]), torch.zeros_like(rn))
+    n = ok.sum(-1)
+    return pe.sum(-1) / torch.clamp(n, min=1), n
+
+
+def _lm_body(x, st, w, h, standardize):
+    """One LM iteration of every lane; lanes that have stopped keep their
+    carries."""
+    T_wc, e_old, lam, done = st["T_wc"], st["e_old"], st["lam"], st["done"]
+    act = ~done
+    res_n, ok, pf = _residuals(T_wc, x["pts_world"], x["obs_uv"], x["valid"],
+                               x["K"], w, h)
+    H, b = _build_system(res_n, ok, pf, standardize)
+    eye = torch.eye(6, dtype=torch.float32, device=H.device)
+    Hl = H + torch.diag_embed(torch.diagonal(H, dim1=-2, dim2=-1)) \
+        * lam[:, None, None] + eye * 1e-12
+    inc = torch.linalg.solve_ex(Hl, -b)[0]
+    extrap = torch.where(
+        lam < LAMBDA_EXTRAPOLATION_LIMIT,
+        torch.sqrt(torch.sqrt(LAMBDA_EXTRAPOLATION_LIMIT
+                              / torch.clamp(lam, min=1e-12))),
+        torch.ones_like(lam))
+    inc = inc * extrap[:, None]
+    inc = torch.where(torch.isfinite(inc), inc, torch.zeros_like(inc))
+    Twc_new = se3.se3_exp(inc) @ T_wc
+    e_new, n_new = _energy(x, Twc_new, w, h)
+    e_new = torch.where(n_new == 0, torch.full_like(e_new, 1e6), e_new)
+    accept = e_new < e_old
+    acc = accept & act
+    T_wc = torch.where(acc[:, None, None], Twc_new, T_wc)
+    e_old = torch.where(acc, e_new, e_old)
+    lam = torch.where(act, torch.where(
+        accept, lam * 0.5,
+        torch.clamp(lam * 4.0, min=LAMBDA_EXTRAPOLATION_LIMIT)), lam)
+    done = done | (act & ~(torch.linalg.vector_norm(inc, dim=-1) > 1e-5))
+    return dict(T_wc=T_wc, e_old=e_old, lam=lam, done=done), (~done).any()

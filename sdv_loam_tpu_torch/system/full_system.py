@@ -80,7 +80,7 @@ from sdv_loam_tpu_torch.ops.select import (cascade_direction_draws,
                                            run_select)
 from sdv_loam_tpu_torch.ops.trace import pattern_colors
 from sdv_loam_tpu_torch.system import kf_ops
-from sdv_loam_tpu_torch.utils import se3
+from sdv_loam_tpu_torch.utils import device_loop, se3
 from sdv_loam_tpu_torch.utils.camera import PyramidCalib
 
 CORNER = 0
@@ -153,6 +153,9 @@ class FullSystem:
         # then overlap on the card instead of queueing behind each other
         self.stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
+        # the system's captured loop graphs (ops run their iterated
+        # stages as CUDA graph replays, utils/device_loop)
+        self.loops = device_loop.LoopCache()
         self.telemetry = telemetry or Telemetry()
         # a stage ends when the system's own stream has finished it
         # (sequential mode); pipelined mode leaves the device running
@@ -282,10 +285,14 @@ class FullSystem:
         return x.detach().cpu().numpy()
 
     def _on_stream(self):
-        """Context that makes the system's stream current (CUDA)."""
+        """Context that makes the system's stream and its loop graphs
+        current (CUDA)."""
         if self.stream is None:
             return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.stream(self.stream))
+        stack.enter_context(device_loop.use(self.loops))
+        return stack
 
     def _sync_stream(self):
         self.stream.synchronize()

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -45,6 +46,25 @@ from sdv_loam_tpu_torch.ops.select import (SELECT_LANE_ARGS, run_select,
 from sdv_loam_tpu_torch.ops.trace import trace_points, trace_points_lanes
 from sdv_loam_tpu_torch.system import kf_ops
 from sdv_loam_tpu_torch.system.full_system import ACT_PULL_KEYS, TRACK_KEYS
+from sdv_loam_tpu_torch.utils import device_loop
+
+
+def _worker_pool(n, device):
+    """A pool of `n` host threads for CUDA systems, each thread started and
+    its libraries' handles made before the pool is handed out
+    (`device_loop.prepare_thread`): a thread creating its first cuBLAS or
+    cuSOLVER handle while another thread captures a loop graph breaks
+    that capture."""
+    pool = cf.ThreadPoolExecutor(max_workers=n)
+    if device.type == "cuda":
+        barrier = threading.Barrier(n)
+
+        def start():
+            device_loop.prepare_thread(device)
+            barrier.wait()
+        for f in [pool.submit(start) for _ in range(n)]:
+            f.result()
+    return pool
 
 
 def _run_all(pool, fns):
@@ -145,6 +165,8 @@ class MultiSystem:
         # one thread, one stream: the systems move onto the stream current
         # now, so batched and per-sequence work share one queue
         self._stream = None
+        # the batched stages' loop graphs (a system's own are its own)
+        self.loops = device_loop.LoopCache()
         if self.systems and self.systems[0].device.type == "cuda":
             self._stream = torch.cuda.current_stream(self.systems[0].device)
             for fs in self.systems:
@@ -161,7 +183,7 @@ class MultiSystem:
                 else min(8, len(self.systems))
         self._pool = None
         if host_workers > 1 and len(self.systems) > 1:
-            self._pool = cf.ThreadPoolExecutor(max_workers=host_workers)
+            self._pool = _worker_pool(host_workers, self.systems[0].device)
 
     def __len__(self):
         return len(self.systems)
@@ -188,9 +210,10 @@ class MultiSystem:
 
         frames: list of (image, cloud, timestamp) or None (sequence done),
         one per system."""
-        ctx = torch.cuda.stream(self._stream) if self._stream is not None \
-            else contextlib.nullcontext()
-        with ctx:
+        with contextlib.ExitStack() as ctx:
+            if self._stream is not None:
+                ctx.enter_context(torch.cuda.stream(self._stream))
+                ctx.enter_context(device_loop.use(self.loops))
             self._round(frames)
 
     def _round(self, frames):
@@ -460,8 +483,8 @@ class InterleavedFleet:
         # frame order, and therefore its trajectory, is unchanged.
         self._pool = None
         if workers > 0 and len(self.systems) > 1:
-            self._pool = cf.ThreadPoolExecutor(
-                max_workers=min(workers, len(self.systems)))
+            self._pool = _worker_pool(min(workers, len(self.systems)),
+                                      self.systems[0].device)
 
     def __len__(self):
         return len(self.systems)

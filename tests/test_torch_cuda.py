@@ -1,10 +1,13 @@
-"""The Hopper kernels against their plain PyTorch versions on the card.
+"""The Hopper kernels against their plain PyTorch versions on the card,
+and the iterated stages' graph replays against their eager loops.
 
 Marked `cuda`: skipped without a GPU. On a GPU machine (`--noconftest`
 skips tests/conftest.py, which sets up JAX; these tests need none):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -115,3 +118,97 @@ def test_kernel_wrappers_raise_on_bad_input(cuda):
         hk.distance_transform(x, -1)
     with pytest.raises(ValueError):
         hk.dilate_pyramid(x, torch.zeros((8, 9), device=cuda), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_loop_graphs_match_eager_loops(cuda, lanes):
+    """Every iterated stage's graph replays (chunks of CHUNK[stage], the
+    stop flag read once per chunk) against its eager early-exit loop on the
+    same inputs, bit for bit: the loops of two frames of the 320x96 scene
+    (one sequence, or two as lanes of the batched lockstep), recorded on
+    the card; the first loop of each stage recorded, then replayed through
+    graphs captured on the first one."""
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.system.multi import MultiSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    seqs = [make_sequence(n_frames=6, w=320, h=96, lidar_stride=2,
+                          yaw_rate=0.003 * b) for b in range(lanes)]
+    systems = [FullSystem(s.calib, s.sensor, Settings(), device=cuda)
+               for s in seqs]
+    run = MultiSystem(systems, batch_track=True) if lanes > 1 else None
+    log = []
+    for i in range(6):
+        frames = [s.get(i) for s in seqs]
+        with dl.recording(log) if i >= 4 else contextlib.nullcontext():
+            if run is not None:
+                run.add_frames(frames)
+            else:
+                systems[0].add_active_frame(*frames[0])
+    seen = {}
+    for rec in log:
+        seen.setdefault(rec["stage"], []).append(rec)
+    assert {"lm", "align", "struct", "ba0", "sweep"} <= set(seen), seen.keys()
+    for stage, recs in seen.items():
+        for rec in recs[:2]:
+            res = dl.compare(rec)
+            assert res["equal"], res
+
+
+@pytest.mark.cuda
+def test_whole_run_graphs_match_eager_loops(cuda):
+    """Six frames of the 320x96 scene with every loop as graph replays
+    against the same frames with eager loops (`device_loop.reference`):
+    the same trajectory bit for bit. Later iterations run on the strides
+    of the body's outputs, which the graphs' buffers must keep."""
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    seq = make_sequence(n_frames=6, w=320, h=96, lidar_stride=2)
+    trajs = []
+    for ctx in (contextlib.nullcontext(), dl.reference()):
+        fs = FullSystem(seq.calib, seq.sensor, Settings(), device=cuda)
+        with ctx:
+            for i in range(6):
+                fs.add_active_frame(*seq.get(i))
+        trajs.append(fs.get_trajectory())
+    assert np.array_equal(trajs[0], trajs[1])
+
+
+
+@pytest.mark.cuda
+def test_capture_survives_dead_systems_graphs(cuda):
+    """A dead cache's graphs, left as cyclic garbage, are not freed inside
+    another cache's capture: destroying a graph while a thread captures
+    invalidates that capture, so automatic collection is off during every
+    capture (read inside the captured body) and back on after it."""
+    import gc
+
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    collecting = []
+
+    def body(x, st):
+        if torch.cuda.is_current_stream_capturing():
+            collecting.append(gc.isenabled())
+        c = st["c"] + (st["c"] < x["stop"]).to(torch.int64)
+        return dict(c=c), (c < x["stop"]).any()
+    x = dict(stop=torch.tensor([7], device=cuda))
+    st = dict(c=torch.zeros(1, dtype=torch.int64, device=cuda))
+    dead = dl.LoopCache()
+    dead.cycle = dead
+    with dl.use(dead):
+        dl.run("t", body, x, st, 20, chunk=3)
+    assert len(dead) >= 1
+    del dead
+    with dl.use(dl.LoopCache()):
+        out = dl.run("t", body, x, st, 20, chunk=3)
+    assert int(out["c"]) == 7
+    assert collecting and not any(collecting)
+    assert gc.isenabled()
+    gc.collect()

@@ -116,3 +116,26 @@ def test_segmentation_matches_on_a_ring_wide_wall():
     np.testing.assert_array_equal(tgm.numpy(), np.asarray(jgm))
     # the wall is one feasible component (clutter hides a few of its cells)
     assert ts.numpy()[52:60].mean() > 0.9
+
+
+@pytest.mark.parametrize("n_iters", [1, 2, 24])
+def test_segment_cloud_sweep_cap(n_iters):
+    """The components fixpoint stops after `n_iters` sweeps in all, as the
+    JAX package's while_loop does (default 24). A full-density scan of the
+    seed-3 scene reaches its fixpoint in two sweeps and needs a third to
+    see no change: one and two sweeps cut the loop, 24 does not, and both
+    packages give the same masks each time."""
+    from sdv_loam_tpu_torch.utils import device_loop
+    seq = make_sequence(n_frames=1, w=320, h=96, lidar_stride=1, seed=3)
+    cloud, mask = _pad(mid_bin(seq.get_cloud(0)), 1 << 17)
+    jr, jx = jl.project_point_cloud(jnp.asarray(cloud), jnp.asarray(mask))
+    tr, tx = tl.project_point_cloud(torch.from_numpy(cloud),
+                                    torch.from_numpy(mask))
+    jg = jl.ground_removal(jr, jx)
+    tg = tl.ground_removal(tr, tx)
+    js, jgm = jl.segment_cloud(jr, jg, n_iters=n_iters)
+    device_loop.reset_counts()
+    ts, tgm = tl.segment_cloud(tr, tg, n_iters=n_iters)
+    assert device_loop.HIST["sweep"] == {min(n_iters, 3): 1}
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(tgm.numpy(), np.asarray(jgm))

@@ -8,6 +8,9 @@ gates, and the port's trajectory against the JAX package's.
     before it loads into both packages, each takes the keyframe, and both
     keyframe optimizations must agree to float level (the same residual
     sets and decisions, the same veto);
+  * the second matcher pass's diagnostic counts at the frame-72 hand-over:
+    the port's equal the JAX package's summed over the targets the pass
+    keeps (the JAX package sums over all of them);
   * window churn: tests/test_e2e.py's churn fixture (28 frames): ATE under
     1 % of the path and that test's RPE bounds;
   * trajectory against trajectory: tests/test_e2e.py's scene, 30 frames,
@@ -71,6 +74,8 @@ DRIFT_SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
 # the port's seed-0 run: BA step vetoes at the keyframes of frames 80, 82
 DRIFT_VETOES = 2
 VETO_ONSET = 80
+# a keyframe whose second matcher pass runs targets it then discards
+MATCH_P2_FRAME = 72
 # tests/test_e2e.py's scenes and Settings
 E2E_SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
                     n_active_cap=2048, n_immature_cap=2048,
@@ -97,16 +102,20 @@ def drift_run(tmp_path_factory):
     seq = make_sequence(n_frames=DRIFT_N, **DRIFT_SCENE)
     fs = TFullSystem(seq.calib, seq.sensor, TSettings(**DRIFT_SETTINGS),
                      device="cpu")
-    path = str(tmp_path_factory.mktemp("drift") / "onset.npz")
+    tmp = tmp_path_factory.mktemp("drift")
+    path = str(tmp / "onset.npz")
+    path_p2 = str(tmp / "match_p2.npz")
     vetoed = []
     for i in range(DRIFT_N):
         if i == VETO_ONSET:
             tcheckpoint.save(fs, path)
+        if i == MATCH_P2_FRAME:
+            tcheckpoint.save(fs, path_p2)
         before = fs.telemetry.counters["ba_step_veto"]
         fs.add_active_frame(*seq.get(i))
         if fs.telemetry.counters["ba_step_veto"] > before:
             vetoed.append(i)
-    return dict(fs=fs, seq=seq, path=path, vetoed=vetoed)
+    return dict(fs=fs, seq=seq, path=path, path_p2=path_p2, vetoed=vetoed)
 
 
 def test_port_drift_gate(drift_run):
@@ -175,6 +184,81 @@ def test_handover_at_veto_onset(drift_run, monkeypatch):
             assert diff <= rel * scale, (k, diff, scale)
     np.testing.assert_allclose(tfs.get_trajectory(), jfs.get_trajectory(),
                                atol=1e-5)
+
+
+def test_match_diag_p2_sums_the_targets_kept(drift_run, monkeypatch):
+    """The port's state before frame MATCH_P2_FRAME loads into both
+    packages, and both take the keyframe. The JAX package's second matcher
+    pass runs every one of the F targets under vmap and sums its
+    diagnostics [in-bounds, ref-valid, aligned, out of bounds, out of
+    iterations] over all of them (sdv_loam_tpu/system/kf_ops.py:218-236,
+    :381), though `multi_target_mask` then discards some targets' matches;
+    the port runs only the kept targets (models/matcher.py
+    reproject_and_match_multi_lanes). Its counts must equal the JAX
+    package's summed over the kept targets, here read through a debug
+    callback in a fresh trace of the JAX keyframe program. Measured: JAX
+    over all targets [752, 752, 662, 1, 89], over the kept ones [665, 665,
+    592, 1, 72], the port [665, 665, 593, 1, 71]. In-bounds, ref-valid and
+    out-of-bounds counts are equal; one candidate's last-iteration
+    convergence test (step^2 < 0.03^2 in float32) falls the other way, so
+    it counts as aligned in the port and out of iterations in the JAX
+    package (the same with the loops run eagerly): those two
+    counts may differ by one each, their sum may not."""
+    import functools
+    import inspect
+
+    seq, path = drift_run["seq"], drift_run["path_p2"]
+    jfs = load_jax(path, seq.calib, seq.sensor, JSettings(**DRIFT_SETTINGS))
+    tfs = tcheckpoint.load(path, seq.calib, seq.sensor,
+                           TSettings(**DRIFT_SETTINGS), device="cpu")
+    tfs._dir_source = jax_dir_source(checkpoint_key(path), tfs.h, tfs.w)
+    per_target = []
+    orig_multi = jkf_ops.reproject_and_match_multi
+
+    def multi(*a, **kw):
+        out = orig_multi(*a, **kw)
+        jax.debug.callback(lambda d: per_target.append(np.asarray(d)),
+                           out["diag"])
+        return out
+    monkeypatch.setattr(jkf_ops, "reproject_and_match_multi", multi)
+    impl = jkf_ops._kf_opt_step_impl
+
+    # a new function object, so jit traces it anew (the package's own
+    # kf_opt_step, compiled earlier in this process, holds no callback)
+    @functools.wraps(impl)
+    def fresh(*a, **kw):
+        return impl(*a, **kw)
+    traced = functools.partial(jax.jit, static_argnames=jkf_ops._KF_STATICS)(
+        fresh)
+    jcalls = []
+
+    def kf_opt_step(*a, **kw):
+        mask = inspect.signature(impl).bind(*a, **kw).arguments[
+            "multi_target_mask"]
+        out = traced(*a, **kw)
+        jcalls.append(dict(mask=np.asarray(mask).astype(bool),
+                           p2=np.asarray(out["match_diag_p2"])))
+        return out
+    monkeypatch.setattr(jkf_ops, "kf_opt_step", kf_opt_step)
+    tcalls = _capture(monkeypatch, tkf_ops, lambda v: v.numpy())
+    img, cloud, ts = seq.get(MATCH_P2_FRAME)
+    for fs in (jfs, tfs):
+        fs.add_active_frame(img, mid_bin(cloud), ts)
+    assert jfs.shells[MATCH_P2_FRAME]["is_kf"] and \
+        tfs.shells[MATCH_P2_FRAME]["is_kf"]
+    assert len(tcalls) == len(jcalls) == len(per_target) >= 1
+    wider = False
+    for t, j, d in zip(tcalls, jcalls, per_target):
+        np.testing.assert_array_equal(j["p2"], d.sum(0))
+        kept = d[j["mask"]].sum(0)
+        print(f"\n[match_diag_p2] JAX all targets {j['p2'].tolist()}, kept "
+              f"{kept.tolist()}, port {t['match_diag_p2'].tolist()}")
+        got = t["match_diag_p2"]
+        np.testing.assert_array_equal(got[[0, 1, 3]], kept[[0, 1, 3]])
+        assert got[2] + got[4] == kept[2] + kept[4]
+        assert abs(int(got[2]) - int(kept[2])) <= 1, (got, kept)
+        wider = wider or bool((j["p2"] != kept).any())
+    assert wider, "no discarded target counted at this keyframe"
 
 
 def test_port_window_churn():
