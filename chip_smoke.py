@@ -59,25 +59,34 @@ Phases (any failure exits nonzero; each prints its results):
      ATE under 2 % of the path and at least one K1 and one K2 launch, and
      prints ATE, the BA step vetoes (`ba_step_veto`, `ba_step_veto_hard`),
      keyframes and frames/s;
-Every iterated stage (the tracking LM and its cutoff pre-loop, the
-matcher's alignment, the struct-pose LM, the windowed BA, the LiDAR
-components sweeps) runs as replayed CUDA graphs (utils/device_loop); each
-phase prints the graphs' captures, capture seconds, replays and flag reads
-per frame. Besides:
-  * graph against eager, per stage: the loops of phase 4's fifth frame
-    (LiDAR scan, track step) and of its first keyframe optimization, and of
-    the batched lockstep's fifth round and first batched keyframe
-    optimization (lanes), each replayed through graphs and run by the eager
-    early-exit loop on the card; every output and iteration count must be
-    bit for bit equal (chunk size, replays and reads printed per stage);
-  * phase 4 again with eager loops (`device_loop.reference`): the same LM
-    decisions (iteration counts per level and per keyframe BA), keyframes
-    and trajectory are required;
-  * the results recorded with eager loops on the card (PERF.md section 5),
-    read again (phases 4, 6, 7), printed beside this run's;
+The track step, the LiDAR preprocessing, the trace and the activation run
+as stage programs, one captured CUDA graph per shape each, their loops'
+later chunks and the track step's conds as IF nodes decided on the card;
+the windowed BA's loops run as replayed chunk graphs with a flag read per
+chunk (utils/device_loop). Each phase prints the graphs' captures, capture
+seconds, replays and flag reads per frame, and the programs' replays,
+captures, capture and instantiate seconds, pool MiB and recorded ops.
+Besides:
+  * phase 4 again in the stage form (`device_loop.stage_form`: the stages
+    called directly, every loop as replayed chunk graphs with host reads):
+    the same LM decisions (iteration counts per level and per keyframe
+    BA), keyframes and trajectory, bit for bit, are required;
+  * program against stage form: the stage programs of that run's frames
+    5-10, and of the batched lockstep's rounds 5-10 (four lanes), each
+    replayed on the card (captured in a fresh cache first) and run in the
+    stage form on the same inputs; every output must be bit for bit equal;
+  * graph against eager, per loop: the loops of phase 4's fifth frame in
+    the stage form (LiDAR scan, track step) and of its first keyframe
+    optimization, and the batched lockstep's windowed-BA loops of its fifth
+    round and first batched keyframe optimization (lanes), each replayed
+    through graphs and run by the eager early-exit loop on the card;
+    every output and iteration count must be bit for bit equal;
+  * the results recorded on the card (PERF.md section 5), read again
+    (phases 4, 6, 7), printed beside this run's;
   * profile windows (torch.profiler): phase 4's frames 10-20 and five
     rounds of the batched lockstep: host launch calls, device kernels,
-    device busy share, replays, reads, captures and stage ms, per frame;
+    device busy share, replays, reads, captures, program replays and
+    stage ms, per frame;
 then one JSON line with the kernels, and the device JSON as the last line.
 The script imports nothing of JAX.
 """
@@ -138,19 +147,25 @@ DRIFT_SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
 LONG_FRAMES = 100
 LONG_ATE_FRAC = 0.02
 # what the eager-loop port read on the card (PERF.md section 5): ATE to
-# 4 decimals (m), BA step vetoes, keyframes, K1 launches; the bootstrap's
-# ready frame and error
-RECORDED = {"phase4": dict(ate_m=0.0176, n_keyframes=16),
-            "phase6_cli": dict(ate_m=0.0164),
-            "phase6_dropout": dict(ate_m=0.0371, ba_step_veto=4, k1=20),
+# 4 decimals (m), BA step vetoes, keyframes, K1 and K2 launches; the
+# bootstrap's ready frame and error
+RECORDED = {"phase4": dict(ate_m=0.0176, n_keyframes=16, k2=15),
+            "phase6_cli": dict(ate_m=0.0164, k2=15),
+            "phase6_dropout": dict(ate_m=0.0371, ba_step_veto=4, k1=20,
+                                   k2=15),
             "phase6_mono": dict(ready_frame=7, err_m=0.305),
             "phase7_drift_gate": dict(ate_m=0.8673, ba_step_veto=4,
-                                      n_keyframes=51, k1=55),
-            "phase7_scene_a": dict(ate_m=0.6838, ba_step_veto=0, k1=51)}
+                                      n_keyframes=51, k1=55, k2=50),
+            "phase7_scene_a": dict(ate_m=0.6838, ba_step_veto=0, k1=51,
+                                   k2=50)}
 # the frame (round) whose loops are compared graph against eager, and the
 # profile windows: phase 4's frames, the batched lockstep's rounds
 COMPARE_FRAME = 4
 PROFILE_FRAMES = (10, 20)
+# the frames (rounds) whose stage programs are compared with the stage
+# form on the same inputs, and the programs every such comparison needs
+PROGRAM_FRAMES = range(5, 11)
+PROGRAM_STAGES = ("track", "lidar", "trace", "activate")
 PROFILE_ROUNDS = (5, 10)
 # the renderer's worker processes run one thread each: eight processes of
 # eight BLAS threads each ran at half the speed on an 8-core host
@@ -385,18 +400,27 @@ def solver_kernels(device):
 
 def loop_counts(n_frames, caches=()):
     """The loop driver's counts since its last reset: per stage, and per
-    frame (replays, flag reads, captures), capture seconds, graphs held."""
+    frame (graph replays, flag reads, captures), capture seconds, graphs
+    held; the stage programs' replays per frame, captures, capture and
+    instantiate seconds, graph pool growth (MiB) and recorded ops."""
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
     c = dl.counts()
     a = c.pop("all", {})
+    p = c.pop("programs", {})
     return dict(replays_per_frame=a.get("replays", 0) / n_frames,
                 reads_per_frame=a.get("reads", 0) / n_frames,
                 captures=a.get("captures", 0),
                 capture_s=a.get("capture_s", 0.0),
                 graphs=sum(len(x) for x in caches),
-                per_stage={k: {kk: v[kk] for kk in ("calls", "replays",
-                                                    "reads", "captures")}
+                program_replays_per_frame=p.get("replays", 0) / n_frames,
+                program_captures=p.get("captures", 0),
+                program_capture_s=p.get("capture_s", 0.0),
+                program_instantiate_s=p.get("instantiate_s", 0.0),
+                program_pool_mib=p.get("pool_mib", 0.0),
+                program_ops=p.get("ops", 0),
+                per_stage={k: {kk: v.get(kk, 0) for kk in
+                               ("calls", "replays", "reads", "captures")}
                            for k, v in sorted(c.items())})
 
 
@@ -415,7 +439,45 @@ def keep_records(log, frame, keep, have_ba, lanes=1):
     return have_ba
 
 
-def compare_stages(records, what):
+def compare_programs(records, what, need=PROGRAM_STAGES):
+    """Each recorded stage program replayed on the card (captured in a
+    fresh cache at its key's first record) against the stage form on the
+    same inputs: bit for bit, or the run fails. Returns, per stage, the
+    programs compared and their lane counts."""
+    import torch
+    from torch.utils._pytree import tree_unflatten
+
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    stages = {}
+    with dl.use(dl.LoopCache()):
+        for rec in records:
+            res = dl.compare_program(rec)
+            if not (res["equal"] and res["replayed"]):
+                _fail(f"{what}: the {res['stage']} program differs from its "
+                      f"stage form in outputs {res['differ']} (replayed "
+                      f"{res['replayed']})")
+            # the track program's inputs hold a list of lanes, the others
+            # lead with their lane dimension
+            lanes = (len(tree_unflatten(rec["leaves"], rec["spec"])["lanes"])
+                     if rec["stage"] == "track" else
+                     next(v for v in rec["leaves"]
+                          if isinstance(v, torch.Tensor)).shape[0])
+            st = stages.setdefault(rec["stage"], dict(programs=0, lanes=set()))
+            st["programs"] += 1
+            st["lanes"].add(int(lanes))
+    stages = {k: dict(v, lanes=sorted(v["lanes"])) for k, v in
+              stages.items()}
+    print(f"program against stage form, {what}: every output bit for bit "
+          f"equal; per stage {json.dumps(stages)}", flush=True)
+    missing = set(need) - set(stages)
+    if missing:
+        _fail(f"{what}: no {sorted(missing)} program recorded")
+    return stages
+
+
+def compare_stages(records, what, need=("lm", "align", "struct", "ba0",
+                                        "sweep")):
     """Each recorded loop through graph replays and through the eager
     early-exit loop on the card: bit for bit, or the run fails. The
     graphs of one kind are captured on its first record and replayed on
@@ -446,7 +508,7 @@ def compare_stages(records, what):
               for k, v in stages.items()}
     print(f"graph against eager, {what}: {len(out)} loops, every output "
           f"bit for bit equal; per stage {json.dumps(stages)}", flush=True)
-    missing = {"lm", "align", "struct", "ba0", "sweep"} - set(stages)
+    missing = set(need) - set(stages)
     if missing:
         _fail(f"{what}: no {sorted(missing)} loop recorded")
     return stages
@@ -541,23 +603,37 @@ def run_slice(device):
                    n_keyframes=len(fs.kf_shells), lost=bool(fs.is_lost),
                    loops=loops)
 
-    # the same frames with eager loops: the same LM decisions (per level
-    # iterations of every track step, per keyframe BA iterations), the same
-    # keyframes and trajectory; the loops of the compared frame and of the
-    # first keyframe optimization are recorded for the per-stage check
+    # the same frames in the stage form (the stages called directly, loops
+    # as chunk replays, host reads): the same LM decisions (per level
+    # iterations of every track step, per keyframe BA iterations),
+    # keyframes and trajectory, bit for bit; the loops of the compared
+    # frame and of the first keyframe optimization are recorded for the
+    # per-loop check, the stage programs of PROGRAM_FRAMES for the
+    # per-program check
     ref = FullSystem(seq.calib, seq.sensor, Settings(), device=device)
-    records, have_ba = [], False
+    records, programs, have_ba, frame_s = [], [], False, []
     t0 = time.perf_counter()
-    with dl.reference():
+    with dl.stage_form():
         for i, fr in enumerate(scene.frames):
             log = []
-            with dl.recording(log) if (i == COMPARE_FRAME or not have_ba) \
-                    else contextlib.nullcontext():
+            if i == PROFILE_FRAMES[0]:
+                stage0 = dict(ref.telemetry.stage_time)
+            t1 = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if i == COMPARE_FRAME or not have_ba:
+                    stack.enter_context(dl.recording(log))
+                if i in PROGRAM_FRAMES:
+                    stack.enter_context(dl.recording(programs,
+                                                     programs=True))
                 ref.add_active_frame(*fr)
+            frame_s.append(time.perf_counter() - t1)
             have_ba = keep_records(log, i, records, have_ba)
     est_ref = ref.get_trajectory()
     torch.cuda.synchronize()
-    eager = dict(wall_s=time.perf_counter() - t0,
+    staged = dict(wall_s=time.perf_counter() - t0,
+                 steady_fps=_steady_fps(frame_s),
+                 steady_stage_ms_per_frame=_steady_stage_ms(ref, stage0,
+                                                            n_frames),
                  n_keyframes=len(ref.kf_shells),
                  track_iters_equal=_same_iters(fs.track_iters_hist,
                                                ref.track_iters_hist),
@@ -565,14 +641,34 @@ def run_slice(device):
                               ref.telemetry.counters["ba_lm_iters"]],
                  trajectory_equal=bool(np.array_equal(est, est_ref)),
                  trajectory_max_abs=float(np.abs(est - est_ref).max()))
-    eager["fps"] = n_frames / eager["wall_s"]
-    summary["eager_loops"] = eager
-    print("slice, eager loops against graphs: " + json.dumps(eager),
+    staged["fps"] = n_frames / staged["wall_s"]
+    summary["stage_form"] = staged
+    print("slice, stage form against programs: " + json.dumps(staged),
           flush=True)
-    if not (eager["track_iters_equal"] and eager["n_keyframes"]
-            == summary["n_keyframes"] and eager["ba_lm_iters"][0]
-            == eager["ba_lm_iters"][1] and eager["trajectory_equal"]):
-        _fail("slice: the graph and eager loops took other decisions")
+    if not (staged["track_iters_equal"] and staged["n_keyframes"]
+            == summary["n_keyframes"] and staged["ba_lm_iters"][0]
+            == staged["ba_lm_iters"][1] and staged["trajectory_equal"]):
+        _fail("slice: the programs and the stage form took other decisions")
+    summary["program_check"] = compare_programs(programs,
+                                                "slice (one lane)")
+    # the programs again, each frame timed as the stage form's were (a
+    # fresh system: its captures included)
+    again = FullSystem(seq.calib, seq.sensor, Settings(), device=device)
+    frame_s = []
+    for i, fr in enumerate(scene.frames):
+        if i == PROFILE_FRAMES[0]:
+            stage0 = dict(again.telemetry.stage_time)
+        t1 = time.perf_counter()
+        again.add_active_frame(*fr)
+        frame_s.append(time.perf_counter() - t1)
+    summary["programs_again"] = dict(
+        steady_fps=_steady_fps(frame_s),
+        steady_stage_ms_per_frame=_steady_stage_ms(again, stage0, n_frames),
+        trajectory_equal=bool(np.array_equal(again.get_trajectory(), est)))
+    print("slice, programs again (frames timed): "
+          + json.dumps(summary["programs_again"]), flush=True)
+    if not summary["programs_again"]["trajectory_equal"]:
+        _fail("slice: a second program run took another trajectory")
     summary["stage_check"] = compare_stages(records, "slice (one lane)")
     print("slice: " + json.dumps(summary), flush=True)
     if fs.is_lost:
@@ -590,23 +686,32 @@ def run_slice(device):
     return summary, scene
 
 
-def profile_slice(device, scene):
+def profile_slice(device, scene, stage_form=False):
     """The profile window of phase 4: frames PROFILE_FRAMES of the slice
-    (a fresh system; the frames before the window run unprofiled)."""
+    (a fresh system; the frames before the window run unprofiled), as
+    stage programs or (`stage_form`) in the stage form."""
     from sdv_loam_tpu_torch.config import Settings
     from sdv_loam_tpu_torch.eval.profile import profile_window
     from sdv_loam_tpu_torch.system.full_system import FullSystem
 
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    dl.reset_counts()
     fs = FullSystem(scene.calib, scene.sensor, Settings(), device=device)
     a, b = PROFILE_FRAMES
-    for fr in scene.frames[:a]:
-        fs.add_active_frame(*fr)
-    prof, ka = profile_window(lambda i: fs.add_active_frame(
-        *scene.frames[a + i]), b - a, [fs])
-    print(f"profile, slice frames {a}-{b}: " + json.dumps(prof), flush=True)
+    with dl.stage_form() if stage_form else contextlib.nullcontext():
+        for fr in scene.frames[:a]:
+            fs.add_active_frame(*fr)
+        prof, ka = profile_window(lambda i: fs.add_active_frame(
+            *scene.frames[a + i]), b - a, [fs])
+    form = "stage form" if stage_form else "programs"
+    print(f"profile, slice frames {a}-{b}, {form}: " + json.dumps(prof),
+          flush=True)
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, "profile_slice.txt"), "w") as f:
+    name = "profile_slice_stage_form.txt" if stage_form else \
+        "profile_slice.txt"
+    with open(os.path.join(out, name), "w") as f:
         f.write(key_table(ka))
     return prof
 
@@ -618,6 +723,21 @@ def key_table(ka):
         return ka.table(sort_by="self_device_time_total", row_limit=60)
     except Exception:
         return ka.table(sort_by="self_cuda_time_total", row_limit=60)
+
+
+def _steady_fps(frame_s):
+    """Frames/s over the frames from PROFILE_FRAMES[0] on (each frame's
+    host-clock seconds; a sequential frame ends in its stages' waits)."""
+    tail = frame_s[PROFILE_FRAMES[0]:]
+    return len(tail) / sum(tail)
+
+
+def _steady_stage_ms(fs, stage0, n_frames):
+    """Host-clock ms per frame of each stage over the frames from
+    PROFILE_FRAMES[0] on (`stage0`: the stage totals before them)."""
+    n = n_frames - PROFILE_FRAMES[0]
+    return {k: 1000.0 * (v - stage0.get(k, 0.0)) / n
+            for k, v in sorted(fs.telemetry.stage_time.items())}
 
 
 def _same_iters(a, b):
@@ -720,30 +840,27 @@ def run_fleet(device):
                              host_workers=FLEET_B)),
     )
     results = {}
-    records, have_ba = [], False
     for name, make in comps:
         fleet = make()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         hk.reset_launch_counts()
         dl.reset_counts()
-        # the batched lockstep's loops of the compared round and of its
-        # first batched keyframe optimization (two lanes or more)
-        rec = name == "lockstep_batched"
         t0 = time.perf_counter()
         for i in range(n):
-            log = []
-            with dl.recording(log) if rec and (i == COMPARE_FRAME
-                                               or not have_ba) \
-                    else contextlib.nullcontext():
-                fleet.add_frames([scenes[x][1][i] for x in lanes])
-            if rec:
-                have_ba = keep_records(log, i, records, have_ba, lanes=2)
+            if i == PROFILE_ROUNDS[0]:
+                # the rounds from here on: the steady aggregate, past the
+                # first rounds' captures
+                torch.cuda.synchronize()
+                t_steady = time.perf_counter()
+            fleet.add_frames([scenes[x][1][i] for x in lanes])
         if hasattr(fleet, "flush"):
             fleet.flush()
         trajs = [fs.get_trajectory() for fs in fleet.systems]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        steady = FLEET_B * (n - PROFILE_ROUNDS[0]) / (time.perf_counter()
+                                                       - t_steady)
         launches = dict(hk.LAUNCHES)
         loops = loop_counts(FLEET_B * n, [fs.loops for fs in fleet.systems]
                             + [getattr(fleet, "loops", ())])
@@ -760,7 +877,7 @@ def run_fleet(device):
         counters = [fs.telemetry.counters for fs in fleet.systems]
         lm = dict(own=sum(c["ba_lm_iters"] for c in counters),
                   fleet=sum(c["ba_lm_iters_fleet"] for c in counters))
-        rec = dict(wall_s=wall, aggregate_fps=agg,
+        rec = dict(wall_s=wall, aggregate_fps=agg, steady_aggregate_fps=steady,
                    scaling_efficiency=agg / (FLEET_B * single_fps),
                    peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
                    launches=launches, kernel_lanes=kernel_lanes,
@@ -801,13 +918,39 @@ def run_fleet(device):
             if not launches["dilate_pyramid"] < n_kf:
                 _fail(f"{name}: {launches['dilate_pyramid']} K1 launches "
                       f"for {n_kf} keyframes")
-    stage_check = compare_stages(records, "batched lockstep (lanes)")
+    # the batched lockstep once more, apart from the timed compositions
+    # (whose peak memory the records' clones would raise): its stage
+    # programs of PROGRAM_FRAMES, and its loops outside them (the windowed
+    # BA's) of the compared round and of its first batched keyframe
+    # optimization (two lanes or more), recorded
+    fleet = MultiSystem([system(x) for x in lanes], batch_track=True)
+    records, programs, have_ba = [], [], False
+    for i in range(n):
+        if i > max(PROGRAM_FRAMES) and have_ba:
+            break
+        log = []
+        with contextlib.ExitStack() as stack:
+            if i == COMPARE_FRAME or not have_ba:
+                stack.enter_context(dl.recording(log))
+            if i in PROGRAM_FRAMES:
+                stack.enter_context(dl.recording(programs, programs=True))
+            fleet.add_frames([scenes[x][1][i] for x in lanes])
+        have_ba = keep_records(log, i, records, have_ba, lanes=2)
+    del fleet
+    stage_check = compare_stages(records, "batched lockstep (lanes)",
+                                 need=("ba0",))
     if not any(r["stage"] == "ba0" and r["st"]["eps"].shape[0] >= 2
                for r in records):
         _fail("batched lockstep: no keyframe optimization of two lanes or "
               "more was recorded")
+    program_check = compare_programs(programs, "batched lockstep (lanes)",
+                                     need=("track", "lidar"))
+    if FLEET_B not in program_check["track"]["lanes"]:
+        _fail(f"batched lockstep: no track program of {FLEET_B} lanes")
+    del records, programs
 
     # the profile window: five rounds of the batched lockstep
+    dl.reset_counts()
     fleet = MultiSystem([system(x) for x in lanes], batch_track=True)
     a, b = PROFILE_ROUNDS
     for i in range(a):
@@ -821,7 +964,7 @@ def run_fleet(device):
                 references={k: {kk: v for kk, v in r.items() if kk != "traj"}
                             for k, r in refs.items()},
                 compositions=results, stage_check=stage_check,
-                profile=prof)
+                program_check=program_check, profile=prof)
 
 
 def _kernels_ran(part, launches):
@@ -1167,13 +1310,15 @@ def main():
     summary, scene = run_slice(device)
     print(f"slice ATE {summary['ate_m']:.4f} m, keyframes "
           f"{summary['n_keyframes']}, {summary['fps']:.3f} frames/s "
-          f"(eager loops {summary['eager_loops']['fps']:.3f}), "
+          f"(stage form {summary['stage_form']['fps']:.3f}), "
           f"stage ms/frame {summary['stage_ms_per_frame']}, peak memory "
-          f"{summary['peak_mem_bytes'] / 2**20:.1f} MiB, loop graphs "
+          f"{summary['peak_mem_bytes'] / 2**20:.1f} MiB, graphs "
           f"{json.dumps(_brief(summary['loops']))}", flush=True)
     recorded("phase4", dict(ate_m=summary["ate_m"],
-                            n_keyframes=summary["n_keyframes"]))
+                            n_keyframes=summary["n_keyframes"],
+                            k2=summary["launches"]["distance_transform"]))
     profile_slice(device, scene)
+    profile_slice(device, scene, stage_form=True)
 
     # 5. the fleet
     t0 = time.perf_counter()
@@ -1182,7 +1327,9 @@ def main():
         worst = max(ln["max_dt_m"] for ln in r["lanes"]), \
             max(ln["max_dr_rad"] for ln in r["lanes"])
         print(f"fleet {name}: {r['aggregate_fps']:.3f} frames/s aggregate "
-              f"(B={FLEET_B} x {FLEET_FRAMES} frames), single pipelined "
+              f"(B={FLEET_B} x {FLEET_FRAMES} frames; rounds "
+              f"{PROFILE_ROUNDS[0]}-{FLEET_FRAMES}: "
+              f"{r['steady_aggregate_fps']:.3f}), single pipelined "
               f"{fleet['single_pipelined_fps']:.3f} frames/s, scaling "
               f"efficiency {r['scaling_efficiency']:.3f}, peak memory "
               f"{r['peak_mem_bytes'] / 2**20:.1f} MiB, launches "
@@ -1200,11 +1347,14 @@ def main():
     phase6 = dict(cli=run_cli(device, scene), dropout=run_dropout(device, scene),
                   mono=run_mono(device))
     print(f"phase 6 {time.perf_counter() - t0:.1f} s", flush=True)
-    recorded("phase6_cli", dict(ate_m=phase6["cli"]["ate_m"]))
+    recorded("phase6_cli", dict(
+        ate_m=phase6["cli"]["ate_m"],
+        k2=phase6["cli"]["launches"]["distance_transform"]))
     d = phase6["dropout"]["sequential"]
     recorded("phase6_dropout", dict(
         ate_m=d["ate_m"], ba_step_veto=d["counters"]["ba_step_veto"],
-        k1=d["launches"]["dilate_pyramid"]))
+        k1=d["launches"]["dilate_pyramid"],
+        k2=d["launches"]["distance_transform"]))
     recorded("phase6_mono", dict(ready_frame=phase6["mono"].get(
         "ready_frame"), err_m=phase6["mono"].get("err_m")))
 
@@ -1223,7 +1373,8 @@ def main():
               f"{json.dumps(_brief(r['loops']))}", flush=True)
         recorded(f"phase7_{name}", dict(
             ate_m=r["ate_m"], ba_step_veto=r["ba_step_veto"],
-            n_keyframes=r["n_keyframes"], k1=r["launches"]["dilate_pyramid"]))
+            n_keyframes=r["n_keyframes"], k1=r["launches"]["dilate_pyramid"],
+            k2=r["launches"]["distance_transform"]))
 
     by_path = {"cli": phase6["cli"]["launches"],
                "dropout_sequential":

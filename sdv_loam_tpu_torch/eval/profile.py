@@ -16,7 +16,13 @@ holds, per frame (a round of B sequences counts as B frames when
     its share of the window's wall time (overlap between streams is not
     subtracted);
   * replays, reads, captures: the loop driver's counts
-    (`utils/device_loop.STATS`) over the window;
+    (`utils/device_loop.STATS`) over the window: every graph replay (the
+    stage programs' and, in the stage form, the loops'), host reads of a
+    stop flag, captures; program_replays, program_captures and
+    program_ops: the stage programs' replays, captures and the ops their
+    captures recorded; program_totals: their captures, capture and
+    instantiate seconds, graph pool MiB and recorded ops since the counts'
+    last reset (the captures happen before a steady window);
   * stage_ms: host-clock ms of each telemetry stage per frame of one
     system, the mean over `systems` (each stage ends in a wait for the
     system's stream; a batched stage is entered on each of its lanes).
@@ -61,7 +67,8 @@ def profile_window(step, n_steps: int, systems, frames_per_step: int = 1,
 
     torch.cuda.synchronize()
     stage0 = [dict(fs.telemetry.stage_time) for fs in systems]
-    loops0 = device_loop.counts().get("all", {})
+    c0 = device_loop.counts()
+    loops0, progs0 = c0.get("all", {}), c0.get("programs", {})
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -69,7 +76,8 @@ def profile_window(step, n_steps: int, systems, frames_per_step: int = 1,
             step(i)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    loops1 = device_loop.counts().get("all", {})
+    c1 = device_loop.counts()
+    loops1, progs1 = c1.get("all", {}), c1.get("programs", {})
     ka = prof.key_averages()
     n = n_steps * frames_per_step
     kernels = [e for e in ka if _dev_us(e) > 0 and _is_device(e)
@@ -98,6 +106,12 @@ def profile_window(step, n_steps: int, systems, frames_per_step: int = 1,
         device_busy_share=dev_us / 1e6 / wall,
         **{f"{k}_per_frame": (loops1.get(k, 0) - loops0.get(k, 0)) / n
            for k in ("replays", "reads", "captures")},
+        **{f"program_{k}_per_frame": (progs1.get(k, 0) - progs0.get(k, 0))
+           / n for k in ("replays", "captures", "ops")},
+        # the programs' captures since the counts' last reset (the frames
+        # before the window capture them)
+        program_totals={k: progs1.get(k, 0) for k in (
+            "captures", "capture_s", "instantiate_s", "pool_mib", "ops")},
         stage_ms_per_frame={k: 1000.0 * v / per_sys / n_steps
                             for k, v in sorted(stages.items())},
         top_kernels=[dict(name=e.key[:120],

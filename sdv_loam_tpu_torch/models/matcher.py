@@ -198,7 +198,10 @@ def reproject_and_match_lanes(pts_u, pts_v, pts_idepth, pts_host, pts_type,
                & (v_all >= REF_BOUNDARY) & (v_all < h - REF_BOUNDARY))
         if frame_valid is not None:
             vis = vis & frame_valid[:, :, None]
-        excl = torch.as_tensor(exclude_slot, device=dev).reshape(-1, 1, 1)
+        # an int, or a per-lane tensor (no host data made into a tensor:
+        # the track program runs this)
+        excl = exclude_slot.reshape(-1, 1, 1) \
+            if isinstance(exclude_slot, torch.Tensor) else int(exclude_slot)
         vis = vis & (torch.arange(F, device=dev)[None, :, None] != excl)
         c_f = T_wc_stack[..., :3, 3]                                 # (L,F,3)
         d_f = c_f[:, :, None, :] - pw_c[:, None, :, :]

@@ -30,11 +30,8 @@ def flatten_pyramid(dI_pyr):
     dev = dI_pyr[0].device
     offsets = np.cumsum([0] + [p.shape[0] * p.shape[1] for p in dI_pyr[:-1]])
     flat = torch.cat([p.reshape(-1, p.shape[-1]) for p in dI_pyr], dim=0)
-    return (flat, torch.as_tensor(offsets, dtype=torch.int64, device=dev),
-            torch.tensor([p.shape[1] for p in dI_pyr], dtype=torch.int64,
-                         device=dev),
-            torch.tensor([p.shape[0] for p in dI_pyr], dtype=torch.int64,
-                         device=dev))
+    return (flat, *(device_loop.constant(t, dev, torch.int64) for t in (
+        offsets, [p.shape[1] for p in dI_pyr], [p.shape[0] for p in dI_pyr])))
 
 
 def quad_from_image(img):
@@ -227,8 +224,9 @@ def warp_matrix_affine(px_ref, z_ref, K, T_cur_ref):
     px_ref = px_ref.to(torch.float32)
     z_ref = z_ref.to(torch.float32)
     xyz = to_unit(px_ref) * z_ref[:, None]
-    du = to_unit(px_ref + torch.tensor([hp, 0.0], device=px_ref.device))
-    dv = to_unit(px_ref + torch.tensor([0.0, hp], device=px_ref.device))
+    # px_ref + [hp, 0] and + [0, hp], with no host tensor (a program)
+    du = to_unit(torch.stack([px_ref[:, 0] + hp, px_ref[:, 1] + 0.0], -1))
+    dv = to_unit(torch.stack([px_ref[:, 0] + 0.0, px_ref[:, 1] + hp], -1))
     du = du * (xyz[:, 2:3] / du[:, 2:3])
     dv = dv * (xyz[:, 2:3] / dv[:, 2:3])
     R = T_cur_ref[:, :3, :3]

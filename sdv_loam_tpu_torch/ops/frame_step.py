@@ -29,7 +29,7 @@ from sdv_loam_tpu_torch.ops.photometric import (aff_transfer, calc_res_gs,
                                                 track_pyramid)
 from sdv_loam_tpu_torch.ops.struct_pose import struct_pose_estimate
 from sdv_loam_tpu_torch.ops.warp import pack_bilinear
-from sdv_loam_tpu_torch.utils import se3
+from sdv_loam_tpu_torch.utils import device_loop, se3
 
 # positional arguments of track_frame_step, in order; every one but the
 # shared level tables (offsets, widths, heights) and the two thresholds is
@@ -91,7 +91,7 @@ def _stack(args_b, name):
     if name in ("dI_new_pyr", "Ks"):
         return tuple(torch.stack([x[lvl] for x in xs])
                      for lvl in range(len(xs[0])))
-    return torch.stack([torch.as_tensor(x) for x in xs])
+    return torch.stack(xs)
 
 
 def track_frame_step_batch(args_b, etol_b, mdt_b,
@@ -109,28 +109,64 @@ def track_frame_step_batch(args_b, etol_b, mdt_b,
     two thresholds must be equal too (the first lane's are used).
     `etol_b` / `mdt_b`: per-sequence struct-pose thresholds (floats).
     `quad_stacks`: per-sequence `stack_quads(dI0_stack)` or None. Returns
-    track_frame_step's dict with a leading L."""
-    L = len(args_b)
+    track_frame_step's dict with a leading L.
+
+    One stage program (`device_loop.program`, "track"): its inputs are the
+    lanes' tensors, the level tables and the thresholds as device tensors
+    (`cutoff_th`, the squared struct-pose tolerance and max step per lane,
+    float32 as the single-sequence program's python floats round); the
+    Huber threshold and every keyword are static."""
     a0 = args_b[0]
     dev = a0["T_tries"].device
-    s = {n: (a0[n] if n in _SHARED else _stack(args_b, n))
-         for n in ARG_NAMES}
+    lanes = [{n: tuple({k: p[k] for k in _POOL_FIELDS} for p in a[n])
+              if n == "pools" else a[n]
+              for n in ARG_NAMES if n not in _SHARED} for a in args_b]
+    cut = a0["cutoff_th"]
+    inputs = dict(
+        lanes=lanes,
+        shared=dict(offsets=a0["offsets"], widths=a0["widths"],
+                    heights=a0["heights"],
+                    cutoff_th=cut if isinstance(cut, torch.Tensor)
+                    else device_loop.constant(float(cut), dev)),
+        # squared in float64 on the host, as the single-sequence program's
+        # python float would be, then one float32 per lane
+        etol_sq=device_loop.constant([float(e) * float(e) for e in etol_b],
+                                     dev),
+        mdt=device_loop.constant([float(m) for m in mdt_b], dev),
+        quad_stacks=None if quad_stacks is None else list(quad_stacks))
+    static = dict(
+        coarsest_lvl=int(coarsest_lvl), w=int(w), h=int(h),
+        max_level=int(max_level), n_refine=int(n_refine),
+        use_struct_pose=bool(use_struct_pose),
+        struct_pose_mad=bool(struct_pose_mad),
+        closest_view=bool(closest_view),
+        closest_view_margin=float(closest_view_margin),
+        closest_view_sensor_only=bool(closest_view_sensor_only),
+        align_max_iters=int(align_max_iters),
+        huber_th=float(a0["huber_th"]))
+    return device_loop.program("track", _track_program, inputs, static)
+
+
+def _track_program(inputs, coarsest_lvl, w, h, max_level, n_refine,
+                   use_struct_pose, struct_pose_mad, closest_view,
+                   closest_view_margin, closest_view_sensor_only,
+                   align_max_iters, huber_th):
+    args_b, quad_stacks = inputs["lanes"], inputs["quad_stacks"]
+    etol_sq, mdt = inputs["etol_sq"], inputs["mdt"]
+    L = len(args_b)
+    dev = args_b[0]["T_tries"].device
+    s = dict(inputs["shared"])
+    s.update({n: _stack(args_b, n) for n in args_b[0]})
     pools, dI_pyr, Ks = s["pools"], s["dI_new_pyr"], s["Ks"]
-    cutoff_th, huber_th = s["cutoff_th"], s["huber_th"]
+    cutoff_th = s["cutoff_th"]
     exposures, ref_aff = s["exposures"], s["ref_aff"]
     ar = torch.arange(L, device=dev)
     packed = [pack_bilinear(d) for d in dI_pyr]
-    # squared in float64 on the host, as the single-sequence program's
-    # python float would be, then one float32 per lane
-    etol_sq = torch.tensor([float(e) * float(e) for e in etol_b],
-                           dtype=torch.float32, device=dev)
-    mdt = torch.tensor([float(m) for m in mdt_b], dtype=torch.float32,
-                       device=dev)
 
     # 1. all hypotheses of every lane on the coarsest level: L*B rows
     T_tries, excl = s["T_tries"], s["try_exclude"]
     B = T_tries.shape[1]
-    rows1 = ar.repeat_interleave(B)
+    rows1 = ar[:, None].expand(L, B).reshape(-1)
     cl = coarsest_lvl
     cb = track_coarsest_batch(pools[cl], dI_pyr[cl], Ks[cl],
                               T_tries.reshape(L * B, 4, 4),
@@ -155,7 +191,7 @@ def track_frame_step_batch(args_b, etol_b, mdt_b,
     cand_idx = torch.cat([first[:, None], top[:, 1:]], 1) if n_refine > 1 \
         else first[:, None]
     T_cand = cb["T"].reshape(L, B, 4, 4)[ar[:, None], cand_idx]
-    rows2 = ar.repeat_interleave(k)
+    rows2 = ar[:, None].expand(L, k).reshape(-1)
     trs = track_pyramid(pools, dI_pyr, Ks, T_cand.reshape(L * k, 4, 4),
                         s["aff_last"][rows2], ref_aff[rows2],
                         exposures[rows2], s["min_res_for_abort"][rows2],
@@ -165,7 +201,7 @@ def track_frame_step_batch(args_b, etol_b, mdt_b,
     score = torch.where(trs["ok"].reshape(L, k) & torch.isfinite(res0), res0,
                         torch.full_like(res0, float("inf")))
     bias = torch.full((k,), 1.02, dtype=score.dtype, device=dev)
-    bias[0] = 1.0
+    bias[0].fill_(1.0)
     score = score * bias
     kbest = torch.argmin(score, dim=1)
     tr = {kk: v[ar * k + kbest] for kk, v in trs.items()}
@@ -208,7 +244,7 @@ def track_frame_step_batch(args_b, etol_b, mdt_b,
     g = 1
     T_pair = torch.stack([se3.inverse(T_wc_fh) @ s["ref_T_wc"],
                           se3.inverse(T_sp) @ s["ref_T_wc"]], 1)
-    rows3 = ar.repeat_interleave(2)
+    rows3 = ar[:, None].expand(L, 2).reshape(-1)
     r = calc_res_gs(pools[g], dI_pyr[g], Ks[g], T_pair.reshape(L * 2, 4, 4),
                     aff_rel[rows3], ref_aff[rows3, 1], cutoff_th, huber_th,
                     packed=packed[g], lane=rows3)
@@ -219,7 +255,7 @@ def track_frame_step_batch(args_b, etol_b, mdt_b,
     sp_dt = torch.linalg.vector_norm(T_sp[:, :3, 3] - T_wc_fh[:, :3, 3],
                                      dim=-1)
     sp_ok = sp_ok & ((mdt <= 0.0) | (sp_dt <= mdt))
-    use_sp = sp_ok & (n_matched >= 10) & bool(use_struct_pose)
+    use_sp = sp_ok & (n_matched >= 10) & use_struct_pose
     T_wc_out = torch.where(use_sp[:, None, None], T_sp, T_wc_fh)
     finite = torch.isfinite(T_wc_out).all(dim=-1).all(dim=-1)
     T_wc_out = torch.where(finite[:, None, None], T_wc_out, T_wc_fh)

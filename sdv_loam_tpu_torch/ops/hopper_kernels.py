@@ -23,10 +23,17 @@ plain C interface (bound with ctypes) under `sdv_loam_tpu_torch/build/`, at
 the first CUDA call, from the sources in `csrc/` only; a change of any
 source's hash builds a new library. Importing this module never needs nvcc.
 
-`LAUNCHES` counts wrapper calls that launched their kernel (plain-version
-calls do not count), so a run can show that the main path went through
-the kernels; `LANES` counts the lanes (maps) those launches took, so a
-fleet run can show its launches took several sequences at once.
+`LAUNCHES` counts the kernel launches the card ran (plain-version calls do
+not count), so a run can show that the main path went through the kernels;
+`LANES` counts the lanes (maps) those launches took, so a fleet run can
+show its launches took several sequences at once. A wrapper called while a
+stage program is being captured (utils/device_loop.program) launches
+nothing then: the capture records the launch, and every replay of the
+program counts it.
+
+The same library holds csrc/graph_cond.cu, the conditional (IF and WHILE)
+nodes of the captured stage programs (`sdv_cond_begin`, `sdv_cond_set`,
+`sdv_cond_end`, `sdv_capture_nodes`, used by utils/device_loop).
 
 Threads: each launch goes to the calling thread's current stream (a fleet
 system's own stream), the counts are updated under a lock, and the first
@@ -44,13 +51,15 @@ import threading
 
 import torch
 
+from sdv_loam_tpu_torch.utils import device_loop
+
 LAUNCHES = {"dilate_pyramid": 0, "distance_transform": 0}
 LANES = {"dilate_pyramid": 0, "distance_transform": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("dilate_pyramid.cu", "distance_transform.cu")
+SOURCES = ("dilate_pyramid.cu", "distance_transform.cu", "graph_cond.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 DILATE_MAX_LEVELS = 8   # levels one K1 launch takes (csrc/dilate_pyramid.cu)
@@ -68,9 +77,22 @@ def reset_launch_counts() -> None:
 
 
 def _count_launch(name: str, lanes: int = 1) -> None:
+    log = device_loop.launch_log()
+    if log is not None:         # captured: each replay counts it
+        log.append((name, lanes))
+        return
+    count_launches([(name, lanes)])
+
+
+def count_launches(launches) -> None:
+    """Count launches given as (name, lanes) pairs (a replayed program's
+    recorded launches)."""
+    if not launches:
+        return
     with _count_lock:
-        LAUNCHES[name] += 1
-        LANES[name] += lanes
+        for name, lanes in launches:
+            LAUNCHES[name] += 1
+            LANES[name] += lanes
 
 
 # ---------------------------------------------------------------------------
@@ -222,6 +244,16 @@ def _load():
             lib.sdv_distance_transform.argtypes = [vp, vp, vp, ci, ci, ci,
                                                    ci, ci, vp]
             lib.sdv_distance_transform.restype = ci
+            ull = ctypes.c_ulonglong
+            lib.sdv_cond_begin.argtypes = [vp, vp, vp, ci,
+                                           ctypes.POINTER(ull)]
+            lib.sdv_cond_begin.restype = ci
+            lib.sdv_cond_set.argtypes = [vp, ull, vp]
+            lib.sdv_cond_set.restype = ci
+            lib.sdv_cond_end.argtypes = [vp, ctypes.POINTER(ull)]
+            lib.sdv_cond_end.restype = ci
+            lib.sdv_capture_nodes.argtypes = [vp, ctypes.POINTER(ull)]
+            lib.sdv_capture_nodes.restype = ci
             _lib = lib
     return _lib
 

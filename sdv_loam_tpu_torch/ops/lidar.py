@@ -78,10 +78,12 @@ def project_point_cloud(cloud: torch.Tensor, mask: torch.Tensor):
     win = first & (idx_s % (_NCELL + 1) < _NCELL) & torch.isfinite(rng_sorted)
     payload = torch.cat([rng_sorted[:, None], cloud.reshape(-1, 3)[perm]],
                         dim=-1)
-    maps = torch.full((L * (_NCELL + 1), 4), float("inf"), dtype=cloud.dtype,
-                      device=dev)
-    maps[idx_s[win]] = payload[win]
-    maps = maps.reshape(L, _NCELL + 1, 4)[:, :_NCELL]
+    # every winner writes its cell; the rest write one spare row past the
+    # lanes' cells (a fixed-size scatter: no host sync)
+    maps = torch.full((L * (_NCELL + 1) + 1, 4), float("inf"),
+                      dtype=cloud.dtype, device=dev)
+    maps[torch.where(win, idx_s, L * (_NCELL + 1))] = payload
+    maps = maps[:-1].reshape(L, _NCELL + 1, 4)[:, :_NCELL]
     range_img = maps[..., 0].reshape(L, N_SCAN, HORIZON_SCAN)
     xyz_img = torch.where(torch.isfinite(range_img)[..., None],
                           maps[..., 1:].reshape(L, N_SCAN, HORIZON_SCAN, 3),
@@ -135,7 +137,7 @@ def _run_min(lbl, conn_prev, dim):
     shape = x.shape
     x = x.reshape(-1, shape[-1])
     start = ~c.reshape(-1, shape[-1])
-    start[:, 0] = True
+    start[:, 0].fill_(True)
     run_id = torch.cumsum(start.reshape(-1).to(torch.int64), 0) - 1
     flat = x.reshape(-1)
     mins = torch.full((flat.numel(),), _NCELL, dtype=flat.dtype,
@@ -210,7 +212,7 @@ def segment_cloud(range_img: torch.Tensor, ground: torch.Tensor,
         & vright
     # non-wrapping "joined to the previous column" for the run minima
     conn_left_nw = conn_left.clone()
-    conn_left_nw[..., 0] = False
+    conn_left_nw[..., 0].fill_(False)
 
     idx = torch.arange(_NCELL, device=dev).reshape(N_SCAN, HORIZON_SCAN)
     big = torch.full((L, N_SCAN, HORIZON_SCAN), _NCELL, dtype=idx.dtype,
@@ -227,8 +229,9 @@ def segment_cloud(range_img: torch.Tensor, ground: torch.Tensor,
     lane = torch.arange(L, device=dev)[:, None]
     # cluster sizes (integer counts: exact in any order; the sentinel
     # label _NCELL collects the invalid cells and is never read)
-    sizes = torch.bincount((flat_label + lane * (_NCELL + 1)).reshape(-1),
-                           minlength=L * (_NCELL + 1)).reshape(L, -1)
+    lab = (flat_label + lane * (_NCELL + 1)).reshape(-1)
+    sizes = torch.zeros(L * (_NCELL + 1), dtype=torch.int64, device=dev)
+    sizes = sizes.index_add_(0, lab, torch.ones_like(lab)).reshape(L, -1)
 
     # distinct-ring count per component: a presence grid (component, ring)
     n_pres = _NCELL * N_SCAN + 1
@@ -236,7 +239,7 @@ def segment_cloud(range_img: torch.Tensor, ground: torch.Tensor,
     pres_idx = torch.where(live, flat_label * N_SCAN + rows,
                            torch.full_like(flat_label, _NCELL * N_SCAN))
     presence = torch.zeros(L * n_pres, dtype=torch.bool, device=dev)
-    presence[(pres_idx + lane * n_pres).reshape(-1)] = True
+    presence.index_fill_(0, (pres_idx + lane * n_pres).reshape(-1), True)
     line_count = presence.reshape(L, n_pres)[:, :-1].reshape(
         L, _NCELL, N_SCAN).sum(dim=2)
 
@@ -292,9 +295,9 @@ def project_to_camera(xyz_img, seg_mask, is_ground, R_cl, t_cl, K, w, h):
     payload = torch.stack([torch.where(torch.isfinite(z_s), z_s, zero),
                            ku.reshape(-1)[perm], kv.reshape(-1)[perm],
                            grd.reshape(-1)[perm].to(zc.dtype)], dim=-1)
-    maps = torch.zeros((L * npix, 4), dtype=xyz_img.dtype, device=dev)
-    maps[pix_s[win]] = payload[win]
-    maps = maps.reshape(L, npix, 4)[:, :w * h]
+    maps = torch.zeros((L * npix + 1, 4), dtype=xyz_img.dtype, device=dev)
+    maps[torch.where(win, pix_s, L * npix)] = payload
+    maps = maps[:-1].reshape(L, npix, 4)[:, :w * h]
     depth_map = maps[..., 0].reshape(L, h, w)
     neg = torch.full((), -1.0, dtype=zc.dtype, device=dev)
     px_u_map = torch.where(depth_map > 0, maps[..., 1].reshape(L, h, w), neg)
@@ -329,7 +332,17 @@ def preprocess_scan_batch(clouds, masks, R_cl, t_cl, K, w: int, h: int):
     `preprocess_scan_batch`): clouds (L, N, 3) float32 padded to one shared
     bucket, masks (L, N) bool, R_cl (L, 3, 3), t_cl (L, 3), K (L, 4)
     [fx, fy, cx, cy], all on one device. Returns preprocess_scan's dict
-    with a leading L."""
+    with a leading L. One stage program (`device_loop.program`, "lidar"),
+    the components sweeps inside it a loop decided on the device."""
+    return device_loop.program(
+        "lidar", _preprocess_program,
+        dict(clouds=clouds, masks=masks, R_cl=R_cl, t_cl=t_cl, K=K),
+        dict(w=int(w), h=int(h)))
+
+
+def _preprocess_program(x, w, h):
+    clouds, masks, R_cl, t_cl, K = (x[k] for k in ("clouds", "masks", "R_cl",
+                                                   "t_cl", "K"))
     range_img, xyz_img = project_point_cloud(clouds, masks)
     ground = ground_removal(range_img, xyz_img)
     seg_mask, is_ground = segment_cloud(range_img, ground)

@@ -29,17 +29,9 @@ STEP_SCALE = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
 LAMBDA_EXTRAPOLATION_LIMIT = 0.001
 
 
-_STEP_SCALE: dict = {}
-
-
 def _step_scale(like):
-    """STEP_SCALE on `like`'s device and dtype, made once (a host copy
-    cannot run inside a graph capture)."""
-    key = (like.dtype, like.device)
-    if key not in _STEP_SCALE:
-        _STEP_SCALE[key] = torch.tensor(STEP_SCALE, dtype=like.dtype,
-                                        device=like.device)
-    return _STEP_SCALE[key]
+    """STEP_SCALE on `like`'s device and dtype (made once)."""
+    return device_loop.constant(STEP_SCALE, like.device, like.dtype)
 
 
 def aff_transfer(exposure_ref, exposure_new, aff_ref, aff_new):
@@ -389,12 +381,12 @@ def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
                 chunk=None):
     """One pyramid level of trackNewestCoarse for B pose rows: the
     cutoff-doubling pre-loop and the LM loop, each through
-    `device_loop.run` (graph replays on CUDA). T0 (B,4,4), aff0 (B,2),
-    `cutoff_base` float or (B,); `ref_aff` and `exposures` (2,), or (B, 2)
-    per row with `lane` (see calc_res_gs); `chunk`: the LM's iterations
-    per replay (default `device_loop.CHUNK["lm"]`). Returns (T, aff, stats
-    dict, cutoff_rep); stats["doubled"] is a host bool, whether any row's
-    cutoff was raised."""
+    `device_loop.run` (IF chunks in a stage program, graph replays in the
+    stage form). T0 (B,4,4), aff0 (B,2), `cutoff_base` a device tensor ()
+    or (B,) (a float only outside a program); `ref_aff` and `exposures`
+    (2,), or (B, 2) per row with `lane` (see calc_res_gs); `chunk`: the
+    LM's iterations per chunk (default `device_loop.CHUNK["lm"]`). Returns
+    (T, aff, stats dict, cutoff_rep)."""
     if packed is None:
         packed = pack_bilinear(dI_new)
     B = T0.shape[0]
@@ -409,20 +401,18 @@ def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
         x["lane"] = lane
     static = dict(h=int(h), w=int(w), huber_th=float(huber_th), lanes=lanes)
 
-    # cutoff doubling while > 60% saturated (:694-701): one host read says
-    # whether any row needs it, the doublings (at most 6) run as a loop
+    # cutoff doubling while > 60% saturated (:694-701): the doublings (at
+    # most 6) run as a loop, only when some row needs one
     cutoff_rep = torch.ones(B, dtype=torch.float32, device=dev)
     r0 = _level_res(x, T0, aff0, cutoff_base, **static)
-    doubled = device_loop.read(
-        "cutoff", ((r0["sat_frac"] > 0.6) & (cutoff_rep < 50.0)).any())
-    if doubled:
-        out = device_loop.run(
-            "cutoff", _cutoff_body,
-            dict(x, T0=T0, aff0=aff0, cutoff_base=cutoff_base),
-            dict({"r_" + k: v for k, v in r0.items()}, rep=cutoff_rep), 6,
-            static)
-        r0 = {k[2:]: v for k, v in out.items() if k.startswith("r_")}
-        cutoff_rep = out["rep"]
+    need = ((r0["sat_frac"] > 0.6) & (cutoff_rep < 50.0)).any()
+    xc = dict(x, T0=T0, aff0=aff0, cutoff_base=cutoff_base)
+    out = device_loop.cond(
+        "cutoff", need,
+        lambda c: device_loop.run("cutoff", _cutoff_body, xc, c, 6, static),
+        dict({"r_" + k: v for k, v in r0.items()}, rep=cutoff_rep))
+    r0 = {k[2:]: v for k, v in out.items() if k.startswith("r_")}
+    cutoff_rep = out["rep"]
     cutoff = cutoff_base * cutoff_rep
 
     st = dict({"r_" + k: v for k, v in r0.items()}, T=T0, aff=aff0,
@@ -432,7 +422,7 @@ def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
     out = device_loop.run("lm", _lm_body, dict(x, cutoff=cutoff), st,
                           max_iters, static, chunk=chunk)
     r = {k[2:]: v for k, v in out.items() if k.startswith("r_")}
-    r = dict(r, n_iters=out["n_it"], doubled=doubled)
+    r = dict(r, n_iters=out["n_it"])
     return out["T"], out["aff"], r, cutoff_rep
 
 
@@ -475,17 +465,18 @@ def track_pyramid(pools, dI_new_pyr, Ks, T_init, aff_init, ref_aff,
                                mi, packed=packed, lane=lane)
 
         T, aff, r, cutoff_rep = run_level(T, aff)
-        doubled = r.pop("doubled")
-        # single level-repeat when the cutoff was raised (:826-833): the
-        # level's one host read, and none when no row's cutoff was raised
+        # single level-repeat of the rows whose cutoff was raised
+        # (:826-833), when there is one
         do_repeat = (cutoff_rep > 1.0) & (~have_repeated)
         have_repeated = have_repeated | do_repeat
-        if doubled and device_loop.read("repeat", do_repeat.any()):
-            T2, aff2, r2, _ = run_level(T, aff)
-            r2.pop("doubled")
-            T = _select(do_repeat, T2, T)
-            aff = _select(do_repeat, aff2, aff)
-            r = _select(do_repeat, r2, r)
+
+        def repeat(c, run_level=run_level, do_repeat=do_repeat):
+            T2, aff2, r2, _ = run_level(c["T"], c["aff"])
+            return _select(do_repeat, dict(r2, T=T2, aff=aff2), c)
+        c = device_loop.cond("repeat", do_repeat.any(), repeat,
+                             dict(r, T=T, aff=aff))
+        T, aff = c.pop("T"), c.pop("aff")
+        r = c
 
         rmse = torch.sqrt(r["E"] / torch.clamp(r["n"], min=1))
         last_res[:, lvl] = rmse

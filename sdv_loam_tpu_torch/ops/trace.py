@@ -14,6 +14,7 @@ import torch
 from sdv_loam_tpu_torch.config import PATTERN_P
 from sdv_loam_tpu_torch.ops.align import _quad_bilinear
 from sdv_loam_tpu_torch.ops.warp import bilinear_sample_packed, pack_bilinear
+from sdv_loam_tpu_torch.utils import device_loop
 
 # ImmaturePointStatus (ImmaturePoint.h:20-30)
 IPS_GOOD = 0
@@ -27,7 +28,8 @@ TRACE_STEPS = 64
 
 
 def _pattern(device):
-    return torch.as_tensor(PATTERN_P, dtype=torch.float32, device=device)
+    """PATTERN_P on `device` (made once)."""
+    return device_loop.constant(PATTERN_P, device)
 
 
 def pattern_colors(dI0, u, v):
@@ -78,7 +80,8 @@ def trace_points(u, v, idepth_min, idepth_max, status, quality,
 
 def _lane_floats(xs, like, ndim):
     """Per-lane host floats as a float32 (L, 1, ...) tensor of `ndim` dims:
-    each value rounds to float32 as a python scalar operand would."""
+    each value rounds to float32 as a python scalar operand would (made
+    outside the stage programs, which take it as an input)."""
     t = torch.tensor([float(x) for x in xs], dtype=torch.float32,
                      device=like.device)
     return t.reshape((-1,) + (1,) * (ndim - 1))
@@ -93,7 +96,28 @@ def trace_points_lanes(u, v, idepth_min, idepth_max, status, quality,
     leading L (pools (L, M), window stacks (L, F, ...), dI_target0
     (L, H, W, 3)); `max_pix_search_frac` and `huber_th` are per-lane host
     floats. The loops are fixed-count, so lanes never wait for each other.
-    Returns trace_points' dict with a leading L."""
+    Returns trace_points' dict with a leading L. One stage program
+    (`device_loop.program`, "trace"), the per-lane floats its inputs."""
+    x = dict(u=u, v=v, idepth_min=idepth_min, idepth_max=idepth_max,
+             status=status, quality=quality, color=color, weights=weights,
+             gradH=gradH, energy_th=energy_th, host_idx=host_idx,
+             KRKi_stack=KRKi_stack, Kt_stack=Kt_stack, aff_stack=aff_stack,
+             dI_target0=dI_target0,
+             max_pix_search=_lane_floats([(w + h) * float(f)
+                                          for f in max_pix_search_frac], u,
+                                         2),
+             hub2=_lane_floats(huber_th, u, 2))
+    return device_loop.program("trace", _trace_program, x,
+                               dict(w=int(w), h=int(h)))
+
+
+def _trace_program(x, w, h):
+    (u, v, idepth_min, idepth_max, status, quality, color, weights, gradH,
+     energy_th, host_idx, KRKi_stack, Kt_stack, aff_stack, dI_target0,
+     max_pix_search, hub2) = (x[k] for k in (
+         "u", "v", "idepth_min", "idepth_max", "status", "quality", "color",
+         "weights", "gradH", "energy_th", "host_idx", "KRKi_stack",
+         "Kt_stack", "aff_stack", "dI_target0", "max_pix_search", "hub2"))
     dev = u.device
     L = u.shape[0]
     ar = torch.arange(L, device=dev)[:, None]
@@ -101,9 +125,6 @@ def trace_points_lanes(u, v, idepth_min, idepth_max, status, quality,
     KRKi = KRKi_stack[ar, host_idx]                               # (L,M,3,3)
     Kt = Kt_stack[ar, host_idx]
     aff = aff_stack[ar, host_idx]
-    max_pix_search = _lane_floats([(w + h) * float(f)
-                                   for f in max_pix_search_frac], u, 2)
-    hub2 = _lane_floats(huber_th, u, 2)
     hub4 = hub2[..., None, None]
     f32 = torch.float32
 
@@ -397,9 +418,9 @@ def activate_points_lanes(u, v, idepth_init, color, weights, host_idx,
                           min_obs: int = 1, gn_iters: int = 3, quad12=None):
     """`activate_points` of L lanes: points (L, A), frame_valid (L, F),
     pair stacks (L, F*F, ...), dI0_stack (L, F, H, W, 3), K (L, 4);
-    `min_idepth_h_act` per-lane host floats. The per-target loop runs over
-    the F slots and the GN loop is fixed-count, so lanes never wait for
-    each other."""
+    `min_idepth_h_act` per-lane host floats (or their (L, 1) float32
+    tensor). The per-target loop runs over the F slots and the GN loop is
+    fixed-count, so lanes never wait for each other."""
     L, N = u.shape
     F = n_frames
     dev = u.device
@@ -407,7 +428,8 @@ def activate_points_lanes(u, v, idepth_init, color, weights, host_idx,
     if quad12 is None:
         quad12 = stack_quad12(dI0_stack)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
-    h_act = _lane_floats(min_idepth_h_act, u, 2)
+    h_act = min_idepth_h_act if isinstance(min_idepth_h_act, torch.Tensor) \
+        else _lane_floats(min_idepth_h_act, u, 2)
 
     def all_targets_system(idepth):
         es, Hs, bs, states = [], [], [], []

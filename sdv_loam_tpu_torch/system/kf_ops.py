@@ -22,7 +22,7 @@ from sdv_loam_tpu_torch.ops import trace as trace_ops
 from sdv_loam_tpu_torch.ops.distmap import distance_map_lanes
 from sdv_loam_tpu_torch.ops.photometric import (build_track_ref,
                                                 nonzero_fixed, splat_idepth)
-from sdv_loam_tpu_torch.utils import se3
+from sdv_loam_tpu_torch.utils import device_loop, se3
 
 # Lanes: `activate_full_lanes` and `kf_opt_step_lanes` run L sequences'
 # keyframe stages at once (the JAX package's `activate_full_batch` and
@@ -65,13 +65,40 @@ def activate_full_lanes(
     stacks (L, F, ...); `newest_slot` and the three thresholds per-lane
     host lists. One K2 call takes every lane's level-1 distance map. A
     larger `a_cap` than a lane needs (the fleet's widest) only adds
-    invalid compaction rows, so each lane's result is unchanged."""
+    invalid compaction rows, so each lane's result is unchanged. One stage
+    program (`device_loop.program`, "activate"): the newest slots and the
+    thresholds are its device inputs."""
+    x = dict(im=dict(im), pt_u=pt_u, pt_v=pt_v, pt_idepth=pt_idepth,
+             pt_host=pt_host, pt_valid=pt_valid,
+             newest=torch.as_tensor([int(s) for s in newest_slot],
+                                    device=pt_u.device)[:, None],
+             slot_used=slot_used, slot_flagged=slot_flagged, KRKi1=KRKi1,
+             Kt1=Kt1, R_pair=R_pair, t_pair=t_pair, aff_pair=aff_pair,
+             dI0_stack=dI0_stack, K=K,
+             min_act_dist=trace_ops._lane_floats(min_act_dist, pt_u, 2),
+             min_trace_quality=trace_ops._lane_floats(min_trace_quality,
+                                                      pt_u, 2),
+             min_idepth_h_act=trace_ops._lane_floats(min_idepth_h_act,
+                                                     pt_u, 2))
+    return device_loop.program(
+        "activate", _activate_program, x,
+        dict(w=int(w), h=int(h), w1=int(w1), h1=int(h1),
+             n_frames=int(n_frames), a_cap=int(a_cap),
+             gn_iters=int(gn_iters)))
+
+
+def _activate_program(x, w, h, w1, h1, n_frames, a_cap, gn_iters):
+    im = x["im"]
+    (pt_u, pt_v, pt_idepth, pt_host, pt_valid, newest, slot_used,
+     slot_flagged, KRKi1, Kt1, R_pair, t_pair, aff_pair, dI0_stack,
+     K) = (x[k] for k in (
+         "pt_u", "pt_v", "pt_idepth", "pt_host", "pt_valid", "newest",
+         "slot_used", "slot_flagged", "KRKi1", "Kt1", "R_pair", "t_pair",
+         "aff_pair", "dI0_stack", "K"))
     F = n_frames
     dev = pt_u.device
     L, M = im["u"].shape
     ar = torch.arange(L, device=dev)[:, None]
-    newest = torch.as_tensor([int(x) for x in newest_slot],
-                             device=dev)[:, None]
     im_u, im_v = im["u"], im["v"]
     im_idepth_min, im_idepth_max = im["idepth_min"], im["idepth_max"]
     im_status, im_quality = im["status"], im["quality"]
@@ -100,7 +127,7 @@ def activate_full_lanes(
            | (im_status == trace_ops.IPS_BADCONDITION)
            | (im_status == trace_ops.IPS_OOB))
     can = can & (im["pixel_interval"] < 8) & \
-        (im_quality > trace_ops._lane_floats(min_trace_quality, pt_u, 2)) & \
+        (im_quality > x["min_trace_quality"]) & \
         ((im_idepth_max + im_idepth_min) > 0)
     cannot = eligible & ~can
     ihcl = torch.clamp(im_host, 0, F - 1)
@@ -119,7 +146,7 @@ def activate_full_lanes(
     inb = (uii > 0) & (vii > 0) & (uii < w1) & (vii < h1)
     dist = dmap[ar, torch.clamp(vii, 0, h1 - 1),
                 torch.clamp(uii, 0, w1 - 1)] + (ui - torch.floor(ui))
-    mad = trace_ops._lane_floats(min_act_dist, pt_u, 2)
+    mad = x["min_act_dist"]
     keep = cand & inb & (dist >= mad * im["my_type"])
     drop_oob = cand & ~inb
 
@@ -130,12 +157,12 @@ def activate_full_lanes(
         im["weights"][ar, cidx], im_host[ar, cidx], im_is_sensor[ar, cidx],
         lane_valid, slot_used, R_pair, t_pair, aff_pair, dI0_stack, K,
         im["energy_th"][ar, cidx], w=w, h=h, n_frames=F,
-        min_idepth_h_act=min_idepth_h_act, min_obs=1, gn_iters=gn_iters)
+        min_idepth_h_act=x["min_idepth_h_act"], min_obs=1,
+        gn_iters=gn_iters)
 
     lanes = torch.zeros(L * (M + 1), dtype=torch.bool, device=dev)
-    lanes[(ar * (M + 1) + torch.where(lane_valid, cidx,
-                                      torch.full_like(cidx, M))
-           ).reshape(-1)] = True
+    lanes.index_fill_(0, (ar * (M + 1) + torch.where(
+        lane_valid, cidx, torch.full_like(cidx, M))).reshape(-1), True)
     lanes = lanes.reshape(L, M + 1)[:, :M]
     im_valid_new = im_valid & ~(dead | kill | drop_oob) & ~lanes
     im_status_new = torch.where(im_valid & ~im_valid_new,

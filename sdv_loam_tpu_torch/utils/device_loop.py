@@ -1,10 +1,10 @@
-"""Device-resident iterated stages: the JAX package's `lax.while_loop`s as
-replayed CUDA graphs.
+"""Device-resident stages: the JAX package's compiled stage programs and
+their `lax.while_loop`s as CUDA graphs.
 
-Each iterated stage of the JAX package (the tracking LM and its cutoff
-pre-loop, the feature alignment, the struct-pose LM, the windowed BA and
-the LiDAR components fixpoint) is one compiled program with its loop on the
-device. The port runs the same loops through `run`:
+Loops (`run`). Each iterated stage of the JAX package (the tracking LM and
+its cutoff pre-loop, the feature alignment, the struct-pose LM, the
+windowed BA and the LiDAR components fixpoint) is a loop on the device. The
+port runs the same loops through `run`:
 
 * a *body* is a function `body(x, st, **static) -> (st, active)`: `x` is a
   dict of input tensors that stay fixed over the loop, `st` the dict of
@@ -17,47 +17,79 @@ device. The port runs the same loops through `run`:
   Running `k` iterations and then testing therefore gives what the
   early-exit loop gives, which is also how the JAX package's vmapped
   `while_loop` runs rows that stopped before the fleet's last one.
-* CPU tensors take `eager_loop` (the early-exit loop: one host read of
-  `active` per iteration). CUDA tensors take `graph_loop`: the body's `k`
-  unrolled iterations are captured once per shape as a `torch.cuda.CUDAGraph`
-  (the public capture API, `capture_error_mode="thread_local"`, so systems
-  on other threads keep running), and replayed until `active` reads false
-  or `max_iters` iterations have run. The flag is read once per chunk, and
-  not after the last chunk; a tail shorter than `k` has a graph of its own,
-  so no replay runs past `max_iters`.
-* Graph inputs and carries live in static buffers: each call copies its
-  inputs and initial carries into them (`copy_`, stream ordered), and the
-  results are cloned out before the call returns. The buffers keep the
-  strides the eager loop would see at each iteration (see `_Entry`):
-  cuBLAS picks its kernels (transposes, gemv variants) from the strides,
-  and another kernel rounds otherwise.
+* Outside a stage program, CPU tensors take `eager_loop` (the early-exit
+  loop: one host read of `active` per iteration) and CUDA tensors
+  `graph_loop`: `k` unrolled iterations captured once per shape as a
+  `torch.cuda.CUDAGraph` (`capture_error_mode="thread_local"`, so systems
+  on other threads keep running) and replayed until `active` reads false
+  or `max_iters` iterations have run, the flag read once per chunk (not
+  after the last; a shorter tail has a graph of its own). Inputs and
+  carries live in static buffers in the strides the eager loop sees at
+  each iteration (see `_Entry`): cuBLAS picks its kernels from the
+  strides, and another kernel rounds otherwise.
 
-Graphs are cached in a `LoopCache`, keyed by stage, body, shapes, strides,
-dtypes, device, the static arguments and the chunk length. A `FullSystem`
-(and a `MultiSystem`) owns one and makes it current with `use` around its
-work (`_on_stream`), so two systems never replay one graph at once, and
-the cache goes with the system; outside a system each thread has a cache
-of its own. The graphs of one cache share one memory pool: nothing a graph
-allocates outlives its replay (carries and flag are static buffers made
-outside capture), and one cache's replays never overlap. Captures take
-turns, and Python's automatic garbage collection is paused during one (a
-collection could free another system's graphs mid-capture).
+Stage programs (`program`). The JAX package compiles each stage into one
+program. `program(stage, fn, inputs, static)` is its counterpart for the
+track step, the LiDAR preprocessing, the trace and the activation: on
+CUDA, `fn(inputs, **static)` is captured whole as one CUDA graph per key
+(stage, function, the inputs' structure, shapes, strides and dtypes,
+device, `static`); a call copies its inputs into the graph's static
+buffers (in the caller's strides), replays, and clones the outputs out.
+Inside a capture:
 
-There is no switch to the eager loop on CUDA on the main path: `reference`
-(eager loops on every device) and `chunks` (the chunk size, and on the CPU
-the chunked driver without capture) exist for the comparisons of
-`chip_smoke.py` and the tests. `STATS` counts, per stage, captures and
-their seconds, replays, host reads of a stop flag, and (eager loops) the
-iterations run.
+* `run` records a loop's first iteration, then a CUDA conditional WHILE
+  node (csrc/graph_cond.cu) whose body is one iteration (`PROGRAM_CHUNK`)
+  and passes again while the flag it wrote holds and the cap is not
+  reached: the early-exit loop bit for bit, decided on the device;
+* `cond(stage, pred, fn, carries)` is an IF node on `pred` whose body's
+  outputs are copied into the results (laid out like `carries`), where
+  the stage form reads `pred` on the host.
+
+The process's first call of a stage runs `fn` eagerly (early-exit loops
+and host reads: the same values), which loads the kernels' modules and
+touches every lazily made constant, and returns its results; the capture
+follows in the same call (a cache first makes its threads' library handles
+on its streams), and a failed capture raises. A later new key (another
+shape, or another system's cache) captures at its first call and
+replays. Conditional bodies run on the cache's body streams (one per
+nesting depth) and allocate from the cache's body pool. A Hopper kernel
+captured in a program counts one launch per replay
+(`ops/hopper_kernels`), and none may sit in a conditional body. On the
+CPU `fn` runs in the stage form (early-exit loops, host reads), or under
+`programs()` in the *trace form* a capture records: every loop to its
+cap, every `cond` computed and selected (the same values, since rows
+freeze), no host read.
+
+Graphs live in a `LoopCache`. A `FullSystem` (and a `MultiSystem`) owns
+one and makes it current with `use` around its work (`_on_stream`), so
+two systems never replay one graph at once, and the cache goes with the
+system; outside a system each thread has a cache of its own. The graphs of
+one cache share one memory pool: what a graph allocates and frees is
+reused by the next capture, and one cache's replays never overlap.
+Captures take turns, and Python's automatic garbage collection is paused
+during one (a collection could free another system's graphs
+mid-capture).
+
+There is no switch away from programs or graph loops on CUDA on the main
+path: `stage_form` (the stages called directly: loops as chunk replays,
+conds as host reads), `reference` (eager loops on every device) and
+`chunks` (the chunk size, and on the CPU the chunked driver without
+capture) exist for the comparisons of `chip_smoke.py` and the tests.
+`STATS` counts, per stage, captures and their seconds, replays, host reads
+of a stop flag, and (eager loops) the iterations run; per program also
+instantiate seconds, the ops its capture recorded (graph nodes), the graph
+pools' growth (MiB) and warm-up calls.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import gc
 import threading
 import time
 
+import numpy as np
 import torch
 
 # Chunk sizes (iterations per replay). A replay costs one host launch and
@@ -85,7 +117,16 @@ import torch
 CHUNK = {"lm": 3, "cutoff": 2, "align": 10, "struct": 10, "ba0": 2, "ba": 1,
          "sweep": 2}
 
+# Inside a stage program a loop's chunk is one iteration: a pass of its
+# WHILE node costs a few small device copies and no host read, so a longer
+# chunk would only add iterations over stopped rows, and ops to the
+# capture (it records the first chunk, one chunk as the WHILE body and the
+# shorter last chunk).
+PROGRAM_CHUNK = 1
+
 STATS: dict = {}
+# the stages that have run through `program`
+PROGRAMS: set = set()
 # eager loops: how many calls of each stage ran n iterations
 HIST: dict = {}
 _lock = threading.Lock()
@@ -100,6 +141,8 @@ def _count(stage, **kw):
         st = STATS.setdefault(stage, dict(captures=0, capture_s=0.0,
                                           replays=0, reads=0, calls=0,
                                           iters=0))
+        for k in kw:
+            st.setdefault(k, 0)
         for k, v in kw.items():
             st[k] += v
 
@@ -111,25 +154,35 @@ def reset_counts() -> None:
 
 
 def counts() -> dict:
-    """A copy of `STATS`, plus the totals over stages under "all"."""
+    """A copy of `STATS`, plus the totals over stages under "all" and over
+    the stage programs under "programs"."""
     with _lock:
         out = {k: dict(v) for k, v in STATS.items()}
-    tot = {}
-    for v in out.values():
+        progs = set(PROGRAMS)
+    tot, ptot = {}, {}
+    for name, v in out.items():
         for k, x in v.items():
             tot[k] = tot.get(k, 0) + x
+            if name in progs:
+                ptot[k] = ptot.get(k, 0) + x
     out["all"] = tot
+    out["programs"] = ptot
     return out
 
 
 class LoopCache:
     """The captured graphs of one system: entries by key, one capture
-    stream and one memory pool (made at the first capture)."""
+    stream and one memory pool (made at the first capture); for the stage
+    programs also the IF bodies' streams (one per nesting depth) and
+    memory pool."""
 
     def __init__(self):
         self.entries: dict = {}
         self.stream = None
         self.pool = None
+        self.body_streams: list = []
+        self.body_pool = None
+        self.prepared: set = set()     # threads whose handles are made
 
     def __len__(self):
         return sum(len(e.graphs) for e in self.entries.values())
@@ -153,6 +206,33 @@ def current_cache() -> LoopCache:
         if c is None:
             c = _tls.default = LoopCache()
     return c
+
+
+@contextlib.contextmanager
+def stage_form():
+    """The stage form: `program` calls its function directly,
+    loops replay their chunk graphs on CUDA with a host read per chunk,
+    `cond` reads its predicate on the host (the comparisons' form: never
+    the main path)."""
+    prev = getattr(_tls, "mode", None)
+    _tls.mode = "stage"
+    try:
+        yield
+    finally:
+        _tls.mode = prev
+
+
+@contextlib.contextmanager
+def programs():
+    """`program` as a program on every device: on CUDA the default (a
+    captured graph); on the CPU the trace form (every loop to its cap,
+    every `cond` computed and selected, no host read)."""
+    prev = getattr(_tls, "mode", None)
+    _tls.mode = "program"
+    try:
+        yield
+    finally:
+        _tls.mode = prev
 
 
 @contextlib.contextmanager
@@ -181,23 +261,88 @@ def chunks(k):
 
 
 @contextlib.contextmanager
-def recording(log: list):
-    """Append every loop this thread runs to `log` as a dict (stage, body,
-    x, st: clones of the inputs and initial carries, max_iters, static,
-    chunk), for `compare`."""
-    prev = getattr(_tls, "log", None)
-    _tls.log = log
+def recording(log: list, programs: bool = False):
+    """Append every loop this thread runs outside a stage program to `log`
+    as a dict (stage, body, x, st: clones of the inputs and initial
+    carries, max_iters, static, chunk), for `compare`; with `programs`,
+    every stage program instead, as a dict (kind "program", stage, fn,
+    static, spec, leaves: clones of the inputs), for `compare_program`."""
+    key = "plog" if programs else "log"
+    prev = getattr(_tls, key, None)
+    setattr(_tls, key, log)
     try:
         yield log
     finally:
-        _tls.log = prev
+        setattr(_tls, key, prev)
 
 
 def read(stage: str, flag) -> bool:
-    """A counted host read of a device flag outside a loop (a stage's
-    entry test, the level repeat)."""
+    """A counted host read of a device flag outside a loop."""
     _count(stage, reads=1)
     return bool(flag)
+
+
+def _inner():
+    """How `run` and `cond` behave inside a stage program: "capture",
+    "trace", or None outside one."""
+    return getattr(_tls, "inner", None)
+
+
+@contextlib.contextmanager
+def _inner_form(form):
+    prev = getattr(_tls, "inner", None)
+    _tls.inner = form
+    try:
+        yield
+    finally:
+        _tls.inner = prev
+
+
+def cond(stage: str, pred, fn, carries: dict) -> dict:
+    """`fn(carries)` where `pred` (a device bool) holds, else `carries`:
+    a host read of `pred` in the stage form, an IF node in a captured
+    program, `fn` computed and selected with `torch.where` in the trace
+    form. `fn` returns the keys, shapes, dtypes and strides of
+    `carries`."""
+    form = _inner()
+    if form is None:
+        return fn(carries) if read(stage, pred) else carries
+    if form == "trace":
+        out = fn(carries)
+        _check_like(stage, out, carries)
+        return {k: torch.where(pred, out[k], v) for k, v in carries.items()}
+    res = {k: v.clone() for k, v in carries.items()}
+    with _cond_node(pred):
+        out = fn(carries)
+        _check_like(stage, out, carries)
+        for k, v in out.items():
+            res[k].copy_(v)
+    return res
+
+
+def _check_like(stage, out, carries):
+    for k, v in carries.items():
+        o = out[k]
+        if (o.shape, o.dtype) != (v.shape, v.dtype) or \
+                (o.numel() > 1 and o.stride() != v.stride()):
+            raise RuntimeError(f"{stage} cond: output {k} differs from its "
+                               "carry in shape, dtype or strides")
+
+
+_CONSTANTS: dict = {}
+
+
+def constant(values, device, dtype=torch.float32):
+    """`values` (host numbers, nested lists or an array) as a `dtype`
+    tensor on `device`, made once per values, dtype and device and shared
+    by every caller (none writes to it): nothing is uploaded inside a
+    stage program."""
+    a = np.asarray(values)
+    key = (a.dtype.str, a.shape, a.tobytes(), dtype, str(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.as_tensor(a, dtype=dtype, device=device)
+    return t
 
 
 def prepare_thread(device) -> None:
@@ -241,6 +386,12 @@ def run(stage: str, body, x: dict, st: dict, max_iters: int,
     if max_iters <= 0:
         return st
     x, st = _own_memory(x), _own_memory(st)
+    form = _inner()
+    if form == "trace":
+        return trace_loop(stage, body, x, st, max_iters, static)
+    if form == "capture":
+        return captured_loop(stage, body, x, st, max_iters, static,
+                             PROGRAM_CHUNK)
     log = getattr(_tls, "log", None)
     if log is not None:
         log.append(dict(stage=stage, body=body, max_iters=max_iters,
@@ -260,6 +411,56 @@ def run(stage: str, body, x: dict, st: dict, max_iters: int,
     if mode == "chunked":
         return chunked_loop(stage, body, x, st, max_iters, static, k)
     return eager_loop(stage, body, x, st, max_iters, static)
+
+
+def trace_loop(stage, body, x, st, max_iters, static):
+    """The trace form: `max_iters` iterations, no read (rows that stopped
+    are frozen, so this is the early-exit loop's result)."""
+    for _ in range(max_iters):
+        st, _ = body(x, st, **static)
+    return st
+
+
+def captured_loop(stage, body, x, st, max_iters, static, k):
+    """A loop inside a capture, as the chunked driver runs it: the first
+    chunk of `k` iterations unconditionally, then a WHILE node whose body
+    is one chunk (it passes again while the chunk's flag holds and fewer
+    than the full chunks have run), then the shorter last chunk in an IF
+    node on the flag. The carries after the first chunk live in buffers in
+    the body's output strides, as the eager loop's later iterations see
+    them."""
+    n0 = min(k, max_iters)
+    act = None
+    for _ in range(n0):
+        st, act = body(x, st, **static)
+    buf = {name: _empty(v) for name, v in st.items()}
+    for name, v in st.items():
+        buf[name].copy_(v)
+    flag = act.reshape(()).clone()
+    n_full, tail = divmod(max_iters - n0, k)
+
+    def chunk(n):
+        cur, a = buf, None
+        for _ in range(n):
+            cur, a = body(x, cur, **static)
+        for name, v in cur.items():
+            if v.stride() != buf[name].stride() and v.numel() > 1:
+                raise RuntimeError(f"{stage} loop: carry {name} changes "
+                                   "strides between iterations")
+            buf[name].copy_(v)
+        flag.copy_(a.reshape(()))
+
+    if n_full:
+        passes = torch.zeros((), dtype=torch.int32, device=flag.device)
+        go = flag.clone()
+        with _cond_node(go, loop=True):
+            chunk(k)
+            passes.add_(1)
+            torch.logical_and(flag, passes < n_full, out=go)
+    if tail:
+        with _cond_node(flag):
+            chunk(tail)
+    return buf
 
 
 def eager_loop(stage, body, x, st, max_iters, static):
@@ -446,6 +647,299 @@ def graph_loop(stage, body, x, st, max_iters, static, k):
     _drive(stage, run_chunk, max_iters, k)
     _count(stage, calls=1)
     return {name: v.clone() for name, v in e.st1.items()}
+
+
+# ---------------------------------------------------------------------------
+# stage programs
+# ---------------------------------------------------------------------------
+
+# conditional-node nesting the body streams allow (a track program nests
+# three deep: the level repeat, the cutoff pre-loop, its later chunks)
+MAX_DEPTH = 4
+
+
+def _cond_lib():
+    from sdv_loam_tpu_torch.ops import hopper_kernels
+    return hopper_kernels._load()
+
+
+@contextlib.contextmanager
+def _cond_node(pred, loop=False):
+    """Capture the block's work into a conditional node on the device bool
+    `pred`: an IF node (at replay the block runs only where `pred` holds
+    when the node is reached) or, with `loop`, a WHILE node (the block runs
+    again while `pred` holds after it: the block updates `pred` in place,
+    and its last work copies it into the node's condition). The block runs
+    on the body stream of its depth, allocating from the cache's body
+    pool."""
+    cache = _tls.capture_cache
+    depth = _tls.depth
+    if depth >= len(cache.body_streams):
+        raise RuntimeError(f"conditional nodes nested deeper than "
+                           f"{MAX_DEPTH}")
+    flag = pred.reshape(())
+    if flag.dtype != torch.bool or not flag.is_contiguous():
+        if loop:
+            raise TypeError("a WHILE node's predicate must be a contiguous "
+                            "0-dim bool tensor (updated in place)")
+        flag = flag.to(torch.bool).contiguous()
+    parent = torch.cuda.current_stream(flag.device)
+    body = cache.body_streams[depth]
+    lib = _cond_lib()
+    handle = ctypes.c_ulonglong(0)
+    rc = lib.sdv_cond_begin(parent.cuda_stream, body.cuda_stream,
+                            flag.data_ptr(), int(loop), ctypes.byref(handle))
+    if rc:
+        raise RuntimeError(f"conditional node: cudaError {rc} starting the "
+                           "body")
+    dev = flag.device.index
+    if depth == 0:
+        torch._C._cuda_beginAllocateCurrentThreadToPool(
+            dev, cache.body_pool.id)
+    _tls.depth = depth + 1
+    ok = False
+    try:
+        with torch.cuda.stream(body):
+            yield
+        ok = True
+    finally:
+        _tls.depth = depth
+        rc = lib.sdv_cond_set(body.cuda_stream, handle.value,
+                              flag.data_ptr()) if loop and ok else 0
+        nodes = ctypes.c_ulonglong(0)
+        rc = lib.sdv_cond_end(body.cuda_stream, ctypes.byref(nodes)) or rc
+        _tls.nodes += nodes.value
+        if depth == 0:
+            torch._C._cuda_endAllocateToPool(dev, cache.body_pool.id)
+            torch._C._cuda_releasePool(dev, cache.body_pool.id)
+    if rc:
+        raise RuntimeError(f"conditional node: cudaError {rc} ending the "
+                           "body")
+
+
+def launch_log():
+    """The list a capture records Hopper kernel launches into (None
+    outside a capture); raises inside a conditional body, whose launches a
+    replay may skip or repeat, so that no count can depart from the
+    card's."""
+    log = getattr(_tls, "launch_log", None)
+    if log is not None and getattr(_tls, "depth", 0):
+        raise RuntimeError("a Hopper kernel inside an IF or WHILE node "
+                           "cannot be counted per replay")
+    return log
+
+
+def _prepare_streams(cache, dev):
+    """The capture stream, the body streams and pool, and this thread's
+    library handles and workspaces on each of those streams (made outside
+    any capture)."""
+    side = _side_stream(cache, dev)
+    if not cache.body_streams:
+        cache.body_streams = [torch.cuda.Stream(dev)
+                              for _ in range(MAX_DEPTH)]
+        cache.body_pool = torch.cuda.MemPool()
+    me = threading.get_ident()
+    if me not in cache.prepared:
+        cur = torch.cuda.current_stream(dev)
+        for s in [side] + cache.body_streams:
+            s.wait_stream(cur)
+            with torch.cuda.stream(s):
+                prepare_thread(dev)
+            cur.wait_stream(s)
+        _cond_lib()
+        cache.prepared.add(me)
+    return side
+
+
+class _Program:
+    """One captured stage program: static input buffers, the graph, its
+    outputs (graph pool memory), and the Hopper launches it records."""
+
+    def __init__(self, leaves):
+        self.inputs = [_empty(v) if isinstance(v, torch.Tensor) else v
+                       for v in leaves]
+        self.graphs: dict = {}      # the one graph, once captured
+        self.graph = None
+        self.out_leaves = None
+        self.out_spec = None
+        self.launches: list = []
+        self.stream = None
+
+
+def _program_key(stage, fn, leaves, spec, static, dev):
+    lay = tuple((tuple(v.shape), v.stride(), v.dtype)
+                if isinstance(v, torch.Tensor) else ("const", v)
+                for v in leaves)
+    return ("program", stage, fn, str(spec), lay, str(dev),
+            tuple(sorted(static.items())))
+
+
+def program(stage: str, fn, inputs, static: dict | None = None):
+    """`fn(inputs, **static)` as one stage program (see the module
+    docstring): a captured CUDA graph on CUDA; on the CPU the stage form,
+    or under `programs()` the trace form. `inputs` is a pytree of tensors
+    (and hashable constants, which join the key); `fn` returns a pytree of
+    tensors."""
+    from torch.utils._pytree import tree_flatten
+
+    static = static or {}
+    mode = getattr(_tls, "mode", None)
+    if _inner() is not None:
+        return fn(inputs, **static)
+    leaves, spec = tree_flatten(inputs)
+    dev = next(v.device for v in leaves if isinstance(v, torch.Tensor))
+    log = getattr(_tls, "plog", None)
+    if log is not None:
+        log.append(dict(kind="program", stage=stage, fn=fn,
+                        static=dict(static), spec=spec,
+                        leaves=[v.clone() if isinstance(v, torch.Tensor)
+                                else v for v in leaves]))
+    with _lock:
+        PROGRAMS.add(stage)
+    if mode in ("stage", "reference"):
+        return fn(inputs, **static)
+    if dev.type != "cuda":
+        if mode != "program":
+            return fn(inputs, **static)
+        with _inner_form("trace"):
+            return fn(inputs, **static)
+    return _graph_program(stage, fn, leaves, spec, static, dev)[0]
+
+
+# The stage programs warmed up in this process, by function and device: a
+# warm-up loads the kernels' modules and makes the lazily made constants,
+# which every later key and system of the process then finds made (each
+# system's cache makes its threads' library handles on its own streams).
+_WARM: set = set()
+
+
+def _graph_program(stage, fn, leaves, spec, static, dev):
+    """Replay the program of this key (capturing it at the first call; the
+    process's first call of `fn` returns its eager warm-up run instead);
+    returns (outputs, replayed)."""
+    from torch.utils._pytree import tree_unflatten
+
+    from sdv_loam_tpu_torch.ops import hopper_kernels
+
+    leaves = [v.contiguous() if isinstance(v, torch.Tensor) and _overlapping(v)
+              else v for v in leaves]
+    cache = current_cache()
+    key = _program_key(stage, fn, leaves, spec, static, dev)
+    e = cache.entries.get(key)
+    cur = torch.cuda.current_stream(dev)
+    if e is None:
+        with _lock:
+            warm = (fn, str(dev)) in _WARM
+            _WARM.add((fn, str(dev)))
+        if not warm:
+            # the warm-up: this call's result, in the eager form (early-exit
+            # loops, host reads: the same values)
+            prev = getattr(_tls, "mode", None)
+            _tls.mode = "reference"
+            try:
+                out = fn(tree_unflatten(leaves, spec), **static)
+            finally:
+                _tls.mode = prev
+            _count(stage, warmups=1, calls=1)
+        e = _Program(leaves)
+        _capture_program(cache, stage, fn, e, spec, static, dev)
+        cache.entries[key] = e
+        if not warm:
+            return out, False
+    if e.stream is not None and e.stream != cur:
+        cur.wait_stream(e.stream)      # the last call's replay and clones
+    e.stream = cur
+    for buf, v in zip(e.inputs, leaves):
+        if isinstance(v, torch.Tensor):
+            buf.copy_(v)
+    e.graph.replay()
+    hopper_kernels.count_launches(e.launches)
+    _count(stage, replays=1, calls=1)
+    outs = [v.clone() for v in e.out_leaves]
+    return tree_unflatten(outs, e.out_spec), True
+
+
+def _capture_program(cache, stage, fn, e, spec, static, dev):
+    """Capture `fn` over `e`'s static inputs; counts the capture's seconds,
+    its instantiation's (capture_end), its nodes (`ops`: kernels, copies,
+    memsets and conditional nodes, every conditional body's included) and
+    the graph pool's growth."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    cur = torch.cuda.current_stream(dev)
+    with _capture_lock:
+        side = _prepare_streams(cache, dev)
+        side.wait_stream(cur)
+        reserved0 = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        with _collector_paused(), torch.cuda.stream(side):
+            g = torch.cuda.CUDAGraph()
+            g.capture_begin(pool=cache.pool,
+                            capture_error_mode="thread_local")
+            _tls.capture_cache, _tls.depth, _tls.launch_log = cache, 0, []
+            _tls.nodes = 0
+            try:
+                with _inner_form("capture"):
+                    out = fn(tree_unflatten(e.inputs, spec), **static)
+                out_leaves, out_spec = tree_flatten(out)
+                if not all(isinstance(v, torch.Tensor) for v in out_leaves):
+                    raise TypeError(f"{stage} program: every output must "
+                                    "be a tensor")
+                nodes = ctypes.c_ulonglong(0)
+                rc = _cond_lib().sdv_capture_nodes(side.cuda_stream,
+                                                   ctypes.byref(nodes))
+                if rc:
+                    raise RuntimeError(f"{stage} program: cudaError {rc} "
+                                       "counting the graph's nodes")
+                ops = _tls.nodes + nodes.value
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    g.capture_end()
+                raise
+            finally:
+                e.launches = _tls.launch_log
+                _tls.capture_cache, _tls.depth, _tls.launch_log = \
+                    None, 0, None
+            t1 = time.perf_counter()
+            g.capture_end()
+        t2 = time.perf_counter()
+        cur.wait_stream(side)
+    e.graph, e.out_leaves, e.out_spec = g, out_leaves, out_spec
+    e.graphs[0] = g
+    _count(stage, captures=1, capture_s=t1 - t0, instantiate_s=t2 - t1,
+           ops=ops,
+           pool_mib=(torch.cuda.memory_reserved(dev) - reserved0) / 2**20)
+
+
+def compare_program(rec: dict) -> dict:
+    """One recorded program (see `recording`) run as a program (a replay
+    on CUDA: a key seen first is captured, then replayed; the trace form
+    on the CPU) and in the stage form on the same inputs: returns
+    dict(stage, equal, differ (output indices), replayed)."""
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    leaves = [v.clone() if isinstance(v, torch.Tensor) else v
+              for v in rec["leaves"]]
+    inputs = tree_unflatten(leaves, rec["spec"])
+    dev = next(v.device for v in leaves if isinstance(v, torch.Tensor))
+    if dev.type == "cuda":
+        got, replayed = _graph_program(rec["stage"], rec["fn"], leaves,
+                                       rec["spec"], rec["static"], dev)
+        if not replayed:
+            got, replayed = _graph_program(rec["stage"], rec["fn"], leaves,
+                                           rec["spec"], rec["static"], dev)
+    else:
+        with _inner_form("trace"):
+            got = rec["fn"](inputs, **rec["static"])
+        replayed = False
+    with stage_form():
+        ref = rec["fn"](tree_unflatten(rec["leaves"], rec["spec"]),
+                        **rec["static"])
+    a, _ = tree_flatten(got)
+    b, _ = tree_flatten(ref)
+    diff = [i for i, (x, y) in enumerate(zip(a, b)) if not same_bits(x, y)]
+    return dict(stage=rec["stage"], equal=not diff and len(a) == len(b),
+                differ=diff, replayed=replayed)
 
 
 def same_bits(a, b) -> bool:

@@ -1,5 +1,7 @@
 """The Hopper kernels against their plain PyTorch versions on the card,
-and the iterated stages' graph replays against their eager loops.
+the iterated stages' graph replays against their eager loops, and the
+stage programs (one captured graph per stage, IF nodes for the later loop
+chunks and the conds) against the stage form.
 
 Marked `cuda`: skipped without a GPU. On a GPU machine (`--noconftest`
 skips tests/conftest.py, which sets up JAX; these tests need none):
@@ -128,7 +130,8 @@ def test_loop_graphs_match_eager_loops(cuda, lanes):
     same inputs, bit for bit: the loops of two frames of the 320x96 scene
     (one sequence, or two as lanes of the batched lockstep), recorded on
     the card; the first loop of each stage recorded, then replayed through
-    graphs captured on the first one."""
+    graphs captured on the first one. The frames run in the stage form
+    (`device_loop.stage_form`), where the loops are graphs of their own."""
     from sdv_loam_tpu_torch.config import Settings
     from sdv_loam_tpu_torch.data.synthetic import make_sequence
     from sdv_loam_tpu_torch.system.full_system import FullSystem
@@ -143,7 +146,9 @@ def test_loop_graphs_match_eager_loops(cuda, lanes):
     log = []
     for i in range(6):
         frames = [s.get(i) for s in seqs]
-        with dl.recording(log) if i >= 4 else contextlib.nullcontext():
+        # the stage form: the loops run outside captured stage programs
+        with dl.stage_form(), \
+                dl.recording(log) if i >= 4 else contextlib.nullcontext():
             if run is not None:
                 run.add_frames(frames)
             else:
@@ -212,3 +217,158 @@ def test_capture_survives_dead_systems_graphs(cuda):
     assert collecting and not any(collecting)
     assert gc.isenabled()
     gc.collect()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 2])
+def test_programs_match_stage_form(cuda, lanes):
+    """Each stage program recorded on frames 2-5 of the 320x96 scene (one
+    sequence, or two as lanes of the batched lockstep), replayed on the
+    card, against the stage form on the same inputs: bit for bit."""
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.system.multi import MultiSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    seqs = [make_sequence(n_frames=6, w=320, h=96, lidar_stride=2,
+                          yaw_rate=0.003 * b) for b in range(lanes)]
+    systems = [FullSystem(s.calib, s.sensor, Settings(), device=cuda)
+               for s in seqs]
+    run = MultiSystem(systems, batch_track=True) if lanes > 1 else None
+    log = []
+    for i in range(6):
+        frames = [s.get(i) for s in seqs]
+        with dl.recording(log, programs=True) if i >= 2 else \
+                contextlib.nullcontext():
+            if run is not None:
+                run.add_frames(frames)
+            else:
+                systems[0].add_active_frame(*frames[0])
+    seen = {}
+    for rec in log:
+        seen.setdefault(rec["stage"], []).append(rec)
+    need = {"track", "lidar", "trace", "activate"} if lanes == 1 else \
+        {"track", "lidar"}
+    assert need <= set(seen), seen.keys()
+    for stage, recs in seen.items():
+        for rec in recs[:2]:
+            res = dl.compare_program(rec)
+            assert res["equal"] and res["replayed"], res
+
+
+@pytest.mark.cuda
+def test_whole_run_programs_match_stage_form(cuda):
+    """Six frames of the 320x96 scene as stage programs against the same
+    frames in the stage form: the same trajectory bit for bit. A second
+    system replaying the first one's programs (its graph cache) gives it
+    again, and reads no flag in the stages the programs hold."""
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    seq = make_sequence(n_frames=6, w=320, h=96, lidar_stride=2)
+    trajs, cache = [], None
+    for ctx in (contextlib.nullcontext(), contextlib.nullcontext(),
+                dl.stage_form()):
+        dl.reset_counts()
+        fs = FullSystem(seq.calib, seq.sensor, Settings(), device=cuda)
+        if cache is not None and len(trajs) == 1:
+            fs.loops = cache
+        cache = fs.loops
+        with ctx:
+            for i in range(6):
+                fs.add_active_frame(*seq.get(i))
+        trajs.append(fs.get_trajectory())
+        if len(trajs) == 2:
+            c = dl.counts()
+            assert c["programs"]["replays"] > 0
+            assert c["programs"].get("captures", 0) == 0, c["programs"]
+            assert not any(c.get(k, {}).get("reads", 0) for k in
+                           ("lm", "cutoff", "repeat", "align", "struct",
+                            "sweep")), c
+    assert np.array_equal(trajs[0], trajs[2])
+    assert np.array_equal(trajs[1], trajs[2])
+
+
+def _toy(x, k2):
+    """A loop whose rows stop at their own counts, a cond on its result,
+    and (with `k2`) one K2 launch outside any IF node."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    def body(xx, st):
+        go = st["n"] < xx["stop"]
+        n = torch.where(go, st["n"] + 1, st["n"])
+        v = torch.where(go, st["v"] * 1.5 + 0.25, st["v"])
+        return dict(n=n, v=v), (n < xx["stop"]).any()
+    st = dl.run("align", body, x, dict(n=torch.zeros_like(x["stop"]),
+                                       v=x["v0"]), 12, chunk=3)
+    out = dl.cond("repeat", (st["v"] > 10.0).any(),
+                  lambda c: dict(c, v=c["v"] * 2.0), st)
+    if k2:
+        out["d"] = hk.distance_transform(x["seed"], 32)
+    return out
+
+
+@pytest.mark.cuda
+def test_program_replays_new_inputs_without_capture(cuda):
+    """One capture, then replays with new input values (loops that stop in
+    their first chunk and at their cap, the cond either way): each equals
+    the stage form, and no call captures again."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    dl.reset_counts()
+    with dl.use(dl.LoopCache()):
+        for stop in ([1, 2], [1, 12], [0, 0], [5, 3], [1, 12]):
+            x = dict(stop=torch.tensor(stop, device=cuda),
+                     v0=torch.tensor([1.0, 3.0], device=cuda))
+            got = dl.program("toy", _toy, x, dict(k2=False))
+            with dl.stage_form():
+                ref = dl.program("toy", _toy, x, dict(k2=False))
+            for k in ref:
+                assert dl.same_bits(got[k], ref[k]), (stop, k)
+            assert got["n"].tolist() == stop
+    c = dl.counts()["toy"]
+    # the process's first call of the function may be its eager warm-up
+    assert c["captures"] == 1 and c["calls"] == 5, c
+    assert c["replays"] == 5 - c.get("warmups", 0), c
+
+
+@pytest.mark.cuda
+def test_program_counts_k2_launches_per_replay(cuda):
+    """A program holding one K2 launch: a warm-up call launches it (one
+    count), the capture launches nothing, and every replay counts one
+    launch of its lanes; the output equals the plain version."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    seed = torch.from_numpy(np.stack([_seeds(180, 600, 3 + b)
+                                      for b in range(2)])).to(cuda)
+    x = dict(stop=torch.tensor([1, 4], device=cuda),
+             v0=torch.tensor([1.0, 3.0], device=cuda), seed=seed)
+    hk.reset_launch_counts()
+    with dl.use(dl.LoopCache()):
+        for n in range(1, 4):
+            out = dl.program("toyk2", _toy, x, dict(k2=True))
+            torch.cuda.synchronize()
+            assert hk.LAUNCHES["distance_transform"] == n
+            assert hk.LANES["distance_transform"] == 2 * n
+    assert torch.equal(out["d"], hk.distance_transform_plain(seed.cpu(),
+                                                             32).to(cuda))
+
+
+@pytest.mark.cuda
+def test_kernel_inside_if_node_is_refused(cuda):
+    """A Hopper kernel inside a cond's IF node could be skipped by a
+    replay, so its capture raises instead of counting it."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    def fn(x):
+        return dl.cond("t", x["p"], lambda c: dict(
+            d=hk.distance_transform(c["d"], 32)), dict(d=x["seed"]))
+    x = dict(p=torch.tensor(True, device=cuda),
+             seed=torch.from_numpy(_seeds(37, 91, 5)).to(cuda))
+    with dl.use(dl.LoopCache()), pytest.raises(RuntimeError,
+                                               match="cannot be counted"):
+        dl.program("k2if", fn, x)
+

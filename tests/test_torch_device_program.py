@@ -1,0 +1,187 @@
+"""The port's stage programs (`device_loop.program`) on the CPU.
+
+On the card each of the four stages (the track step, the LiDAR
+preprocessing, the trace, the activation) is one captured CUDA graph, its
+loops' later chunks and its conds IF nodes. The CPU cannot capture; its
+program mode (`device_loop.programs`) runs the same functions in the trace
+form a capture records: every loop to its cap, every cond computed and
+selected, no host read. On recorded 320x96 frames, one lane and two:
+
+  * capture safety: a program's function dispatches none of the ops a
+    capture refuses or that read the device from the host
+    (`_local_scalar_dense`, `nonzero`, `is_nonzero`, `equal`, `unique*`,
+    `masked_select`, `lift_fresh` (a tensor from host data), `bincount`,
+    an index by a bool mask);
+  * its outputs equal the stage form's bit for bit (early-exit loops and
+    host reads), also where the cutoff doubling and the level repeat fire
+    and where a loop stops in its first chunk.
+"""
+
+import pytest
+import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from sdv_loam_tpu_torch.config import Settings
+from sdv_loam_tpu_torch.data.synthetic import make_sequence
+from sdv_loam_tpu_torch.system.full_system import FullSystem
+from sdv_loam_tpu_torch.system.multi import MultiSystem
+from sdv_loam_tpu_torch.utils import device_loop as dl
+
+torch.set_num_threads(1)
+
+SETTINGS = dict(desired_immature_density=600, desired_point_density=800,
+                n_active_cap=2048, n_immature_cap=2048)
+N_FRAMES = 6
+# the ops a stage program must not dispatch (their overload packets)
+FORBIDDEN = ("_local_scalar_dense", "nonzero", "nonzero_static",
+             "is_nonzero", "equal", "masked_select", "lift_fresh",
+             "bincount", "item")
+CASES = [("track", 1), ("track", 2), ("lidar", 1), ("lidar", 2),
+         ("trace", 1), ("activate", 1)]
+
+
+class _Refused(TorchDispatchMode):
+    """Collects the forbidden ops a block dispatches."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        bad = name in FORBIDDEN or "unique" in name
+        if name in ("index", "index_put", "index_put_"):
+            bad = bad or any(t is not None and t.dtype == torch.bool
+                             for t in args[1])
+        if bad:
+            self.seen[name] = self.seen.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _scene(**kw):
+    return make_sequence(n_frames=N_FRAMES, w=320, h=96, step=0.8,
+                         lidar_stride=2, **kw)
+
+
+@pytest.fixture(scope="module")
+def records():
+    """The first recorded program of each (stage, lanes): one sequence's
+    frames 1-5, and a batched lockstep of two sequences."""
+    out = {}
+    seq = _scene()
+    fs = FullSystem(seq.calib, seq.sensor, Settings(**SETTINGS),
+                    device="cpu")
+    log = []
+    for i in range(N_FRAMES):
+        with dl.recording(log, programs=True):
+            fs.add_active_frame(*seq.get(i))
+    seqs = [_scene(yaw_rate=yr) for yr in (0.004, 0.012)]
+    fleet = MultiSystem([FullSystem(s.calib, s.sensor, Settings(**SETTINGS),
+                                    device="cpu") for s in seqs],
+                        batch_track=True, host_workers=0)
+    for i in range(3):
+        with dl.recording(log, programs=True):
+            fleet.add_frames([s.get(i) for s in seqs])
+    for rec in log:
+        lanes = (len(tree_unflatten(rec["leaves"], rec["spec"])["lanes"])
+                 if rec["stage"] == "track" else
+                 next(v for v in rec["leaves"]
+                      if isinstance(v, torch.Tensor)).shape[0])
+        out.setdefault((rec["stage"], lanes), rec)
+    return out
+
+
+def _inputs(rec):
+    return tree_unflatten([v.clone() if isinstance(v, torch.Tensor) else v
+                           for v in rec["leaves"]], rec["spec"])
+
+
+@pytest.mark.parametrize("stage,lanes", CASES)
+def test_program_is_capture_safe(records, stage, lanes):
+    rec = records[(stage, lanes)]
+    mode = _Refused()
+    with mode, dl._inner_form("trace"):
+        rec["fn"](_inputs(rec), **rec["static"])
+    assert not mode.seen, mode.seen
+
+
+@pytest.mark.parametrize("stage,lanes", CASES)
+def test_program_equals_stage_form(records, stage, lanes):
+    res = dl.compare_program(records[(stage, lanes)])
+    assert res["equal"], res
+
+
+def test_track_program_when_cutoff_doubles_and_level_repeats(records,
+                                                             monkeypatch):
+    """A low cutoff saturates most residuals: the stage form reads the
+    cutoff pre-loop's and the level repeat's predicates true, and the
+    program (both blocks computed and selected) gives its outputs bit for
+    bit."""
+    rec = records[("track", 1)]
+    inputs = _inputs(rec)
+    inputs["shared"]["cutoff_th"] = torch.tensor(0.25)
+    leaves, spec = tree_flatten(inputs)
+    rec = dict(rec, leaves=leaves, spec=spec)
+    seen = []
+    read = dl.read
+
+    def logged(stage, flag):
+        out = read(stage, flag)
+        seen.append((stage, out))
+        return out
+    monkeypatch.setattr(dl, "read", logged)
+    res = dl.compare_program(rec)
+    assert ("cutoff", True) in seen and ("repeat", True) in seen, seen
+    assert ("cutoff", False) in seen or ("repeat", False) in seen, seen
+    assert res["equal"], res
+
+
+def _toy_program(x, max_iters, chunk):
+    """A loop whose rows stop at their own iteration counts (in the first
+    chunk when `x["stop"]` is small), then a cond on its result."""
+    def body(xx, st):
+        go = st["n"] < xx["stop"]
+        n = torch.where(go, st["n"] + 1, st["n"])
+        v = torch.where(go, st["v"] * 1.5 + 0.25, st["v"])
+        return dict(n=n, v=v), (n < xx["stop"]).any()
+    st = dl.run("align", body, x, dict(n=torch.zeros_like(x["stop"]),
+                                       v=x["v0"]), max_iters, chunk=chunk)
+    return dl.cond("repeat", (st["v"] > 10.0).any(),
+                   lambda c: dict(c, v=c["v"] * 2.0), st)
+
+
+@pytest.mark.parametrize("stop", [[1, 2], [1, 9], [0, 0]])
+def test_loop_and_cond_program_equal_stage_form(stop):
+    """A loop that stops in its first chunk (or never runs a row), or
+    later, followed by a cond either way: the trace form equals the
+    early-exit loop and the host-read cond bit for bit, and counts no
+    read."""
+    x = dict(stop=torch.tensor(stop), v0=torch.tensor([1.0, 3.0]))
+    with dl.stage_form():
+        ref = dl.program("toy", _toy_program, x, dict(max_iters=9, chunk=3))
+    dl.reset_counts()
+    with dl.programs():
+        got = dl.program("toy", _toy_program, x, dict(max_iters=9, chunk=3))
+    assert dl.counts()["all"].get("reads", 0) == 0
+    for k in ref:
+        assert dl.same_bits(got[k], ref[k]), k
+    assert got["n"].tolist() == stop
+
+
+def test_cond_forms():
+    """`cond` in the trace form selects `fn`'s outputs where the predicate
+    holds and keeps the carries where it does not, as the host read does;
+    an output laid out unlike its carry is refused."""
+    c = dict(a=torch.arange(6.0).reshape(2, 3))
+    fn = (lambda d: dict(a=d["a"] + 1))
+    for p in (True, False):
+        with dl._inner_form("trace"):
+            got = dl.cond("t", torch.tensor(p), fn, c)
+        ref = dl.cond("t", torch.tensor(p), fn, c)
+        assert torch.equal(got["a"], ref["a"])
+    with pytest.raises(RuntimeError, match="strides"):
+        with dl._inner_form("trace"):
+            dl.cond("t", torch.tensor(True),
+                    lambda d: dict(a=torch.empty_strided((2, 3), (1, 2))
+                                   .copy_(d["a"] + 1)), c)

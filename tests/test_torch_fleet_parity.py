@@ -3,7 +3,8 @@
   * hand-over parity of the batched track step: two JAX FullSystems run
     six frames of tests/test_multi.py's two 320x96 scenes and are
     checkpointed; the port loads both files, and the JAX MultiSystem and
-    the port's MultiSystem(batch_track=True) each take frame 6;
+    the port's MultiSystem(batch_track=True) each take frame 6 (the port
+    in the stage form and as stage programs);
   * the same hand-over through the batched keyframe stages, on
     mid-binned scans: both lanes take a keyframe at frame 6 (trace,
     selection with the JAX draws, activation, the keyframe optimization),
@@ -30,6 +31,7 @@ from sdv_loam_tpu_torch.config import Settings
 from sdv_loam_tpu_torch.ops import lidar as tl
 from sdv_loam_tpu_torch.system import checkpoint as tcheckpoint
 from sdv_loam_tpu_torch.system.multi import MultiSystem
+from sdv_loam_tpu_torch.utils import device_loop
 
 # the port's CPU ops are small: one intra-op thread per test process
 # keeps parallel test workers (xdist) from oversubscribing the cores,
@@ -60,8 +62,12 @@ def test_batched_track_matches_jax_multi(seqs, frames, tmp_path):
     frame 6. Each lane is held to the JAX lane's poses: measured
     photometric poses 1.1e-6 m / 3.0e-8 rad apart at most (bound 1e-5 m,
     1e-6 rad), tracked poses 3.5e-6 m / 2.5e-7 rad (bound 1e-4 m, 2e-6
-    rad)."""
-    jms, tfs = [], []
+    rad). The port takes the frame twice from the same checkpoints: in the
+    stage form (the CPU default) and as stage programs in the CPU program
+    mode (`device_loop.programs`: every loop to its cap, every cond
+    computed and selected), each held to the same bounds, so the JAX side
+    runs once."""
+    jms, tfs, tfs_prog = [], [], []
     for k, seq in enumerate(seqs):
         j = JFullSystem(seq.calib, seq.sensor, JSettings(**SETTINGS))
         for i in range(6):
@@ -70,13 +76,17 @@ def test_batched_track_matches_jax_multi(seqs, frames, tmp_path):
         jcheckpoint.save(j, path)
         jms.append(jcheckpoint.load(path, seq.calib, seq.sensor,
                                     JSettings(**SETTINGS)))
-        tfs.append(tcheckpoint.load(path, seq.calib, seq.sensor,
-                                    Settings(**SETTINGS), device="cpu"))
+        for out in (tfs, tfs_prog):
+            out.append(tcheckpoint.load(path, seq.calib, seq.sensor,
+                                        Settings(**SETTINGS), device="cpu"))
     JMultiSystem(jms, batch_track=True, host_workers=0).add_frames(
         [fr[6] for fr in frames])
     MultiSystem(tfs, batch_track=True, host_workers=0).add_frames(
         [fr[6] for fr in frames])
-    for j, t in zip(jms, tfs):
+    with device_loop.programs():
+        MultiSystem(tfs_prog, batch_track=True, host_workers=0).add_frames(
+            [fr[6] for fr in frames])
+    for j, t in [*zip(jms, tfs), *zip(jms, tfs_prog)]:
         assert not j.is_lost and not t.is_lost
         dt, dr = pose_diff(j.shells[6]["T_wc_photo"],
                            t.shells[6]["T_wc_photo"])

@@ -10,8 +10,11 @@ the port's FullSystem with the default Settings on cuda, and records frames
   * key_averages.txt: the op/kernel table sorted by device time;
   * summary.json: `sdv_loam_tpu_torch.eval.profile.profile_window`'s
     summary: host launch calls (kernel and graph launches), device kernels,
-    device busy share, loop-graph replays, flag reads and captures, and the
-    per-stage host-clock ms, each per frame, and the top kernels.
+    device busy share, graph replays (the stage programs' among them),
+    flag reads, captures and the ops the programs' captures recorded, and
+    the per-stage host-clock ms, each per frame, and the top kernels;
+    besides, the run's program captures, capture and instantiate seconds
+    and graph pool MiB per stage (`device_loop.counts()`).
 """
 
 from __future__ import annotations
@@ -55,8 +58,12 @@ def main():
     n_kf0 = len(fs.kf_shells)
     summary, ka = profile_window(
         lambda i: fs.add_active_frame(*frames[a + i]), b - a, [fs])
+    from sdv_loam_tpu_torch.utils import device_loop
+    counts = device_loop.counts()
     summary.update(device=torch.cuda.get_device_name(0), window=[a, b],
-                   keyframes_in_window=len(fs.kf_shells) - n_kf0)
+                   keyframes_in_window=len(fs.kf_shells) - n_kf0,
+                   programs={k: counts[k] for k in sorted(device_loop.PROGRAMS)
+                             if k in counts})
     with open(os.path.join(args.out, "key_averages.txt"), "w") as f:
         try:
             f.write(ka.table(sort_by="self_device_time_total", row_limit=60))
