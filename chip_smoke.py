@@ -19,7 +19,8 @@ Phases (any failure exits nonzero; each prints its results):
   4. slice: the 30-frame default-preset synthetic KITTI scene (1200x360)
      through the port's run_sequence with the default Settings on cuda;
      requires not lost, >= 2 keyframes, ATE <= 0.10 m, one K1 launch per
-     build_track_ref call and at least one K2 launch;
+     keyframe optimization and build_track_ref call outside it, and at
+     least one K2 launch;
   5. fleet: bench.py's two default-preset scenes (16 frames each) alone in
      pipelined mode (scene A also with the deferred keyframe readback),
      then B = 4 sequences (A, B, A, B) on the card as InterleavedFleet
@@ -59,13 +60,18 @@ Phases (any failure exits nonzero; each prints its results):
      ATE under 2 % of the path and at least one K1 and one K2 launch, and
      prints ATE, the BA step vetoes (`ba_step_veto`, `ba_step_veto_hard`),
      keyframes and frames/s;
-The track step, the LiDAR preprocessing, the trace and the activation run
-as stage programs, one captured CUDA graph per shape each, their loops'
-later chunks and the track step's conds as IF nodes decided on the card;
-the windowed BA's loops run as replayed chunk graphs with a flag read per
-chunk (utils/device_loop). Each phase prints the graphs' captures, capture
-seconds, replays and flag reads per frame, and the programs' replays,
-captures, capture and instantiate seconds, pool MiB and recorded ops.
+The track step, the LiDAR preprocessing, the trace, the activation and the
+keyframe optimization (matcher refresh, windowed BA, marginalization and
+the K1 launch) run as stage programs, one captured CUDA graph per shape
+each, their loops' later chunks and their conds as conditional nodes
+decided on the card (utils/device_loop). Each phase prints the graphs'
+captures, capture seconds, replays and flag reads per frame, and the
+programs' replays, captures, capture and instantiate seconds, pool MiB and
+recorded ops; phases 4 and 5 print the keyframe program's own (captures
+per system) and require that none of its loops and conds read a flag on
+the host past the process's first, eager call of the program (phase 4
+checks a second system), and the program comparisons count K1's launches
+per replay of a keyframe program (one).
 Besides:
   * phase 4 again in the stage form (`device_loop.stage_form`: the stages
     called directly, every loop as replayed chunk graphs with host reads):
@@ -149,7 +155,7 @@ LONG_ATE_FRAC = 0.02
 # what the eager-loop port read on the card (PERF.md section 5): ATE to
 # 4 decimals (m), BA step vetoes, keyframes, K1 and K2 launches; the
 # bootstrap's ready frame and error
-RECORDED = {"phase4": dict(ate_m=0.0176, n_keyframes=16, k2=15),
+RECORDED = {"phase4": dict(ate_m=0.0176, n_keyframes=16, k1=16, k2=15),
             "phase6_cli": dict(ate_m=0.0164, k2=15),
             "phase6_dropout": dict(ate_m=0.0371, ba_step_veto=4, k1=20,
                                    k2=15),
@@ -165,7 +171,11 @@ PROFILE_FRAMES = (10, 20)
 # the frames (rounds) whose stage programs are compared with the stage
 # form on the same inputs, and the programs every such comparison needs
 PROGRAM_FRAMES = range(5, 11)
-PROGRAM_STAGES = ("track", "lidar", "trace", "activate")
+PROGRAM_STAGES = ("track", "lidar", "trace", "activate", "kf_opt")
+# the loops and conds inside the keyframe program: no flag of theirs is
+# read on the host on the main path (its splat rounds also build the
+# first frame's tracking reference, outside any program)
+KF_PROGRAM_PARTS = ("ba0", "ba", "match2", "marg")
 PROFILE_ROUNDS = (5, 10)
 # the renderer's worker processes run one thread each: eight processes of
 # eight BLAS threads each ran at half the speed on an 8-core host
@@ -424,6 +434,45 @@ def loop_counts(n_frames, caches=()):
                            for k, v in sorted(c.items())})
 
 
+def kf_program(what, caches, n_systems=1, strict=True):
+    """The keyframe program's counts since `device_loop.reset_counts()`
+    (captures, capture and instantiate seconds, recorded graph nodes,
+    graph pool MiB, replays) of `n_systems` systems, and over their graph
+    caches `caches` (a lockstep fleet's own among them): the (lanes,
+    p2_cap) of each program they hold; fails where a cache
+    holds two programs of one (lanes, p2_cap) (a key that moved with the
+    inputs' strides) and, with `strict`, where one of its loops or conds
+    read a flag on the host (the process's first call of the program, its
+    eager warm-up, reads them)."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    c = dl.counts()
+    k = c.get("kf_opt", {})
+    keys = [[(int(key[4][0][0][0]), dict(key[6])["p2_cap"])
+             for key in cache.entries
+             if key[0] == "program" and key[1] == "kf_opt"]
+            for cache in caches]
+    rec = dict(systems=n_systems, keys=keys, captures=k.get("captures", 0),
+               captures_per_system=k.get("captures", 0) / n_systems,
+               capture_s=k.get("capture_s", 0.0),
+               instantiate_s=k.get("instantiate_s", 0.0),
+               graph_nodes=k.get("ops", 0), pool_mib=k.get("pool_mib", 0.0),
+               replays=k.get("replays", 0), calls=k.get("calls", 0),
+               warmups=k.get("warmups", 0),
+               reads={s: c.get(s, {}).get("reads", 0)
+                      for s in KF_PROGRAM_PARTS})
+    print(f"kf_opt program, {what}: " + json.dumps(rec), flush=True)
+    if any(len(set(ks)) < len(ks) for ks in keys):
+        _fail(f"{what}: two keyframe programs of one (lanes, p2_cap) in a "
+              f"system's cache: {keys}")
+    if strict and any(rec["reads"].values()):
+        _fail(f"{what}: the keyframe program's parts read flags on the "
+              f"host: {rec['reads']}")
+    if not rec["calls"]:
+        _fail(f"{what}: no keyframe program ran")
+    return rec
+
+
 def keep_records(log, frame, keep, have_ba, lanes=1):
     """Of one frame's (round's) recorded loops, keep those of the compared
     frame and of the first keyframe optimization with at least `lanes`
@@ -449,6 +498,8 @@ def compare_programs(records, what, need=PROGRAM_STAGES):
 
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+
     stages = {}
     with dl.use(dl.LoopCache()):
         for rec in records:
@@ -457,6 +508,22 @@ def compare_programs(records, what, need=PROGRAM_STAGES):
                 _fail(f"{what}: the {res['stage']} program differs from its "
                       f"stage form in outputs {res['differ']} (replayed "
                       f"{res['replayed']})")
+            if rec["stage"] == "kf_opt":
+                # one more replay: it counts one K1 launch of all its lanes
+                n0, l0 = (hk.LAUNCHES["dilate_pyramid"],
+                          hk.LANES["dilate_pyramid"])
+                leaves = [v.clone() if isinstance(v, torch.Tensor) else v
+                          for v in rec["leaves"]]
+                dev = next(v.device for v in leaves
+                           if isinstance(v, torch.Tensor))
+                _, replayed = dl._graph_program(rec["stage"], rec["fn"],
+                                                leaves, rec["spec"],
+                                                rec["static"], dev)
+                k1 = (hk.LAUNCHES["dilate_pyramid"] - n0,
+                      hk.LANES["dilate_pyramid"] - l0)
+                if not (replayed and k1 == (1, leaves[0].shape[0])):
+                    _fail(f"{what}: a kf_opt replay counted {k1} K1 "
+                          "(launches, lanes)")
             # the track program's inputs hold a list of lanes, the others
             # lead with their lane dimension
             lanes = (len(tree_unflatten(rec["leaves"], rec["spec"])["lanes"])
@@ -466,6 +533,8 @@ def compare_programs(records, what, need=PROGRAM_STAGES):
             st = stages.setdefault(rec["stage"], dict(programs=0, lanes=set()))
             st["programs"] += 1
             st["lanes"].add(int(lanes))
+            if rec["stage"] == "kf_opt":
+                st["k1_launches_per_replay"] = 1
     stages = {k: dict(v, lanes=sorted(v["lanes"])) for k, v in
               stages.items()}
     print(f"program against stage form, {what}: every output bit for bit "
@@ -567,15 +636,17 @@ def run_slice(device):
     print(f"slice scene rendered in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # count build_track_ref calls on the main path (one K1 launch each)
+    # count the keyframe programs and the build_track_ref calls outside
+    # them on the main path (one K1 launch each)
     n_build = [0]
-    for mod in (full_system, kf_ops):
-        orig = mod.build_track_ref
+    for mod, name in ((full_system, "build_track_ref"),
+                      (kf_ops, "kf_opt_step_lanes")):
+        orig = getattr(mod, name)
 
         def counted(*a, _orig=orig, **k):
             n_build[0] += 1
             return _orig(*a, **k)
-        mod.build_track_ref = counted
+        setattr(mod, name, counted)
 
     torch.cuda.reset_peak_memory_stats()
     hk.reset_launch_counts()
@@ -588,6 +659,7 @@ def run_slice(device):
     launches = dict(hk.LAUNCHES)
     n_build_main = n_build[0]
     loops = loop_counts(n_frames, [fs.loops])
+    kf_prog = kf_program("slice (one system)", [fs.loops], strict=False)
     est = fs.get_trajectory()
     ate = float(ate_rmse(est, seq.poses_wc[:n_frames]))
     t_rpe, r_rpe = rpe(est, seq.poses_wc[:n_frames])
@@ -601,7 +673,7 @@ def run_slice(device):
                    peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
                    launches=launches, build_track_ref_calls=n_build_main,
                    n_keyframes=len(fs.kf_shells), lost=bool(fs.is_lost),
-                   loops=loops)
+                   loops=loops, kf_program=kf_prog)
 
     # the same frames in the stage form (the stages called directly, loops
     # as chunk replays, host reads): the same LM decisions (per level
@@ -654,6 +726,7 @@ def run_slice(device):
     # the programs again, each frame timed as the stage form's were (a
     # fresh system: its captures included)
     again = FullSystem(seq.calib, seq.sensor, Settings(), device=device)
+    dl.reset_counts()
     frame_s = []
     for i, fr in enumerate(scene.frames):
         if i == PROFILE_FRAMES[0]:
@@ -664,7 +737,9 @@ def run_slice(device):
     summary["programs_again"] = dict(
         steady_fps=_steady_fps(frame_s),
         steady_stage_ms_per_frame=_steady_stage_ms(again, stage0, n_frames),
-        trajectory_equal=bool(np.array_equal(again.get_trajectory(), est)))
+        trajectory_equal=bool(np.array_equal(again.get_trajectory(), est)),
+        kf_program=kf_program("slice, a second system (no warm-up)",
+                              [again.loops]))
     print("slice, programs again (frames timed): "
           + json.dumps(summary["programs_again"]), flush=True)
     if not summary["programs_again"]["trajectory_equal"]:
@@ -680,7 +755,7 @@ def run_slice(device):
     if not (launches["dilate_pyramid"] > 0
             and launches["dilate_pyramid"] == n_build_main):
         _fail(f"dilate_pyramid launches {launches['dilate_pyramid']} != "
-              f"{n_build_main} build_track_ref calls")
+              f"{n_build_main} keyframe programs and build_track_ref calls")
     if launches["distance_transform"] < 1:
         _fail("distance_transform never launched on the main path")
     return summary, scene
@@ -864,6 +939,9 @@ def run_fleet(device):
         launches = dict(hk.LAUNCHES)
         loops = loop_counts(FLEET_B * n, [fs.loops for fs in fleet.systems]
                             + [getattr(fleet, "loops", ())])
+        kf_prog = kf_program(
+            f"fleet {name}", [fs.loops for fs in fleet.systems]
+            + ([fleet.loops] if hasattr(fleet, "loops") else []), FLEET_B)
         kernel_lanes = dict(hk.LANES)
         agg = FLEET_B * n / wall
         # host-clock ms per frame of the keyframe stages, the mean over the
@@ -882,7 +960,7 @@ def run_fleet(device):
                    peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
                    launches=launches, kernel_lanes=kernel_lanes,
                    stage_ms_per_frame=stage_ms, lm_iters=lm, loops=loops,
-                   lanes=[])
+                   kf_program=kf_prog, lanes=[])
         for x, fs, traj in zip(lanes, fleet.systems, trajs):
             dt = dr = 0.0
             for a, b in zip(traj, refs[x]["traj"]):
@@ -919,9 +997,9 @@ def run_fleet(device):
                 _fail(f"{name}: {launches['dilate_pyramid']} K1 launches "
                       f"for {n_kf} keyframes")
     # the batched lockstep once more, apart from the timed compositions
-    # (whose peak memory the records' clones would raise): its stage
-    # programs of PROGRAM_FRAMES, and its loops outside them (the windowed
-    # BA's) of the compared round and of its first batched keyframe
+    # (whose peak memory the records' clones would raise), in the stage
+    # form: its stage programs of PROGRAM_FRAMES, and the windowed BA's
+    # loops of the compared round and of its first batched keyframe
     # optimization (two lanes or more), recorded
     fleet = MultiSystem([system(x) for x in lanes], batch_track=True)
     records, programs, have_ba = [], [], False
@@ -930,6 +1008,7 @@ def run_fleet(device):
             break
         log = []
         with contextlib.ExitStack() as stack:
+            stack.enter_context(dl.stage_form())
             if i == COMPARE_FRAME or not have_ba:
                 stack.enter_context(dl.recording(log))
             if i in PROGRAM_FRAMES:
@@ -944,9 +1023,11 @@ def run_fleet(device):
         _fail("batched lockstep: no keyframe optimization of two lanes or "
               "more was recorded")
     program_check = compare_programs(programs, "batched lockstep (lanes)",
-                                     need=("track", "lidar"))
+                                     need=("track", "lidar", "kf_opt"))
     if FLEET_B not in program_check["track"]["lanes"]:
         _fail(f"batched lockstep: no track program of {FLEET_B} lanes")
+    if max(program_check["kf_opt"]["lanes"]) < 2:
+        _fail("batched lockstep: no keyframe program of two lanes or more")
     del records, programs
 
     # the profile window: five rounds of the batched lockstep
@@ -1316,6 +1397,7 @@ def main():
           f"{json.dumps(_brief(summary['loops']))}", flush=True)
     recorded("phase4", dict(ate_m=summary["ate_m"],
                             n_keyframes=summary["n_keyframes"],
+                            k1=summary["launches"]["dilate_pyramid"],
                             k2=summary["launches"]["distance_transform"]))
     profile_slice(device, scene)
     profile_slice(device, scene, stage_form=True)

@@ -374,6 +374,13 @@ def _stitch(Hpair, bpair, adH, adT, F, dtype):
     return H, b
 
 
+def _one_hot(idx, n: int):
+    """`torch.nn.functional.one_hot(idx, n)` for indices in [0, n), with no
+    host read of the indices' range (the CPU one_hot reads it)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(
+        torch.int64)
+
+
 def _accumulate(Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor,
                 pt_prior, sc_mask, pairs, F):
     """Shared body of build_system / marginalize_points for L windows:
@@ -388,8 +395,7 @@ def _accumulate(Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor,
     res_f = resF.reshape(L, N * F, 2)
     outer = torch.einsum("lrai,lraj->lrij", Jgeo, Jgeo).reshape(
         L, N * F, 100)
-    onehot_t = torch.nn.functional.one_hot(pair_idx, F * F).to(
-        dtype).transpose(1, 2)
+    onehot_t = _one_hot(pair_idx, F * F).to(dtype).transpose(1, 2)
     Hpair = (onehot_t @ outer).reshape(L, F * F, 10, 10)
     bout = torch.einsum("lrai,lra->lri", Jgeo, res_f)
     bpair = onehot_t @ bout
@@ -408,7 +414,7 @@ def _accumulate(Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor,
     adT_p = _take(pairs["adT"].reshape(L, F, F, 6, 6), pt_host)
     vh = torch.einsum("lnfij,lnfj->lnfi", adH_p, JpJd)
     vt = torch.einsum("lnfij,lnfj->lnfi", adT_p, JpJd)
-    host_onehot = torch.nn.functional.one_hot(pt_host, F).to(dtype)
+    host_onehot = _one_hot(pt_host, F).to(dtype)
     Vframes = vt + host_onehot[..., None] * vh.sum(dim=2)[:, :, None, :]
     Vpt = torch.cat([Hcd, Vframes.reshape(L, N, 6 * F)], dim=-1)
 
@@ -508,7 +514,9 @@ def solve_system_lanes(sys_, HM, bM, delta_stitched, c_prior, c_delta,
                        orthogonalize_x=True, diag_floor_rel=0.0,
                        solve_dtype=None):
     """`solve_system` of L windows; `lam` is an (L,) float64 tensor (the
-    host float of one window's LM, kept per lane on the device). The dense
+    host float of one window's LM, kept per lane on the device), and
+    `diag_floor_rel` a host float or an (L,) float64 tensor of the same
+    values (the product with `lam` is the same either way). The dense
     solve runs window by window, so each lane uses the solver library a
     single window uses whatever L is (a batched call may pick another
     library, whose last bits the windowed BA amplifies)."""
@@ -545,8 +553,9 @@ def solve_system_lanes(sys_, HM, bM, delta_stitched, c_prior, c_delta,
     smf = slot_mask.to(dtype)
     dmean = torch.sum(torch.abs(diag) * smf, 1) / \
         torch.clamp(smf.sum(1), min=1.0)
-    Hd[:, ar, ar] += (lam * float(diag_floor_rel)).to(dtype)[:, None] * \
-        dmean[:, None] * smf
+    floor = diag_floor_rel if isinstance(diag_floor_rel, torch.Tensor) \
+        else float(diag_floor_rel)
+    Hd[:, ar, ar] += (lam * floor).to(dtype)[:, None] * dmean[:, None] * smf
     SVecI = 1.0 / torch.sqrt(torch.abs(torch.diagonal(Hd, dim1=1, dim2=2))
                              + 10.0)
     Hs = Hd * SVecI[:, :, None] * SVecI[:, None, :]
@@ -648,8 +657,8 @@ def marginalize_frame(HM, bM, frame_prior_slot, frame_delta_slot, slot: int,
     HM_new = Hs_new * SVec[:, None] * SVec[None, :]
     bM_new = bs_new * SVec
     HM_new = 0.5 * (HM_new + HM_new.T)
-    mask = torch.ones(D, dtype=torch.bool, device=dev)
-    mask[kidx] = False
+    ar = torch.arange(D, device=dev)
+    mask = (ar < CPARS + 6 * slot) | (ar >= CPARS + 6 * slot + 6)
     zero = torch.zeros((), dtype=HM.dtype, device=dev)
     return (torch.where(mask[:, None] & mask[None, :], HM_new, zero),
             torch.where(mask, bM_new, zero))
@@ -771,8 +780,8 @@ def _ba_total_energy(x, lin, eps_, calib_):
                            eps_ * fvalid_f[..., None]))
 
 
-def _ba_body(x, st, F, w, h, img, gate_refresh, resf_at_fej, lm_diag_floor,
-             solve_dtype, orthogonalize):
+def _ba_body(x, st, F, w, h, img, gate_refresh, resf_at_fej, solve_dtype,
+             orthogonalize):
     """One windowed-LM iteration of every lane (FullSystem::optimize's
     loop body); a lane that has stopped keeps every carry."""
     static = dict(F=F, w=w, h=h, img=img, gate_refresh=gate_refresh,
@@ -796,7 +805,7 @@ def _ba_body(x, st, F, w, h, img, gate_refresh, resf_at_fej, lm_diag_floor,
         sys_, x["HM"], x["bM"], stitched_delta(c_delta, eps, fvalid_f),
         x["c_prior"], c_delta, x["frame_prior"], fd, frame_valid,
         x["nullspaces"], lam, pt_host, pt_is_sensor, pairs, n_frames=F,
-        orthogonalize_x=orthogonalize, diag_floor_rel=lm_diag_floor,
+        orthogonalize_x=orthogonalize, diag_floor_rel=x["diag_floor"],
         solve_dtype=solve_dtype)
     eps_n = eps + sol["dframes"]
     calib_n = calib + sol["dc"]
@@ -841,6 +850,26 @@ def _ba_body(x, st, F, w, h, img, gate_refresh, resf_at_fej, lm_diag_floor,
     return out, act_n.any()
 
 
+def ba_controls(newest, max_iters, min_opt_iterations, th_opt_iterations,
+                force_accept, lm_diag_floor, device):
+    """The windowed LM's per-lane controls as device tensors (L,), made on
+    the host from per-lane host lists with the expressions one window forms
+    them with: the newest slot, the iteration budget and minimum, the
+    break threshold (a float64 product of host floats), the forced accept
+    and the LM diagonal floor."""
+    return dict(
+        newest=torch.as_tensor([int(x) for x in newest], device=device),
+        max_it=torch.as_tensor([int(v) for v in max_iters], device=device),
+        min_it=torch.as_tensor([int(v) for v in min_opt_iterations],
+                               device=device),
+        brk=torch.tensor([0.00005 * float(t) for t in th_opt_iterations],
+                         dtype=torch.float64, device=device),
+        forced=torch.as_tensor([bool(v) for v in force_accept],
+                               device=device),
+        diag_floor=torch.tensor([float(f) for f in lm_diag_floor],
+                                dtype=torch.float64, device=device))
+
+
 def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
                   frame_prior, c_prior, aff, exposure, HM, bM, newest,
                   frame_energy_th, pt_u, pt_v, pt_idepth, pt_host,
@@ -854,20 +883,47 @@ def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
     """The windowed LM of L windows at once (the JAX package's vmapped
     `ba_core`). Tensors carry a leading L; `newest`, `max_iters`,
     `min_opt_iterations`, `th_opt_iterations` and `force_accept` are
-    per-lane host lists. Each lane keeps its own lambda, accept and break
-    state and iteration count; the loop runs until every lane has stopped
-    (fleet-max iterations), a stopped lane's carries frozen, through
-    `device_loop.run` (graph replays on CUDA; one host read per replay for
-    the whole fleet). `out["lm_iters"]` counts
+    per-lane host lists, `lm_diag_floor` a host float. Each lane keeps its
+    own lambda, accept and break state and iteration count; the loop runs
+    until every lane has stopped (fleet-max iterations), a stopped lane's
+    carries frozen, through `device_loop.run` (graph replays on CUDA; one
+    host read per replay for the whole fleet). `out["lm_iters"]` counts
     the iterations each lane ran. Returns (out dict, lin_f, pairs_f), each
     with a leading L."""
+    L = T_cw_fej.shape[0]
+    ctl = ba_controls(newest, max_iters, min_opt_iterations,
+                      th_opt_iterations, force_accept,
+                      [lm_diag_floor] * L, T_cw_fej.device)
+    return ba_core_ctl(
+        T_cw_fej, eps, calib, calib_zero, frame_valid, frame_prior, c_prior,
+        aff, exposure, HM, bM, frame_energy_th, pt_u, pt_v, pt_idepth,
+        pt_host, pt_color, pt_weights, pt_is_sensor, pt_prior, res_active,
+        res_state, matcher_px, matcher_valid, dI0_stack, ctl,
+        n_frames=n_frames, w=w, h=h,
+        iter_cap=max((int(v) for v in max_iters), default=0),
+        gate_refresh=gate_refresh, resf_at_fej=resf_at_fej,
+        solve_dtype=solve_dtype)
+
+
+def ba_core_ctl(T_cw_fej, eps, calib, calib_zero, frame_valid, frame_prior,
+                c_prior, aff, exposure, HM, bM, frame_energy_th, pt_u, pt_v,
+                pt_idepth, pt_host, pt_color, pt_weights, pt_is_sensor,
+                pt_prior, res_active, res_state, matcher_px, matcher_valid,
+                dI0_stack, ctl, n_frames: int, w: int, h: int, iter_cap: int,
+                gate_refresh: bool = False, resf_at_fej: bool = True,
+                solve_dtype=None):
+    """`ba_core_lanes` with its per-lane controls on the device (`ctl`,
+    from `ba_controls`) and `iter_cap`, a static bound on every lane's
+    budget: no host value enters, so the keyframe program runs it
+    (`kf_ops.kf_opt_step_lanes`). Each lane stops at its own budget on the
+    device, so any cap at or above the largest budget gives the same
+    result."""
     F = n_frames
     L = T_cw_fej.shape[0]
     dev = T_cw_fej.device
-    ar = torch.arange(L, device=dev)
     fvalid_f = frame_valid.to(T_cw_fej.dtype)
     quad12 = stack_quad12(dI0_stack)
-    newest_t = torch.as_tensor([int(x) for x in newest], device=dev)
+    newest_t = ctl["newest"]
     x = dict(T_cw_fej=T_cw_fej, calib_zero=calib_zero,
              frame_valid=frame_valid, fvalid_f=fvalid_f,
              frame_prior=frame_prior, c_prior=c_prior, aff=aff,
@@ -875,11 +931,11 @@ def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
              pt_v=pt_v, pt_host=pt_host, pt_color=pt_color,
              pt_weights=pt_weights, pt_is_sensor=pt_is_sensor,
              pt_prior=pt_prior, res_active=res_active, res_state=res_state,
-             matcher_px=matcher_px, matcher_valid=matcher_valid)
+             matcher_px=matcher_px, matcher_valid=matcher_valid,
+             diag_floor=ctl["diag_floor"])
     static = dict(F=F, w=w, h=h, img=tuple(dI0_stack.shape[2:4]),
                   gate_refresh=bool(gate_refresh),
-                  resf_at_fej=bool(resf_at_fej),
-                  lm_diag_floor=float(lm_diag_floor), solve_dtype=solve_dtype)
+                  resf_at_fej=bool(resf_at_fej), solve_dtype=solve_dtype)
     if gate_refresh:
         x["quad12"] = quad12
 
@@ -892,16 +948,8 @@ def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
     x.update(nullspaces=make_nullspaces(T_cw_fej, fvalid_f),
              n_valid_frames=torch.clamp(frame_valid.to(torch.int64).sum(1),
                                         min=1).to(torch.float64),
-             # the break thresholds, products of host floats as one window
-             # forms them
-             brk=torch.tensor([0.00005 * float(t)
-                               for t in th_opt_iterations],
-                              dtype=torch.float64, device=dev),
-             min_it=torch.as_tensor([int(v) for v in min_opt_iterations],
-                                    device=dev),
-             max_it=torch.as_tensor([int(v) for v in max_iters], device=dev),
-             forced=torch.as_tensor([bool(v) for v in force_accept],
-                                    device=dev))
+             brk=ctl["brk"], min_it=ctl["min_it"], max_it=ctl["max_it"],
+             forced=ctl["forced"])
     st = dict(eps=eps, calib=calib, idepth=pt_idepth, feth=feth,
               E_last=_ba_total_energy(x, lin, eps, calib),
               lam=torch.full((L,), 1e-1, dtype=torch.float64, device=dev),
@@ -917,24 +965,25 @@ def ba_core_lanes(T_cw_fej, eps, calib, calib_zero, frame_valid,
         x.update(gate_e=gate[0], gate_w=gate[1])
 
     # iterations 0-1 solve without the nullspace projection, the rest with
-    # it: one loop each, the second entered after a host read that a lane
-    # is still running
-    max_all = max((int(v) for v in max_iters), default=0)
-    st = device_loop.run("ba0", _ba_body, x, st, min(2, max_all),
+    # it: one loop each, the second entered where a lane is still running
+    # (a host read in the stage form, an IF node in a program)
+    st = device_loop.run("ba0", _ba_body, x, st, min(2, iter_cap),
                          dict(static, orthogonalize=False))
-    if max_all > 2 and device_loop.read("ba", st["active"].any()):
-        st = device_loop.run("ba", _ba_body, x, st, max_all - 2,
-                             dict(static, orthogonalize=True))
+    if iter_cap > 2:
+        st = device_loop.cond(
+            "ba", st["active"].any(),
+            lambda c: device_loop.run("ba", _ba_body, x, c, iter_cap - 2,
+                                      dict(static, orthogonalize=True)), st)
     eps, calib, idepth, feth = st["eps"], st["calib"], st["idepth"], \
         st["feth"]
     E_last, lm_iters = st["E_last"], st["lm_iters"]
 
     # fix the newest frame's eval point, then the final linearization
     T_cw = _expT(eps, T_cw_fej)
-    T_cw_fej_out = T_cw_fej.clone()
-    T_cw_fej_out[ar, newest_t] = T_cw[ar, newest_t]
-    eps_out = eps.clone()
-    eps_out[ar, newest_t] = 0.0
+    at_newest = (torch.arange(F, device=dev) == newest_t[:, None])[..., None]
+    T_cw_fej_out = torch.where(at_newest[..., None], T_cw, T_cw_fej)
+    eps_out = torch.where(at_newest, torch.zeros((), dtype=eps.dtype,
+                                                 device=dev), eps)
     pairs_f = make_pairs_lanes(_expT(eps_out, T_cw_fej_out), T_cw_fej_out,
                                aff, exposure, calib)
     lin_f = linearize_residuals_lanes(

@@ -18,7 +18,7 @@ from sdv_loam_tpu_torch.ops.align import (align_batch, best_search_level,
                                           warp_affine_patches,
                                           warp_matrix_affine)
 from sdv_loam_tpu_torch.ops.photometric import nonzero_fixed
-from sdv_loam_tpu_torch.utils import se3
+from sdv_loam_tpu_torch.utils import device_loop, se3
 
 CELL_SIZE = 25          # Reprojector::initializeGrid (:100)
 PROJ_BOUNDARY = 8       # reprojectPoint (:609)
@@ -313,28 +313,25 @@ def reproject_and_match_multi(pts_u, pts_v, pts_idepth, pts_host, pts_type,
                               exposure_targets, K, ref_idx_stack,
                               target_mask=None, **kw):
     """Match the point pool into several target frames (the keyframe
-    matcher refresh's pass 2). flat_pyr_stack: list of S flat pyramids (None
-    for targets that are skipped); `target_mask` (S,) bool host list of the
-    targets to run — skipped targets return unmatched rows, which is what
-    the caller's mask makes of them anyway. Lane 0 of
+    matcher refresh's pass 2). flat_pyr_stack: the (S, T, 3) stack of the
+    targets' flat pyramids; `target_mask` (S,) bool (a tensor or host
+    list) of the targets to run — skipped targets return unmatched rows,
+    which is what the caller's mask makes of them anyway. Lane 0 of
     `reproject_and_match_multi_lanes`. Returns dict(matched (S, N),
     px (S, N, 2), overflow (S,), diag (S, 5))."""
     S = T_wc_targets.shape[0]
-    mask = [True] * S if target_mask is None else list(target_mask)
-    stand_in = next((f for f in flat_pyr_stack if f is not None), None)
-    flats = [None if f is None and stand_in is None
-             else (stand_in if f is None else f)[None]
-             for f in flat_pyr_stack]
-    mask = [m and f is not None for m, f in zip(mask, flat_pyr_stack)]
+    dev = pts_u.device
+    mask = torch.ones(S, dtype=torch.bool, device=dev) \
+        if target_mask is None else torch.as_tensor(target_mask, device=dev)
     out = reproject_and_match_multi_lanes(
         *(x[None] for x in (pts_u, pts_v, pts_idepth, pts_host, pts_type,
                             pts_valid, pts_quality, pts_is_sensor,
                             T_wc_stack, aff_stack, exposure_stack,
-                            dI0_stack)),
-        flats, offsets, widths, heights,
-        *(torch.as_tensor(x, device=pts_u.device)[None]
+                            dI0_stack, flat_pyr_stack)),
+        offsets, widths, heights,
+        *(torch.as_tensor(x, device=dev)[None]
           for x in (T_wc_targets, aff_targets, exposure_targets, K)),
-        ref_idx_stack[None], target_mask=[mask], **kw)
+        ref_idx_stack[None], target_mask=mask[None], **kw)
     return {k: v[0] for k, v in out.items()}
 
 
@@ -355,50 +352,49 @@ def reproject_and_match_multi_lanes(pts_u, pts_v, pts_idepth, pts_host,
                                     n_iter: int = 10, target_mask=None,
                                     quad_stack=None):
     """`reproject_and_match_multi` of L lanes: every argument carries a
-    leading L (targets (L, S, ...), ref_idx_stack (L, S, N)), and
-    `flat_pyr_lanes[s]` is the (L, T, 3) stack of the lanes' flat pyramids
-    of target s (None when no lane runs it; a lane that skips s may hold any
-    stand-in of the right shape). `target_mask` is an (L, S) host bool
-    array. Each target index runs once for all lanes through
-    `reproject_and_match_lanes`; a lane that skips the target gets
-    unmatched rows, zero overflow and zero diagnostics."""
+    leading L (targets (L, S, ...), ref_idx_stack (L, S, N), the targets'
+    flat pyramids `flat_pyr_lanes` (L, S, T, 3)). `target_mask` is an
+    (L, S) device bool (None: every target). Each target index runs once
+    for all lanes through `reproject_and_match_lanes`, under
+    `device_loop.cond` on whether any lane runs it (a host read in the
+    stage form, an IF node in a program), so only the kept targets cost
+    device work; a lane that skips the target (its slot of the stack may
+    hold anything) gets unmatched rows, zero overflow and zero
+    diagnostics."""
     L, N = pts_u.shape
     S = T_wc_targets.shape[1]
     dev = pts_u.device
-    mask = [[True] * S] * L if target_mask is None else \
-        [list(m) for m in target_mask]
+    if target_mask is None:
+        target_mask = torch.ones((L, S), dtype=torch.bool, device=dev)
     if quad_stack is None:
         quad_stack = stack_quads(dI0_stack)
-    matched = torch.zeros((L, S, N), dtype=torch.bool, device=dev)
-    px = torch.zeros((L, S, N, 2), dtype=torch.float32, device=dev)
-    overflow = torch.zeros((L, S), dtype=torch.int64, device=dev)
-    diag = torch.zeros((L, S, 5), dtype=torch.int64, device=dev)
+    outs = []
     for s in range(S):
-        run = [bool(m[s]) for m in mask]
-        if not any(run):
-            continue
+        on = target_mask[:, s]
         excl = -1 if exclude_slots is None else int(exclude_slots[s])
-        out = reproject_and_match_lanes(
-            pts_u, pts_v, pts_idepth, pts_host, pts_type, pts_valid,
-            pts_quality, pts_is_sensor, T_wc_stack, aff_stack,
-            exposure_stack, dI0_stack, flat_pyr_lanes[s], offsets, widths,
-            heights, T_wc_targets[:, s], aff_targets[:, s],
-            exposure_targets[:, s], K, ref_idx_stack[:, s], w=w, h=h,
-            max_level=max_level, per_cell=per_cell,
-            lane_cap_frac=lane_cap_frac, lane_cap=lane_cap,
-            closest_view=closest_view, frame_valid=frame_valid,
-            exclude_slot=excl, closest_view_margin=closest_view_margin,
-            closest_view_sensor_only=closest_view_sensor_only,
-            n_iter=n_iter, quad_stack=quad_stack)
-        if all(run):
-            matched[:, s] = out["matched"]
-            px[:, s] = out["px"]
-            overflow[:, s] = out["overflow"]
-            diag[:, s] = out["diag"]
-            continue
-        on = torch.as_tensor(run, device=dev)
-        matched[:, s] = out["matched"] & on[:, None]
-        px[:, s] = torch.where(on[:, None, None], out["px"], px[:, s])
-        overflow[:, s] = torch.where(on, out["overflow"], overflow[:, s])
-        diag[:, s] = torch.where(on[:, None], out["diag"], diag[:, s])
-    return dict(matched=matched, px=px, overflow=overflow, diag=diag)
+
+        def match(carry, s=s, on=on, excl=excl):
+            out = reproject_and_match_lanes(
+                pts_u, pts_v, pts_idepth, pts_host, pts_type, pts_valid,
+                pts_quality, pts_is_sensor, T_wc_stack, aff_stack,
+                exposure_stack, dI0_stack, flat_pyr_lanes[:, s], offsets,
+                widths, heights, T_wc_targets[:, s], aff_targets[:, s],
+                exposure_targets[:, s], K, ref_idx_stack[:, s], w=w, h=h,
+                max_level=max_level, per_cell=per_cell,
+                lane_cap_frac=lane_cap_frac, lane_cap=lane_cap,
+                closest_view=closest_view, frame_valid=frame_valid,
+                exclude_slot=excl, closest_view_margin=closest_view_margin,
+                closest_view_sensor_only=closest_view_sensor_only,
+                n_iter=n_iter, quad_stack=quad_stack)
+            return dict(
+                matched=out["matched"] & on[:, None],
+                px=torch.where(on[:, None, None], out["px"], carry["px"]),
+                overflow=torch.where(on, out["overflow"], carry["overflow"]),
+                diag=torch.where(on[:, None], out["diag"], carry["diag"]))
+        outs.append(device_loop.cond("match2", on.any(), match, dict(
+            matched=torch.zeros((L, N), dtype=torch.bool, device=dev),
+            px=torch.zeros((L, N, 2), dtype=torch.float32, device=dev),
+            overflow=torch.zeros(L, dtype=torch.int64, device=dev),
+            diag=torch.zeros((L, 5), dtype=torch.int64, device=dev))))
+    return {k: torch.stack([o[k] for o in outs], 1)
+            for k in ("matched", "px", "overflow", "diag")}

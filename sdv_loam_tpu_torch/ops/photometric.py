@@ -58,10 +58,12 @@ def splat_idepth(u, v, idepth, weight, valid, w: int, h: int):
     Deterministic, and each cell sums its points in point order (the JAX
     CPU order): a stable sort groups the points of a cell, and the r-th
     point of every cell is added in round r, where no two writes share a
-    cell. Each lane has cells of its own (index offset by lane * (w*h+1)),
-    so a lane sums exactly as it would alone. No atomics and no
-    process-wide deterministic-algorithms switch, so systems on other
-    threads are never affected."""
+    cell. The rounds are a loop on the device (`device_loop.run`,
+    "splat"), which stops after the round of the fullest cell. Each lane
+    has cells of its own (index offset by lane * (w*h+1)), so a lane sums
+    exactly as it would alone. No atomics and no process-wide
+    deterministic-algorithms switch, so systems on other threads are never
+    affected."""
     if u.dim() == 1:
         out = splat_idepth(u[None], v[None], idepth[None], weight[None],
                            valid[None], w, h)
@@ -91,16 +93,33 @@ def splat_idepth(u, v, idepth, weight, valid, w: int, h: int):
                             0).values
         live = torch.remainder(idx_s, cells) < w * h
         rank = torch.where(live, pos - seg0, torch.full_like(pos, -1))
-        vi_s, vw_s = vi[order], vw[order]
-        spill = torch.full_like(idx_s, dump)
-        for r in range(int(rank.max()) + 1):
-            tgt = torch.where(rank == r, idx_s, spill)
-            acc_i[tgt] = acc_i[tgt] + vi_s
-            acc_w[tgt] = acc_w[tgt] + vw_s
+        x = dict(rank=rank, idx_s=idx_s, spill=torch.full_like(idx_s, dump),
+                 vi_s=vi[order], vw_s=vw[order])
+        st = device_loop.run("splat", _splat_body, x, dict(
+            acc_i=acc_i, acc_w=acc_w,
+            r=torch.zeros((), dtype=torch.int64, device=dev)), n)
+        acc_i, acc_w = st["acc_i"], st["acc_w"]
 
     def maps(acc):
         return acc[:dump].reshape(L, cells)[:, :w * h].reshape(L, h, w)
     return maps(acc_i), maps(acc_w)
+
+
+def _splat_body(x, st):
+    """Round r of `splat_idepth`: the r-th point of every cell added to
+    it. The other points write their spill cell's value back unchanged, so
+    a round after the last one changes no carry; `r` advances only past a
+    round that added a point."""
+    r = st["r"]
+    now = x["rank"] == r
+    tgt = torch.where(now, x["idx_s"], x["spill"])
+    out = {}
+    for k, val in (("acc_i", x["vi_s"]), ("acc_w", x["vw_s"])):
+        acc = st[k]
+        old = acc[tgt]
+        out[k] = acc.index_put((tgt,), torch.where(now, old + val, old))
+    out["r"] = r + now.any().to(r.dtype)
+    return out, (x["rank"] == out["r"]).any()
 
 
 def nonzero_fixed(mask: torch.Tensor, size: int, fill: int):

@@ -103,7 +103,7 @@ def load(path: str, calib, sensor, settings: Settings | None = None,
         for slot in fs.order:
             dI, _ = make_images(fs._t(intens[slot]), fs.levels)
             fs.pyr_slots[slot] = dI
-            fs.flat_slots[slot] = flatten_pyramid(dI)
+            fs.set_flat_slot(slot, flatten_pyramid(dI)[0])
             fs.dI0_stack[slot] = dI[0]
 
         if fs.order and fs.track_ref_slot >= 0 and \

@@ -195,7 +195,9 @@ class FullSystem:
         self.dI0_stack = torch.zeros((F, self.h, self.w, 3),
                                      dtype=torch.float32, device=self.device)
         self.pyr_slots: list = [None] * F
-        self.flat_slots: list = [None] * F
+        # (F, T, 3) flat pyramids of the window's slots, zeros at free
+        # slots (the JAX package's `_flat_stack`), made at the first insert
+        self.flat_slots_stack = None
 
         self.pt_valid = np.zeros(N, bool)
         self.pt = dict(
@@ -1101,12 +1103,20 @@ class FullSystem:
         self.slot_flagged[slot] = False
         self.slot_stats_out[slot] = 0
         self.pyr_slots[slot] = frame["dI"]
-        self.flat_slots[slot] = frame.get("flat") or \
-            flatten_pyramid(frame["dI"])
+        self.set_flat_slot(slot, (frame.get("flat")
+                                  or flatten_pyramid(frame["dI"]))[0])
         self.dI0_stack[slot] = frame["dI"][0]
         self.fe_th[slot] = self.fe_th[self.order[-2]] \
             if len(self.order) > 1 else 12.0 * 12.0 * 8.0
         return slot
+
+    def set_flat_slot(self, slot, flat):
+        """Write one slot's flat pyramid (T, 3) into the window's stack."""
+        if self.flat_slots_stack is None:
+            self.flat_slots_stack = torch.zeros(
+                (self.F,) + tuple(flat.shape), dtype=flat.dtype,
+                device=flat.device)
+        self.flat_slots_stack[slot] = flat
 
     def _make_key_frame(self, frame):
         self._trace(frame)
@@ -1202,8 +1212,6 @@ class FullSystem:
                 ref_idx_multi[si, :] = b if si == a else a
 
         flat_newest, offs, ws, hs = frame["flat"]
-        flat_slots = [fs[0] if fs is not None else None
-                      for fs in self.flat_slots]
         prior_marg = np.where(self.pt["prior"] > 0,
                               self.pt["prior"] * s.idepth_fix_prior_marg_fac,
                               0.0).astype(np.float32)
@@ -1220,7 +1228,6 @@ class FullSystem:
             aff=t(self.aff), exposure=t(self.exposure), HM=t(self.HM),
             bM=t(self.bM), newest=int(slot), frame_energy_th=t(self.fe_th),
             slot_flagged=t(self.slot_flagged, torch.bool),
-            flagged_slots=[int(x) for x in np.nonzero(self.slot_flagged)[0]],
             pt_u=pool["u"], pt_v=pool["v"], pt_idepth=pool["idepth"],
             pt_host=pool["host"], pt_color=pool["color"],
             pt_weights=pool["weights"], pt_is_sensor=pool["is_sensor"],
@@ -1232,10 +1239,10 @@ class FullSystem:
             res_is_new=pool["res_is_new"], matcher_px=pool["matcher_px"],
             matcher_valid=pool["matcher_valid"], dI0_stack=self.dI0_stack,
             flat_newest=flat_newest, offs=offs, widths=ws, heights=hs,
-            flat_slots=flat_slots,
+            flat_slots_stack=self.flat_slots_stack,
             ref_idx_newest=t(ref_idx_newest, torch.int64),
             ref_idx_multi=t(ref_idx_multi, torch.int64),
-            multi_target_mask=[bool(x) for x in multi_mask],
+            multi_target_mask=t(multi_mask, torch.bool),
             dI_newest_pyr=frame["dI"],
             max_iters=iters, min_opt_iterations=s.min_opt_iterations,
             th_opt_iterations=s.th_opt_iterations,
@@ -1416,7 +1423,7 @@ class FullSystem:
             self.slot_flagged[sl] = False
             self.order.remove(sl)
             self.pyr_slots[sl] = None
-            self.flat_slots[sl] = None
+            self.flat_slots_stack[sl] = 0.0
             self.eps[sl] = 0.0
             self.frame_prior[sl] = 0.0
         self._kf_publish()

@@ -9,6 +9,10 @@ Counterpart of `sdv_loam_tpu/system/kf_ops.py`:
     windowed LM, removeOutliers, the tracking-reference rebuild (K1 kernel),
     point marginalization and frame marginalization of flagged slots;
   * the device-pool commits that mirror the host bookkeeping.
+
+The activation and the keyframe optimization each run as one stage
+program (`utils/device_loop.program`): one captured CUDA graph per shape
+on the card, with their host values made device inputs before the call.
 """
 
 from __future__ import annotations
@@ -183,13 +187,20 @@ KF_TENSOR_ARGS = (
     "pt_weights", "pt_is_sensor", "pt_prior", "pt_valid", "pt_type",
     "pt_quality", "pt_idepth_hessian", "num_good_res", "res_active",
     "res_state", "res_is_new", "matcher_px", "matcher_valid", "dI0_stack",
-    "flat_newest", "ref_idx_newest", "ref_idx_multi", "prior_marg")
-# ... its per-sequence host values (one list entry per lane)
-KF_HOST_ARGS = ("newest", "flat_slots", "multi_target_mask",
-                "flagged_slots", "max_iters", "min_opt_iterations",
+    "flat_newest", "flat_slots_stack", "ref_idx_newest", "ref_idx_multi",
+    "multi_target_mask", "prior_marg")
+# ... its per-sequence host values (one list entry per lane), made device
+# inputs of the program before it runs
+KF_HOST_ARGS = ("newest", "max_iters", "min_opt_iterations",
                 "th_opt_iterations", "force_accept")
 # ... and the level tables, shared by the lanes
 KF_SHARED_ARGS = ("offs", "widths", "heights")
+# The windowed LM's static iteration bound in the program: the largest
+# budget FullSystem gives (100 while the window holds fewer than three
+# keyframes, then 75, then `max_opt_iterations`). Each lane stops at its
+# own budget on the device, so every budget and the veto's re-runs replay
+# one program; a larger budget raises the bound.
+KF_ITERS_CAP = 100
 
 
 def kf_opt_step(
@@ -199,7 +210,7 @@ def kf_opt_step(
         pt_prior, pt_valid, pt_type, pt_quality, pt_idepth_hessian,
         num_good_res, res_active, res_state, res_is_new,
         matcher_px, matcher_valid, dI0_stack,
-        flat_newest, offs, widths, heights, flat_slots,
+        flat_newest, offs, widths, heights, flat_slots_stack,
         ref_idx_newest, ref_idx_multi, multi_target_mask,
         dI_newest_pyr,
         max_iters, min_opt_iterations, th_opt_iterations, force_accept,
@@ -207,19 +218,16 @@ def kf_opt_step(
         prior_marg, marg_weight_fac, min_good_active_res_for_marg,
         min_good_res_for_marg, min_idepth_h_marg,
         n_frames: int, w: int, h: int, max_level: int, levels: int,
-        flagged_slots=None, **statics):
+        **statics):
     """The post-activation keyframe tail (`_kf_opt_step_impl` of the JAX
     package; see the module docstring), lane 0 of `kf_opt_step_lanes`.
-    `newest` is a host int; `flat_slots` a list of per-slot flat pyramids
-    (None for free slots); `multi_target_mask` a host bool list;
-    `flagged_slots` the host list of the flagged slots (read from
-    `slot_flagged` when None)."""
+    `newest`, `max_iters`, `min_opt_iterations`, `th_opt_iterations`,
+    `force_accept` and `lm_diag_floor` are host values;
+    `flat_slots_stack` the (F, T, 3) stack of the window's flat pyramids
+    (zeros at free slots) and `multi_target_mask` an (F,) bool tensor of
+    the second matcher pass's targets."""
     kw = dict(locals())          # every argument above, by name
     kw.pop("statics")
-    if flagged_slots is None:
-        flagged_slots = [int(s) for s in torch.nonzero(slot_flagged)
-                         .reshape(-1)]
-    kw["flagged_slots"] = flagged_slots
     lanes = {k: kw[k][None] for k in KF_TENSOR_ARGS}
     lanes.update({k: [kw[k]] for k in KF_HOST_ARGS})
     lanes.update({k: kw[k] for k in KF_SHARED_ARGS})
@@ -251,7 +259,7 @@ def kf_opt_step_lanes(
         pt_prior, pt_valid, pt_type, pt_quality, pt_idepth_hessian,
         num_good_res, res_active, res_state, res_is_new,
         matcher_px, matcher_valid, dI0_stack,
-        flat_newest, offs, widths, heights, flat_slots,
+        flat_newest, offs, widths, heights, flat_slots_stack,
         ref_idx_newest, ref_idx_multi, multi_target_mask,
         dI_newest_pyr,
         max_iters, min_opt_iterations, th_opt_iterations, force_accept,
@@ -259,27 +267,86 @@ def kf_opt_step_lanes(
         prior_marg, marg_weight_fac, min_good_active_res_for_marg,
         min_good_res_for_marg, min_idepth_h_marg,
         n_frames: int, w: int, h: int, max_level: int, levels: int,
-        flagged_slots, track_ref_cap=16384, gate_refresh: bool = False,
+        track_ref_cap=16384, gate_refresh: bool = False,
         resf_at_fej: bool = True, p1_cap: int = 0, p2_cap: int = 0,
         closest_view: bool = False, closest_view_margin=0.0,
         closest_view_sensor_only=False, align_max_iters: int = 10,
         solve_dtype=None):
     """`kf_opt_step` of L sequences: tensors (KF_TENSOR_ARGS) carry a
     leading L, `dI_newest_pyr` is a tuple over levels of (L, ...) stacks,
-    and the KF_HOST_ARGS are per-lane host lists (`flat_slots` and
-    `multi_target_mask` one list over the F slots per lane). Larger
-    `p1_cap` / `p2_cap` than a lane needs (the fleet's widest) only add
-    invalid compaction rows. The matcher passes run every target index
-    once for all lanes, the windowed LM runs the lanes to the fleet's
-    largest iteration count with stopped lanes frozen, one K1 launch
-    builds every lane's tracking reference, and frame marginalization runs
-    once per flagged (lane, slot) pair. Returns kf_opt_step's dict with a
-    leading L."""
+    and the KF_HOST_ARGS are per-lane host lists (`lm_diag_floor` one host
+    float). Larger `p1_cap` / `p2_cap` than a lane needs (the fleet's
+    widest) only add invalid compaction rows. The matcher passes run every
+    target index once for all lanes, the windowed LM runs the lanes to the
+    fleet's largest iteration count with stopped lanes frozen, one K1
+    launch builds every lane's tracking reference, and frame
+    marginalization runs per flagged (lane, slot) pair. One stage program
+    (`device_loop.program`, "kf_opt"): the host values are its device
+    inputs (`backend.ba_controls`), so a program's key is the lane count
+    and the caps. Returns kf_opt_step's dict with a leading L."""
+    L = pt_u.shape[0]
+    x = dict(
+        T_cw_fej=T_cw_fej, eps=eps, calib=calib, calib_zero=calib_zero,
+        frame_valid=frame_valid, frame_prior=frame_prior, c_prior=c_prior,
+        aff=aff, exposure=exposure, HM=HM, bM=bM,
+        frame_energy_th=frame_energy_th, slot_flagged=slot_flagged,
+        pt_u=pt_u, pt_v=pt_v, pt_idepth=pt_idepth, pt_host=pt_host,
+        pt_color=pt_color, pt_weights=pt_weights, pt_is_sensor=pt_is_sensor,
+        pt_prior=pt_prior, pt_valid=pt_valid, pt_type=pt_type,
+        pt_quality=pt_quality, num_good_res=num_good_res,
+        res_active=res_active, res_state=res_state, res_is_new=res_is_new,
+        matcher_px=matcher_px, matcher_valid=matcher_valid,
+        dI0_stack=dI0_stack, flat_newest=flat_newest, offs=offs,
+        widths=widths, heights=heights, flat_slots_stack=flat_slots_stack,
+        ref_idx_newest=ref_idx_newest, ref_idx_multi=ref_idx_multi,
+        multi_target_mask=multi_target_mask,
+        dI_newest_pyr=tuple(dI_newest_pyr), prior_marg=prior_marg,
+        ctl=backend.ba_controls(newest, max_iters, min_opt_iterations,
+                                th_opt_iterations, force_accept,
+                                [lm_diag_floor] * L, pt_u.device))
+    static = dict(
+        marg_weight_fac=float(marg_weight_fac),
+        min_good_active_res_for_marg=min_good_active_res_for_marg,
+        min_good_res_for_marg=min_good_res_for_marg,
+        min_idepth_h_marg=min_idepth_h_marg, n_frames=int(n_frames),
+        w=int(w), h=int(h), max_level=int(max_level), levels=int(levels),
+        iter_cap=max([KF_ITERS_CAP] + [int(v) for v in max_iters]),
+        track_ref_cap=track_ref_cap, gate_refresh=bool(gate_refresh),
+        resf_at_fej=bool(resf_at_fej), p1_cap=int(p1_cap),
+        p2_cap=int(p2_cap), closest_view=bool(closest_view),
+        closest_view_margin=float(closest_view_margin),
+        closest_view_sensor_only=bool(closest_view_sensor_only),
+        align_max_iters=int(align_max_iters), solve_dtype=solve_dtype)
+    return device_loop.program("kf_opt", _kf_opt_program, x, static)
+
+
+def _kf_opt_program(
+        x, marg_weight_fac, min_good_active_res_for_marg,
+        min_good_res_for_marg, min_idepth_h_marg, n_frames, w, h, max_level,
+        levels, iter_cap, track_ref_cap, gate_refresh, resf_at_fej, p1_cap,
+        p2_cap, closest_view, closest_view_margin, closest_view_sensor_only,
+        align_max_iters, solve_dtype):
+    (T_cw_fej, eps, calib, calib_zero, frame_valid, frame_prior, c_prior,
+     aff, exposure, HM, bM, frame_energy_th, slot_flagged, pt_u, pt_v,
+     pt_idepth, pt_host, pt_color, pt_weights, pt_is_sensor, pt_prior,
+     pt_valid, pt_type, pt_quality, num_good_res, res_active, res_state,
+     res_is_new, matcher_px, matcher_valid, dI0_stack, flat_newest, offs,
+     widths, heights, flat_slots_stack, ref_idx_newest, ref_idx_multi,
+     multi_target_mask, dI_newest_pyr, prior_marg, ctl) = (x[k] for k in (
+         "T_cw_fej", "eps", "calib", "calib_zero", "frame_valid",
+         "frame_prior", "c_prior", "aff", "exposure", "HM", "bM",
+         "frame_energy_th", "slot_flagged", "pt_u", "pt_v", "pt_idepth",
+         "pt_host", "pt_color", "pt_weights", "pt_is_sensor", "pt_prior",
+         "pt_valid", "pt_type", "pt_quality", "num_good_res", "res_active",
+         "res_state", "res_is_new", "matcher_px", "matcher_valid",
+         "dI0_stack", "flat_newest", "offs", "widths", "heights",
+         "flat_slots_stack", "ref_idx_newest", "ref_idx_multi",
+         "multi_target_mask", "dI_newest_pyr", "prior_marg", "ctl"))
     F = n_frames
     dev = pt_u.device
     L = pt_u.shape[0]
     ar = torch.arange(L, device=dev)
-    newest_t = torch.as_tensor([int(x) for x in newest], device=dev)
+    newest_t = ctl["newest"]
     newest_c = newest_t[:, None]
     fvalid_f = frame_valid.to(T_cw_fej.dtype)
     frame_valid_b = frame_valid.to(torch.bool)
@@ -311,23 +378,14 @@ def kf_opt_step_lanes(
     matcher_valid = matcher_valid | (upd_fresh[..., None]
                                      & col_new[:, None, :])
 
-    # matcher pass 2: newest-host points -> each older frame; a lane that
-    # skips target s matches against a stand-in of its own (its newest
-    # frame) and gets its rows masked
+    # matcher pass 2: newest-host points -> each older frame; a target no
+    # lane runs costs no device work, and a lane that skips a target
+    # another lane runs gets its rows masked
     nf = pt_valid & (pt_host == newest_c)
-    mask = [[bool(m) and fl[s] is not None for s, m in enumerate(ml)]
-            for ml, fl in zip(multi_target_mask, flat_slots)]
-    flats = []
-    for s in range(F):
-        if not any(m[s] for m in mask):
-            flats.append(None)
-            continue
-        per = [fl[s] if m[s] else flat_newest[j]
-               for j, (fl, m) in enumerate(zip(flat_slots, mask))]
-        flats.append(per[0][None] if L == 1 else torch.stack(per))
+    mtm = multi_target_mask
     multi = reproject_and_match_multi_lanes(
         pt_u, pt_v, pt_idepth, pt_host, pt_type, nf, pt_quality,
-        pt_is_sensor, T_wc, aff, exposure, dI0_stack, flats, offs,
+        pt_is_sensor, T_wc, aff, exposure, dI0_stack, flat_slots_stack, offs,
         widths, heights, T_wc, aff, exposure, calib, ref_idx_multi,
         w=w, h=h, max_level=max_level, per_cell=False,
         closest_view=closest_view, frame_valid=frame_valid_b,
@@ -335,8 +393,7 @@ def kf_opt_step_lanes(
         closest_view_margin=closest_view_margin,
         closest_view_sensor_only=closest_view_sensor_only,
         lane_cap_frac=0.5, lane_cap=p2_cap, n_iter=align_max_iters,
-        target_mask=mask, quad_stack=quad_stack)
-    mtm = torch.as_tensor(mask, dtype=torch.bool, device=dev)
+        target_mask=mtm, quad_stack=quad_stack)
     mm = multi["matched"].transpose(1, 2) & nf[..., None] & mtm[:, None, :]
     mpx = multi["px"].transpose(1, 2)
     matcher_px = torch.where(mm[..., None], mpx, matcher_px)
@@ -346,14 +403,13 @@ def kf_opt_step_lanes(
 
     # windowed LM
     res_active_v = res_active & pt_valid[..., None]
-    out, lin_f, pairs_f = backend.ba_core_lanes(
+    out, lin_f, pairs_f = backend.ba_core_ctl(
         T_cw_fej, eps, calib, calib_zero, frame_valid_b, frame_prior,
-        c_prior, aff, exposure, HM, bM, newest, frame_energy_th,
+        c_prior, aff, exposure, HM, bM, frame_energy_th,
         pt_u, pt_v, pt_idepth, pt_host, pt_color, pt_weights, pt_is_sensor,
         pt_prior, res_active_v, res_state, matcher_px, matcher_valid,
-        dI0_stack, max_iters, min_opt_iterations, th_opt_iterations,
-        force_accept, n_frames=F, w=w, h=h, gate_refresh=gate_refresh,
-        resf_at_fej=resf_at_fej, lm_diag_floor=lm_diag_floor,
+        dI0_stack, ctl, n_frames=F, w=w, h=h, iter_cap=iter_cap,
+        gate_refresh=gate_refresh, resf_at_fej=resf_at_fej,
         solve_dtype=solve_dtype)
     new_state = out["new_state"]
     idepth_f = out["idepth"]
@@ -433,8 +489,8 @@ def kf_opt_step_lanes(
     pt_valid3 = pt_valid2 & ~pt_dead_marg
     res_active3 = res_active2 & pt_valid3[..., None]
 
-    # frame marginalization of the flagged slots the host named, one
-    # (lane, slot) pair at a time
+    # frame marginalization: every (lane, slot) pair under a cond on its
+    # flag, in slot order (the JAX package's fori_loop of lax.conds)
     res_active3 = res_active3 & ~slot_flagged[:, None, :]
     matcher_valid = matcher_valid & ~slot_flagged[:, None, :]
     pt_dead_frame = pt_valid3 & flag_exit
@@ -445,20 +501,25 @@ def kf_opt_step_lanes(
         ((drop | marg) & ~flag_exit & ~bad).sum(-1),
         pt_dead_frame.sum(-1)], -1)
 
-    HM3, bM3 = HM2, bM2
-    if any(flagged_slots):
-        HM3, bM3 = HM2.clone(), bM2.clone()
-        for j, slots in enumerate(flagged_slots):
-            for slot in slots:
-                HM3[j], bM3[j] = backend.marginalize_frame(
-                    HM3[j], bM3[j], frame_prior[j, slot],
-                    out["eps"][j, slot], int(slot), n_frames=F)
+    HM3, bM3 = [], []
+    for j in range(L):
+        c = dict(HM=HM2[j], bM=bM2[j])
+        for slot in range(F):
+            c = device_loop.cond(
+                "marg", slot_flagged[j, slot],
+                lambda cc, j=j, slot=slot: dict(zip(
+                    ("HM", "bM"), backend.marginalize_frame(
+                        cc["HM"], cc["bM"], frame_prior[j, slot],
+                        out["eps"][j, slot], slot, n_frames=F))), c)
+        HM3.append(c["HM"])
+        bM3.append(c["bM"])
+    HM3, bM3 = torch.stack(HM3), torch.stack(bM3)
 
-    host_oh = torch.nn.functional.one_hot(hcl, F)
+    host_oh = (hcl[..., None] == ar_f).to(torch.int64)
     stats_out = ((pt_dead_outlier | pt_dead_marg)[..., None]
                  * host_oh).sum(1)
 
-    return dict(
+    res = dict(
         eps=out["eps"], calib=out["calib"], T_cw_fej=out["T_cw_fej"],
         feth=out["feth"], energy=out["energy"], rmse=out["rmse"],
         lm_iters=out["lm_iters"], HM=HM3, bM=bM3, stats_out=stats_out,
@@ -473,6 +534,11 @@ def kf_opt_step_lanes(
         # deep-log exports (read back only with Settings.log_stuff)
         H_final=out["H_final"], b_final=out["b_final"],
         nullspaces=out["nullspaces"])
+    # every output dense in its shape's order, so the next keyframe's
+    # inputs chained from them keep the program's key
+    return {k: (tuple({f: t.contiguous() for f, t in lvl.items()}
+                      for lvl in v) if k == "track_ref" else v.contiguous())
+            for k, v in res.items()}
 
 
 POOL_FIELDS = ("u", "v", "idepth", "host", "color", "weights", "is_sensor",

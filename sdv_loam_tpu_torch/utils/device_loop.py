@@ -30,7 +30,8 @@ port runs the same loops through `run`:
 
 Stage programs (`program`). The JAX package compiles each stage into one
 program. `program(stage, fn, inputs, static)` is its counterpart for the
-track step, the LiDAR preprocessing, the trace and the activation: on
+track step, the LiDAR preprocessing, the trace, the activation and the
+keyframe optimization: on
 CUDA, `fn(inputs, **static)` is captured whole as one CUDA graph per key
 (stage, function, the inputs' structure, shapes, strides and dtypes,
 device, `static`); a call copies its inputs into the graph's static
@@ -113,9 +114,13 @@ import torch
 #            iterations, one per replay: a BA iteration is the heaviest
 #            body, and an extra one costs more device time than a read;
 #   sweep    the LiDAR components: 2 sweeps on every scan (the fixpoint,
-#            then one that sees no change): one replay, one read.
+#            then one that sees no change): one replay, one read;
+#   splat    the tracking reference's splat rounds (round r adds the r-th
+#            point of every pixel): outside the keyframe program only the
+#            first frame's runs here; every splat chip_smoke.py compares
+#            at 1200x360 ended within one replay of 4 rounds.
 CHUNK = {"lm": 3, "cutoff": 2, "align": 10, "struct": 10, "ba0": 2, "ba": 1,
-         "sweep": 2}
+         "sweep": 2, "splat": 4}
 
 # Inside a stage program a loop's chunk is one iteration: a pass of its
 # WHILE node costs a few small device copies and no host read, so a longer

@@ -223,8 +223,9 @@ def test_capture_survives_dead_systems_graphs(cuda):
 @pytest.mark.parametrize("lanes", [1, 2])
 def test_programs_match_stage_form(cuda, lanes):
     """Each stage program recorded on frames 2-5 of the 320x96 scene (one
-    sequence, or two as lanes of the batched lockstep), replayed on the
-    card, against the stage form on the same inputs: bit for bit."""
+    sequence, or two as lanes of the batched lockstep, whose keyframe
+    optimizations there take both lanes), replayed on the card, against
+    the stage form on the same inputs: bit for bit."""
     from sdv_loam_tpu_torch.config import Settings
     from sdv_loam_tpu_torch.data.synthetic import make_sequence
     from sdv_loam_tpu_torch.system.full_system import FullSystem
@@ -248,9 +249,11 @@ def test_programs_match_stage_form(cuda, lanes):
     seen = {}
     for rec in log:
         seen.setdefault(rec["stage"], []).append(rec)
-    need = {"track", "lidar", "trace", "activate"} if lanes == 1 else \
-        {"track", "lidar"}
+    need = {"track", "lidar", "trace", "activate", "kf_opt"} if lanes == 1 \
+        else {"track", "lidar", "kf_opt"}
     assert need <= set(seen), seen.keys()
+    if lanes > 1:
+        assert any(r["leaves"][0].shape[0] == lanes for r in seen["kf_opt"])
     for stage, recs in seen.items():
         for rec in recs[:2]:
             res = dl.compare_program(rec)
@@ -259,10 +262,11 @@ def test_programs_match_stage_form(cuda, lanes):
 
 @pytest.mark.cuda
 def test_whole_run_programs_match_stage_form(cuda):
-    """Six frames of the 320x96 scene as stage programs against the same
-    frames in the stage form: the same trajectory bit for bit. A second
-    system replaying the first one's programs (its graph cache) gives it
-    again, and reads no flag in the stages the programs hold."""
+    """Six frames of the 320x96 scene as stage programs (the keyframe
+    optimization's among them) against the same frames in the stage form:
+    the same trajectory bit for bit. A second system replaying the first
+    one's programs (its graph cache) gives it again, and reads no flag in
+    the stages the programs hold."""
     from sdv_loam_tpu_torch.config import Settings
     from sdv_loam_tpu_torch.data.synthetic import make_sequence
     from sdv_loam_tpu_torch.system.full_system import FullSystem
@@ -287,7 +291,7 @@ def test_whole_run_programs_match_stage_form(cuda):
             assert c["programs"].get("captures", 0) == 0, c["programs"]
             assert not any(c.get(k, {}).get("reads", 0) for k in
                            ("lm", "cutoff", "repeat", "align", "struct",
-                            "sweep")), c
+                            "sweep", "ba0", "ba", "match2", "marg")), c
     assert np.array_equal(trajs[0], trajs[2])
     assert np.array_equal(trajs[1], trajs[2])
 
@@ -355,6 +359,38 @@ def test_program_counts_k2_launches_per_replay(cuda):
             assert hk.LANES["distance_transform"] == 2 * n
     assert torch.equal(out["d"], hk.distance_transform_plain(seed.cpu(),
                                                              32).to(cuda))
+
+
+def _toy_k1(x):
+    """`_toy`'s loop and cond, then one K1 launch outside any IF node."""
+    out = _toy(x, False)
+    out["maps"] = hk.dilate_pyramid(x["id0"], x["w0"], 4)
+    return out
+
+
+@pytest.mark.cuda
+def test_program_counts_k1_launches_per_replay(cuda):
+    """K1 captured in a program, as in the keyframe program: a warm-up
+    call launches it (one count), the capture launches nothing, and every
+    replay counts one launch of its lanes; the maps equal the plain
+    version's."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    maps = [_splat(96, 320, seed=21 + b) for b in range(2)]
+    id0 = torch.from_numpy(np.stack([m[0] for m in maps])).to(cuda)
+    w0 = torch.from_numpy(np.stack([m[1] for m in maps])).to(cuda)
+    x = dict(stop=torch.tensor([1, 4], device=cuda),
+             v0=torch.tensor([1.0, 3.0], device=cuda), id0=id0, w0=w0)
+    hk.reset_launch_counts()
+    with dl.use(dl.LoopCache()):
+        for n in range(1, 4):
+            out = dl.program("toyk1", _toy_k1, x)
+            torch.cuda.synchronize()
+            assert hk.LAUNCHES["dilate_pyramid"] == n
+            assert hk.LANES["dilate_pyramid"] == 2 * n
+    ref = hk.dilate_pyramid_plain(id0.cpu(), w0.cpu(), 4)
+    assert all(torch.equal(g.cpu(), r) for (gi, gw), (ri, rw) in
+               zip(out["maps"], ref) for g, r in ((gi, ri), (gw, rw)))
 
 
 @pytest.mark.cuda

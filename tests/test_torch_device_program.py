@@ -14,7 +14,13 @@ selected, no host read. On recorded 320x96 frames, one lane and two:
     an index by a bool mask);
   * its outputs equal the stage form's bit for bit (early-exit loops and
     host reads), also where the cutoff doubling and the level repeat fire
-    and where a loop stops in its first chunk.
+    and where a loop stops in its first chunk; for the keyframe
+    optimization also where each of its conds fires: a flagged slot's
+    frame marginalization, the two-keyframe window's swapped matcher
+    references, the windowed LM's second loop, and a second-pass target
+    that one lane runs and the other skips;
+  * two consecutive keyframes of one window size class give the keyframe
+    program one key (no capture per keyframe on the card).
 """
 
 import pytest
@@ -38,7 +44,7 @@ FORBIDDEN = ("_local_scalar_dense", "nonzero", "nonzero_static",
              "is_nonzero", "equal", "masked_select", "lift_fresh",
              "bincount", "item")
 CASES = [("track", 1), ("track", 2), ("lidar", 1), ("lidar", 2),
-         ("trace", 1), ("activate", 1)]
+         ("trace", 1), ("activate", 1), ("kf_opt", 1), ("kf_opt", 2)]
 
 
 class _Refused(TorchDispatchMode):
@@ -89,6 +95,8 @@ def records():
                  next(v for v in rec["leaves"]
                       if isinstance(v, torch.Tensor)).shape[0])
         out.setdefault((rec["stage"], lanes), rec)
+        if rec["stage"] == "kf_opt":
+            out.setdefault(("kf_opt", "all"), []).append(rec)
     return out
 
 
@@ -185,3 +193,101 @@ def test_cond_forms():
             dl.cond("t", torch.tensor(True),
                     lambda d: dict(a=torch.empty_strided((2, 3), (1, 2))
                                    .copy_(d["a"] + 1)), c)
+
+
+def _variant(rec, edit):
+    """`rec` with its inputs changed in place by `edit(inputs)`."""
+    inputs = _inputs(rec)
+    edit(inputs)
+    leaves, spec = tree_flatten(inputs)
+    return dict(rec, leaves=leaves, spec=spec)
+
+
+def _reads(monkeypatch):
+    """The (stage, value) of every counted host read from now on."""
+    seen = []
+    read = dl.read
+
+    def logged(stage, flag):
+        out = read(stage, flag)
+        seen.append((stage, out))
+        return out
+    monkeypatch.setattr(dl, "read", logged)
+    return seen
+
+
+def _kf_window(records, n):
+    return next(r for r in records[("kf_opt", "all")]
+                if int(_inputs(r)["frame_valid"][0].sum()) == n)
+
+
+def test_kf_opt_program_marginalizes_a_flagged_slot(records, monkeypatch):
+    """Slot 0 of a four-keyframe window flagged: the stage form's
+    frame-marginalization cond reads true for it (and false for the
+    others), and the program's outputs equal it bit for bit."""
+    rec = _kf_window(records, 4)
+
+    def flag(x):
+        x["slot_flagged"][0, 0] = True
+    rec = _variant(rec, flag)
+    seen = _reads(monkeypatch)
+    res = dl.compare_program(rec)
+    marg = [v for st, v in seen if st == "marg"]
+    assert marg == [True] + [False] * 7, marg
+    assert res["equal"], res
+
+
+def test_kf_opt_program_two_keyframe_window(records, monkeypatch):
+    """The window's second keyframe: the matcher references are swapped
+    (each point references the other keyframe), the budget is 100 and the
+    windowed LM enters its second loop; the program equals the stage form
+    bit for bit."""
+    rec = _kf_window(records, 2)
+    x = _inputs(rec)
+    assert int(x["ctl"]["max_it"][0]) == 100
+    assert not torch.equal(x["ref_idx_multi"][0, 0], x["pt_host"][0])
+
+    def longer(xx):
+        # at least 4 iterations: past the first loop's two
+        xx["ctl"]["min_it"][:] = 4
+    rec = _variant(rec, longer)
+    seen = _reads(monkeypatch)
+    res = dl.compare_program(rec)
+    assert ("ba", True) in seen, seen
+    assert ("match2", True) in seen, seen
+    assert res["equal"], res
+
+
+def test_kf_opt_program_target_one_lane_skips(records, monkeypatch):
+    """Two lanes: lane 1 skips every second-pass target, lane 0 runs its
+    own. The stage form runs target 0 for lane 0 alone and gives lane 1
+    no match there; the program equals it bit for bit."""
+    rec = records[("kf_opt", 2)]
+    assert bool(_inputs(rec)["multi_target_mask"][0, 0])
+
+    def skip(x):
+        x["multi_target_mask"][1] = False
+    rec = _variant(rec, skip)
+    seen = _reads(monkeypatch)
+    res = dl.compare_program(rec)
+    assert ("match2", True) in seen, seen
+    assert res["equal"], res
+    with dl.stage_form():
+        out = dl.program(rec["stage"], rec["fn"], _inputs(rec),
+                         rec["static"])
+    x = _inputs(rec)
+    newest = x["pt_host"][1] == x["ctl"]["newest"][1]
+    # lane 1's newest-host points gained no second-pass match
+    assert not (out["matcher_valid"][1][newest] & ~x["matcher_valid"][1][
+        newest] & (torch.arange(8) != x["ctl"]["newest"][1])).any()
+
+
+def test_kf_opt_program_key_holds_across_keyframes(records):
+    """The keyframes of windows of three and four frames have the same
+    compaction caps and budget bound, and their programs one key: the
+    chained inputs keep their shapes, strides and dtypes."""
+    a, b = _kf_window(records, 3), _kf_window(records, 4)
+    assert a["static"] == b["static"]
+    keys = [dl._program_key(r["stage"], r["fn"], r["leaves"], r["spec"],
+                            r["static"], "cpu") for r in (a, b)]
+    assert keys[0] == keys[1]

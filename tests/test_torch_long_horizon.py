@@ -7,7 +7,8 @@ gates, and the port's trajectory against the JAX package's.
   * the hand-over at the drift gate's first veto: the port's state just
     before it loads into both packages, each takes the keyframe, and both
     keyframe optimizations must agree to float level (the same residual
-    sets and decisions, the same veto);
+    sets and decisions, the same veto), the port's in the stage form and
+    in the program form the card captures;
   * the second matcher pass's diagnostic counts at the frame-72 hand-over:
     the port's equal the JAX package's summed over the targets the pass
     keeps (the JAX package sums over all of them);
@@ -45,6 +46,8 @@ About 160 s on one torch thread of an 8-core x86 host: the port's 100
 drift-gate frames ~75 s, the trajectory test ~45 s.
 """
 
+import contextlib
+
 import jax
 import numpy as np
 import pytest
@@ -61,6 +64,7 @@ from sdv_loam_tpu_torch.config import Settings as TSettings
 from sdv_loam_tpu_torch.system import checkpoint as tcheckpoint
 from sdv_loam_tpu_torch.system import kf_ops as tkf_ops
 from sdv_loam_tpu_torch.system.full_system import FullSystem as TFullSystem
+from sdv_loam_tpu_torch.utils import device_loop as dl
 
 # one intra-op thread per test process (tests/test_torch_fleet_parity.py)
 torch.set_num_threads(1)
@@ -147,27 +151,37 @@ def _capture(monkeypatch, module, to_numpy):
     return calls
 
 
-def test_handover_at_veto_onset(drift_run, monkeypatch):
-    """The port's state before frame VETO_ONSET loads into both packages
-    (the JAX one with its pyramid stack, the port with the JAX draws);
-    both take the frame, a keyframe whose BA step the port's own run
-    vetoed. Both keyframe optimizations (the BA, then its vetoed re-run)
-    must agree: the residual sets, the matcher and death diagnostics and
-    the veto exactly; the energy, the step and the marginalization prior
-    to float level. Measured (relative to each output's largest value):
-    energy 6.6e-7, eps 4.3e-6 (2.7e-6 of a 0.63 step), T_cw_fej 3.6e-7,
-    HM 3.9e-8, bM 5.4e-7; every mask equal; both veto once; poses
-    afterwards 3.6e-7 apart."""
+@pytest.fixture(scope="module")
+def jax_handover(drift_run):
+    """The JAX package handed the port's state before frame VETO_ONSET
+    (with its pyramid stack), after taking that frame, and its keyframe
+    optimizations' outputs."""
     seq, path = drift_run["seq"], drift_run["path"]
     jfs = load_jax(path, seq.calib, seq.sensor, JSettings(**DRIFT_SETTINGS))
+    with pytest.MonkeyPatch.context() as mp:
+        jcalls = _capture(mp, jkf_ops, np.asarray)
+        img, cloud, ts = seq.get(VETO_ONSET)
+        jfs.add_active_frame(img, mid_bin(cloud), ts)
+    return jfs, jcalls
+
+
+def _port_handover(drift_run, monkeypatch, form):
+    """The port handed its own state before frame VETO_ONSET (with the JAX
+    draws), after taking that frame in `form`, and its keyframe
+    optimizations' outputs."""
+    seq, path = drift_run["seq"], drift_run["path"]
     tfs = tcheckpoint.load(path, seq.calib, seq.sensor,
                            TSettings(**DRIFT_SETTINGS), device="cpu")
     tfs._dir_source = jax_dir_source(checkpoint_key(path), tfs.h, tfs.w)
-    jcalls = _capture(monkeypatch, jkf_ops, np.asarray)
     tcalls = _capture(monkeypatch, tkf_ops, lambda v: v.numpy())
     img, cloud, ts = seq.get(VETO_ONSET)
-    for fs in (jfs, tfs):
-        fs.add_active_frame(img, mid_bin(cloud), ts)
+    with form:
+        tfs.add_active_frame(img, mid_bin(cloud), ts)
+    return tfs, tcalls
+
+
+def _hold_handover(jax_handover, tfs, tcalls):
+    jfs, jcalls = jax_handover
     assert jfs.shells[VETO_ONSET]["is_kf"] and tfs.shells[VETO_ONSET]["is_kf"]
     assert tfs.telemetry.counters["ba_step_veto"] == \
         jfs.telemetry.counters["ba_step_veto"]
@@ -184,6 +198,32 @@ def test_handover_at_veto_onset(drift_run, monkeypatch):
             assert diff <= rel * scale, (k, diff, scale)
     np.testing.assert_allclose(tfs.get_trajectory(), jfs.get_trajectory(),
                                atol=1e-5)
+
+
+def test_handover_at_veto_onset(drift_run, jax_handover, monkeypatch):
+    """The port's state before frame VETO_ONSET loads into both packages
+    (the JAX one with its pyramid stack, the port with the JAX draws);
+    both take the frame, a keyframe whose BA step the port's own run
+    vetoed. Both keyframe optimizations (the BA, then its vetoed re-run)
+    must agree: the residual sets, the matcher and death diagnostics and
+    the veto exactly; the energy, the step and the marginalization prior
+    to float level. Measured (relative to each output's largest value):
+    energy 6.6e-7, eps 4.3e-6 (2.7e-6 of a 0.63 step), T_cw_fej 3.6e-7,
+    HM 3.9e-8, bM 5.4e-7; every mask equal; both veto once; poses
+    afterwards 3.6e-7 apart."""
+    _hold_handover(jax_handover, *_port_handover(
+        drift_run, monkeypatch, contextlib.nullcontext()))
+
+
+def test_handover_at_veto_onset_program_form(drift_run, jax_handover,
+                                             monkeypatch):
+    """The same hand-over with the port's stages in the program form the
+    card captures (`device_loop.programs()`: every loop to its cap, every
+    cond computed and selected, no host read), the keyframe program's
+    windowed LM run to its bound of 100 iterations: the same agreement
+    with the JAX package's `kf_opt_step`, at the same tolerances."""
+    _hold_handover(jax_handover, *_port_handover(
+        drift_run, monkeypatch, dl.programs()))
 
 
 def test_match_diag_p2_sums_the_targets_kept(drift_run, monkeypatch):

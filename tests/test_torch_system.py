@@ -5,7 +5,8 @@
     systems track frame 6. The tracked pose (before any keyframe tail,
     whose selection draws differ between the frameworks) must agree;
   * the port alone meets test_e2e.py's accuracy bounds over 12 frames;
-  * checkpoint round trip, the entry points run on CUDA unless told
+  * checkpoint round trip (the window's flat pyramid stack rebuilt for
+    the next keyframe optimization), the entry points run on CUDA unless told
     otherwise (and raise without it), and a static check that the port
     imports neither jax nor the JAX package, nor OpenCV, PIL or
     matplotlib (tests/test_torch_cli.py, test_torch_io.py and
@@ -127,6 +128,42 @@ def test_port_checkpoint_roundtrip(port_run, seq, frames, tmp_path):
     assert jb.order == port_run.order
     np.testing.assert_array_equal(jb.get_trajectory(),
                                   port_run.get_trajectory())
+
+
+def test_port_checkpoint_rebuilds_the_flat_stack(seq, frames, tmp_path):
+    """A checkpoint taken mid-run rebuilds the window's flat pyramid stack
+    (zeros at free slots) bit for bit, and the next keyframe optimization
+    of the loaded system sees the stack the running system's sees."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    run = TFullSystem(seq.calib, seq.sensor, TSettings(**SETTINGS),
+                      device="cpu")
+    for f in frames[:7]:
+        run.add_active_frame(*f)
+    path = str(tmp_path / "mid.npz")
+    tcheckpoint.save(run, path)
+    back = tcheckpoint.load(path, seq.calib, seq.sensor,
+                            TSettings(**SETTINGS), device="cpu")
+    assert torch.equal(back.flat_slots_stack, run.flat_slots_stack)
+    free = ~torch.from_numpy(run.slot_used)
+    assert not run.flat_slots_stack[free].any()
+    stacks = []
+    for fs in (run, back):
+        log = []
+        for f in frames[7:]:
+            with dl.recording(log, programs=True):
+                fs.add_active_frame(*f)
+            kf = [r for r in log if r["stage"] == "kf_opt"]
+            if kf:
+                stacks.append((len(fs.shells), kf[0]))
+                break
+    assert len(stacks) == 2 and stacks[0][0] == stacks[1][0], \
+        [n for n, _ in stacks]
+
+    def flat_input(rec):
+        from torch.utils._pytree import tree_unflatten
+        return tree_unflatten(rec["leaves"], rec["spec"])["flat_slots_stack"]
+    assert torch.equal(flat_input(stacks[0][1]), flat_input(stacks[1][1]))
 
 
 def test_entry_points_default_to_cuda(port_run, seq, tmp_path, monkeypatch):
