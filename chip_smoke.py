@@ -49,9 +49,16 @@ Phases (any failure exits nonzero; each prints its results):
          pipelined; requires not lost, ATE <= 0.10 m and one Hessian line
          per optimized keyframe;
      (c) the monocular bootstrap: a 1200x360 scene with no cloud on any
-         frame; requires initialized, not lost, >= 2 keyframes, no sensor
-         points and a scale-aligned error below 0.15 x path; prints each
-         knn call's time and peak memory (level 0 first);
+         frame (after a 320x96 camera-only warm-up system, which takes the
+         process's eager first call of each bootstrap program); requires
+         initialized, not lost, >= 2 keyframes, no sensor points, a
+         scale-aligned error below 0.15 x path and no flag read on the
+         host in a bootstrap frame; prints each knn call's time and peak
+         memory (level 0 first), the flag reads per bootstrap frame and
+         each level LM's iterations; then the bootstrap again in the
+         stage form, which must take the same iterations and reach the
+         same pose bit for bit, and its recorded "mono_lm", "select_map"
+         and "pyramid" programs held to the stage form;
      each part requires at least one K1 and one K2 launch;
   7. long horizon, sequential through run_sequence, each part with its own
      kernel launch counts: (a) tests/test_drift_gate.py's scene and
@@ -60,14 +67,17 @@ Phases (any failure exits nonzero; each prints its results):
      ATE under 2 % of the path and at least one K1 and one K2 launch, and
      prints ATE, the BA step vetoes (`ba_step_veto`, `ba_step_veto_hard`),
      keyframes and frames/s;
-The track step, the LiDAR preprocessing, the trace, the activation and the
-keyframe optimization (matcher refresh, windowed BA, marginalization and
-the K1 launch) run as stage programs, one captured CUDA graph per shape
-each, their loops' later chunks and their conds as conditional nodes
-decided on the card (utils/device_loop). Each phase prints the graphs'
-captures, capture seconds, replays and flag reads per frame, and the
-programs' replays, captures, capture and instantiate seconds, pool MiB and
-recorded ops; phases 4 and 5 print the keyframe program's own (captures
+The pyramid, the track step, the LiDAR preprocessing, the trace, a
+selection attempt, the activation, the keyframe optimization (matcher
+refresh, windowed BA, marginalization and the K1 launch), and the
+bootstrap's status-map selection and level LM run as stage programs, one
+captured CUDA graph per shape each, their loops' later chunks and their
+conds as conditional nodes decided on the card (utils/device_loop). Each
+phase prints the graphs' captures, capture seconds, replays and flag reads
+per frame, and the programs' replays, captures, capture and instantiate
+seconds, pool MiB and recorded ops, and for the pyramid, the selection
+and the bootstrap's programs each one's captures, capture seconds and
+keys; phases 4 and 5 print the keyframe program's own (captures
 per system) and require that none of its loops and conds read a flag on
 the host past the process's first, eager call of the program (phase 4
 checks a second system), and the program comparisons count K1's launches
@@ -144,6 +154,10 @@ OUT_DIR = os.path.join(ROOT, "chiprun_out", "phase6")
 MONO_SCENE = dict(w=1200, h=360, fx=718.856, step=0.4, lidar_stride=8)
 MONO_FRAMES = 16
 MONO_ERR_FRAC = 0.15
+# the warm-up system before it: tests/test_mono_init.py's scene, frames
+# enough for every bootstrap program's first call
+MONO_WARM_SCENE = dict(w=320, h=96, step=0.4, lidar_stride=8)
+MONO_WARM_FRAMES = 3
 # phase 7: tests/test_drift_gate.py's scene and Settings, and scene A at
 # full width, 100 frames each; the drift gate's ATE limit (share of path)
 DRIFT_SCENE = dict(w=320, h=96, step=0.8, yaw_rate=0.0, lidar_stride=4)
@@ -171,7 +185,15 @@ PROFILE_FRAMES = (10, 20)
 # the frames (rounds) whose stage programs are compared with the stage
 # form on the same inputs, and the programs every such comparison needs
 PROGRAM_FRAMES = range(5, 11)
-PROGRAM_STAGES = ("track", "lidar", "trace", "activate", "kf_opt")
+PROGRAM_STAGES = ("track", "lidar", "trace", "activate", "kf_opt", "select",
+                  "pyramid")
+# the stage programs whose captures, capture seconds and keys every phase
+# prints (the per-frame stages that became programs last, and the
+# bootstrap's)
+KEYED_PROGRAMS = ("pyramid", "select", "select_map", "mono_lm")
+# the key statics that name a program's key beside its largest input's
+# shape
+KEY_STATICS = ("levels", "pot", "cap", "max_iters")
 # the loops and conds inside the keyframe program: no flag of theirs is
 # read on the host on the main path (its splat rounds also build the
 # first frame's tracking reference, outside any program)
@@ -408,17 +430,49 @@ def solver_kernels(device):
     return names
 
 
+def program_keys(caches, stages=KEYED_PROGRAMS):
+    """Per stage of `stages`: its captures, capture and instantiate
+    seconds, replays and warm-ups since the counts' last reset, and the
+    keys the graph caches `caches` hold for it, one per program (its
+    largest input's shape and the statics of KEY_STATICS; two programs
+    that print alike differ in another input's layout)."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    def largest(layout):
+        return max((lay[0] for lay in layout if lay[0] != "const"),
+                   key=lambda shape: int(np.prod(shape)))
+
+    c = dl.counts()
+    out = {}
+    for stage in stages:
+        k = c.get(stage, {})
+        keys = sorted(str((list(largest(key[4])),
+                           {n: v for n, v in key[6] if n in KEY_STATICS}))
+                      for cache in caches
+                      for key in getattr(cache, "entries", ())
+                      if key[0] == "program" and key[1] == stage)
+        out[stage] = dict(captures=k.get("captures", 0),
+                          capture_s=k.get("capture_s", 0.0),
+                          instantiate_s=k.get("instantiate_s", 0.0),
+                          replays=k.get("replays", 0),
+                          warmups=k.get("warmups", 0), keys=keys)
+    return out
+
+
 def loop_counts(n_frames, caches=()):
     """The loop driver's counts since its last reset: per stage, and per
     frame (graph replays, flag reads, captures), capture seconds, graphs
     held; the stage programs' replays per frame, captures, capture and
-    instantiate seconds, graph pool growth (MiB) and recorded ops."""
+    instantiate seconds, graph pool growth (MiB) and recorded ops; the
+    captures and keys of KEYED_PROGRAMS."""
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
+    keyed = program_keys(caches)
     c = dl.counts()
     a = c.pop("all", {})
     p = c.pop("programs", {})
-    return dict(replays_per_frame=a.get("replays", 0) / n_frames,
+    return dict(keyed_programs=keyed,
+                replays_per_frame=a.get("replays", 0) / n_frames,
                 reads_per_frame=a.get("reads", 0) / n_frames,
                 captures=a.get("captures", 0),
                 capture_s=a.get("capture_s", 0.0),
@@ -488,13 +542,27 @@ def keep_records(log, frame, keep, have_ba, lanes=1):
     return have_ba
 
 
+def _lanes(rec):
+    """A recorded program's lanes: the track program's inputs hold a list
+    of lanes, the bootstrap's programs take one image, the others lead
+    with their lane dimension."""
+    import torch
+    from torch.utils._pytree import tree_unflatten
+
+    if rec["stage"] == "track":
+        return len(tree_unflatten(rec["leaves"], rec["spec"])["lanes"])
+    if rec["stage"] in ("mono_lm", "select_map"):
+        return 1
+    return next(v for v in rec["leaves"]
+                if isinstance(v, torch.Tensor)).shape[0]
+
+
 def compare_programs(records, what, need=PROGRAM_STAGES):
     """Each recorded stage program replayed on the card (captured in a
     fresh cache at its key's first record) against the stage form on the
     same inputs: bit for bit, or the run fails. Returns, per stage, the
     programs compared and their lane counts."""
     import torch
-    from torch.utils._pytree import tree_unflatten
 
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
@@ -524,12 +592,7 @@ def compare_programs(records, what, need=PROGRAM_STAGES):
                 if not (replayed and k1 == (1, leaves[0].shape[0])):
                     _fail(f"{what}: a kf_opt replay counted {k1} K1 "
                           "(launches, lanes)")
-            # the track program's inputs hold a list of lanes, the others
-            # lead with their lane dimension
-            lanes = (len(tree_unflatten(rec["leaves"], rec["spec"])["lanes"])
-                     if rec["stage"] == "track" else
-                     next(v for v in rec["leaves"]
-                          if isinstance(v, torch.Tensor)).shape[0])
+            lanes = _lanes(rec)
             st = stages.setdefault(rec["stage"], dict(programs=0, lanes=set()))
             st["programs"] += 1
             st["lanes"].add(int(lanes))
@@ -1023,9 +1086,12 @@ def run_fleet(device):
         _fail("batched lockstep: no keyframe optimization of two lanes or "
               "more was recorded")
     program_check = compare_programs(programs, "batched lockstep (lanes)",
-                                     need=("track", "lidar", "kf_opt"))
-    if FLEET_B not in program_check["track"]["lanes"]:
-        _fail(f"batched lockstep: no track program of {FLEET_B} lanes")
+                                     need=("track", "lidar", "kf_opt",
+                                           "pyramid", "select"))
+    for stage in ("track", "pyramid"):
+        if FLEET_B not in program_check[stage]["lanes"]:
+            _fail(f"batched lockstep: no {stage} program of {FLEET_B} "
+                  "lanes")
     if max(program_check["kf_opt"]["lanes"]) < 2:
         _fail("batched lockstep: no keyframe program of two lanes or more")
     del records, programs
@@ -1222,7 +1288,9 @@ def run_dropout(device, scene):
 
 
 def run_mono(device):
-    """Phase 6 (c): the monocular bootstrap at full width."""
+    """Phase 6 (c): the monocular bootstrap at full width, after a small
+    camera-only warm-up system; then its bootstrap frames again in the
+    stage form."""
     import torch
 
     from sdv_loam_tpu_torch.config import Settings
@@ -1231,6 +1299,23 @@ def run_mono(device):
     from sdv_loam_tpu_torch.ops import mono_init
     from sdv_loam_tpu_torch.system.full_system import FullSystem
     from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    kw = dict(use_struct_pose=False, pipelined_frames=False)
+    # the process's first call of each bootstrap program is its eager
+    # warm-up (early-exit loops, host reads): a small system takes it
+    t0 = time.perf_counter()
+    dl.reset_counts()
+    warm = make_sequence(n_frames=MONO_WARM_FRAMES, **MONO_WARM_SCENE)
+    fs = FullSystem(warm.calib, warm.sensor, Settings(**kw), device=device)
+    for i in range(MONO_WARM_FRAMES):
+        img, _, ts = warm.get(i)
+        fs.add_active_frame(img, None, ts)
+    torch.cuda.synchronize()
+    print(f"phase 6 (c): warm-up system ({MONO_WARM_FRAMES} frames at "
+          f"{MONO_WARM_SCENE['w']}x{MONO_WARM_SCENE['h']}) in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + json.dumps(program_keys([fs.loops])), flush=True)
+    del fs
 
     n = MONO_FRAMES
     t0 = time.perf_counter()
@@ -1256,16 +1341,28 @@ def run_mono(device):
                                        - base)))
         return out
     mono_init.knn = timed_knn
+    # per bootstrap frame (the frames that leave the system not yet
+    # initialized): host-clock seconds and flag reads
+    boot_s, boot_reads, ini, at_ready = [], [], None, None
     try:
-        fs = FullSystem(seq.calib, seq.sensor,
-                        Settings(use_struct_pose=False,
-                                 pipelined_frames=False), device=device)
+        fs = FullSystem(seq.calib, seq.sensor, Settings(**kw), device=device)
         torch.cuda.synchronize()
         hk.reset_launch_counts()
         dl.reset_counts()
         t0 = time.perf_counter()
         for img, _, ts in frames:
+            was = fs.initialized
+            r0 = dl.counts()["all"].get("reads", 0)
+            t1 = time.perf_counter()
             fs.add_active_frame(img, None, ts)
+            if not fs.initialized:
+                boot_s.append(time.perf_counter() - t1)
+                boot_reads.append(dl.counts()["all"].get("reads", 0) - r0)
+            elif not was:
+                # the trajectory as the ready frame leaves it (a later
+                # windowed BA moves its keyframes)
+                at_ready = fs.get_trajectory()
+            ini = ini or fs._mono
         est = fs.get_trajectory()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1278,7 +1375,11 @@ def run_mono(device):
                else None, knn_calls=knn_calls,
                sensor_points=int(fs.pt["is_sensor"][fs.pt_valid].sum()),
                stage_ms_per_frame=_stage_ms(fs, n),
-            loops=loop_counts(n, [fs.loops]))
+               bootstrap=dict(frames=len(boot_s),
+                              fps=len(boot_s) / max(sum(boot_s), 1e-9),
+                              frame_s=boot_s, reads_per_frame=boot_reads,
+                              lm_iters=ini.lm_iters if ini else None),
+               loops=loop_counts(n, [fs.loops]))
     if fs.initialized and len(fs.kf_shells) >= 2:
         k = fs.kf_shells[1]
         e = est[k:, :3, 3] - est[k, :3, 3]
@@ -1289,6 +1390,9 @@ def run_mono(device):
                                                axis=1).sum()),
                    err_m=float(np.linalg.norm(s * e - g, axis=1).max()))
     _report("(c) monocular bootstrap", rec)
+    print(f"phase 6 (c): bootstrap frames {len(boot_s)}, flag reads per "
+          f"bootstrap frame {boot_reads}, level LM iterations per frame "
+          f"(coarse to fine) {rec['bootstrap']['lm_iters']}", flush=True)
     if not rec["initialized"] or rec["lost"] or rec["n_keyframes"] < 2 \
             or rec["sensor_points"]:
         _fail("mono bootstrap: not initialized, lost, < 2 keyframes or "
@@ -1297,7 +1401,45 @@ def run_mono(device):
             and rec["err_m"] < MONO_ERR_FRAC * rec["path_m"]):
         _fail(f"mono bootstrap: scale-aligned error {rec['err_m']} m over "
               f"{MONO_ERR_FRAC} x path {rec['path_m']} m")
+    if any(boot_reads):
+        _fail(f"mono bootstrap: flags read on the host in bootstrap frames "
+              f"({boot_reads})")
     _kernels_ran("(c)", launches)
+
+    # the bootstrap frames again in the stage form (the level LM's loop as
+    # chunk replays with host reads): the same iterations, pose and
+    # trajectory, bit for bit; its bootstrap programs recorded and each
+    # held to the stage form on the same inputs
+    ref = FullSystem(seq.calib, seq.sensor, Settings(**kw), device=device)
+    programs, ref_ini = [], None
+    t0 = time.perf_counter()
+    with dl.stage_form():
+        for img, _, ts in frames:
+            if ref.initialized:
+                break
+            log = []
+            with dl.recording(log, programs=True):
+                ref.add_active_frame(img, None, ts)
+            programs.extend(r for r in log if r["stage"] in KEYED_PROGRAMS)
+            ref_ini = ref_ini or ref._mono
+    torch.cuda.synchronize()
+    m = len(ref.shells)
+    staged = dict(frames=m, wall_s=time.perf_counter() - t0,
+                  lm_iters_equal=ref_ini.lm_iters == ini.lm_iters,
+                  pose_equal=bool(np.array_equal(ref_ini.T, ini.T)
+                                  and np.array_equal(ref_ini.aff, ini.aff)),
+                  trajectory_equal=bool(np.array_equal(
+                      ref.get_trajectory(), at_ready)))
+    print("phase 6 (c), stage form against programs: " + json.dumps(staged),
+          flush=True)
+    if not (staged["lm_iters_equal"] and staged["pose_equal"]
+            and staged["trajectory_equal"]):
+        _fail("mono bootstrap: the programs and the stage form took other "
+              "iterations or reached another pose")
+    rec["stage_form"] = staged
+    rec["program_check"] = compare_programs(
+        programs, "camera-only bootstrap",
+        need=("mono_lm", "select_map", "pyramid"))
     return rec
 
 

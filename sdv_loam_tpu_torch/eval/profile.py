@@ -30,9 +30,11 @@ holds, per frame (a round of B sequences counts as B frames when
 `count_dispatches(step, n)` counts, on the CPU, the ops a window
 dispatches per frame inside and outside the iterated stages' loops: the
 kernel launches each loop would cost on the card run eagerly. From the
-command line, on phase 4's scene of chip_smoke.py:
+command line, on phase 4's scene of chip_smoke.py (on the card by
+default; `--device cpu` for the eager counts):
 
-    python -m sdv_loam_tpu_torch.eval.profile [--window 4 8] [--w 1200 --h 360]
+    python -m sdv_loam_tpu_torch.eval.profile --device cpu [--window 4 8] \
+        [--w 1200 --h 360]
 """
 
 from __future__ import annotations
@@ -172,8 +174,9 @@ def count_dispatches(step, n_steps: int) -> dict:
 
 
 def main():
-    """CPU dispatch counts of a frame window of phase 4's scene
-    (chip_smoke.py's SCENE, seed 7, default Settings)."""
+    """Dispatch counts of a frame window of phase 4's scene
+    (chip_smoke.py's SCENE, seed 7, default Settings), on the card unless
+    `--device cpu` is given."""
     import argparse
     import json
 
@@ -185,13 +188,14 @@ def main():
     ap.add_argument("--window", type=int, nargs=2, default=(4, 8))
     ap.add_argument("--w", type=int, default=1200)
     ap.add_argument("--h", type=int, default=360)
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
     a, b = args.window
     seq = make_sequence(n_frames=b, w=args.w, h=args.h, fx=718.856,
                         cy_offset=0.0, step=0.7, lidar_stride=2,
                         half_width=16.0, ground_contrast=0.25,
                         follow_path=True, seed=7, yaw_rate=0.004)
-    fs = FullSystem(seq.calib, seq.sensor, Settings(), device="cpu")
+    fs = FullSystem(seq.calib, seq.sensor, Settings(), device=args.device)
     for i in range(a):
         fs.add_active_frame(*seq.get(i))
     out = count_dispatches(lambda i: fs.add_active_frame(*seq.get(a + i)),

@@ -18,10 +18,14 @@ src/FullSystem/CoarseInitializer.cpp):
 `FullSystem` starts it when the first frame arrives without a cloud, so the
 pipeline runs camera-only (monocular, scale-free).
 
-Each level's LM (`_level_lm`) runs as the port's other LMs do: a host loop
-with one device read per iteration (the loop's stop test), the accept /
-reject state selected on the device by `torch.where`, float32 throughout.
-The 8x8 Schur solve is one `torch.linalg.solve_ex` call. The pattern
+Each level's LM (`_level_lm`) is one stage program (`utils/device_loop.
+program`, "mono_lm": the JAX package compiles one program per level), a
+key per level shape, point cap and `max_iters`: the initial calcResAndGS,
+the loop and the rmse. The loop (`device_loop.run`, "mono") is the JAX
+package's `lax.while_loop`: its stop test `(fails >= 2) | done` is a
+carry, and an iteration after the stop changes no carry; the accept /
+reject state is selected on the device by `torch.where`, float32
+throughout. The 8x8 Schur solve is one `torch.linalg.solve_ex` call. The pattern
 samples come from `ops/trace.pattern_colors` and the quad-packed sampler
 (`ops/warp.pack_bilinear`, `ops/align._quad_bilinear`). Between-level
 propagation runs on host numpy, as in the JAX package.
@@ -46,7 +50,7 @@ from sdv_loam_tpu_torch.ops.knn import knn, nearest_cross
 from sdv_loam_tpu_torch.ops.select import cascade_direction_draws, make_maps
 from sdv_loam_tpu_torch.ops.trace import pattern_colors
 from sdv_loam_tpu_torch.ops.warp import pack_bilinear
-from sdv_loam_tpu_torch.utils import se3
+from sdv_loam_tpu_torch.utils import device_loop, se3
 
 # trackFrame constants (CoarseInitializer.cpp:58-62)
 ALPHA_K = 2.5 * 2.5
@@ -88,141 +92,220 @@ def _level_lm(T_init, aff_init, pt, nbr_idx, nbr_ok, quad_new, ref_color,
     quad_new: (h*w, 12) quad-packed target level (intensity + grads).
     ref_color: (N, 8) pattern intensities of the first frame.
     snapped_in: () bool tensor. Returns a dict with the updated pose, affine
-    and pools, `snapped`, `rmse` and `iters` (device tensors)."""
+    and pools, `snapped`, `rmse` and `iters` (device tensors). One stage
+    program (`device_loop.program`, "mono_lm")."""
+    x = dict(T=T_init, aff=aff_init, pt=dict(pt), nbr_idx=nbr_idx,
+             nbr_ok=nbr_ok, quad_new=quad_new, ref_color=ref_color, K=K,
+             snapped=snapped_in)
+    return device_loop.program("mono_lm", _level_lm_program, x, dict(
+        w=int(w), h=int(h), max_iters=int(max_iters),
+        huber_th=float(huber_th)))
+
+
+def _calc_res_gs(x, T, aff, idepth, is_good, energy, energy_a, w, h,
+                 huber_th):
+    """calcResAndGS: per-point pattern residuals -> (H, b, Hsc, bsc, Jb,
+    E, alphaEnergy, isGood_new, maxstep). `x`: the level's fixed inputs
+    (`_level_lm_program`)."""
     f32 = torch.float32
-    dev = pt["u"].device
-    T_init = T_init.to(f32)
-    aff_init = aff_init.to(f32)
-    quad_new = quad_new.to(f32)
-    ref_color = ref_color.to(f32)
-    K = K.to(f32)
+    dev = idepth.device
+    fx, fy, cx, cy = x["K"][0], x["K"][1], x["K"][2], x["K"][3]
+    ref_color = x["ref_color"]
+    npts = x["npts"]
+    zero = torch.zeros((), dtype=f32, device=dev)
+    outlier_th = 8 * 12 * 12
+    R = T[:3, :3]
+    t = T[:3, 3]
+    ptp = torch.einsum("ij,npj->npi", R, x["Kinv_r"]) \
+        + (t[None, :] * idepth[:, None])[:, None, :]
+    u = ptp[..., 0] / ptp[..., 2]
+    v = ptp[..., 1] / ptp[..., 2]
+    Ku = fx * u + cx
+    Kv = fy * v + cy
+    new_id = idepth[:, None] / ptp[..., 2]
+    inb = (Ku > 1) & (Kv > 1) & (Ku < w - 2) & (Kv < h - 2) & (new_id > 0)
+    Kuc = torch.clamp(Ku, 0.0, w - 1.01)
+    Kvc = torch.clamp(Kv, 0.0, h - 1.01)
+    hit = _quad_bilinear(x["quad_new"], x["base0"], x["wv"], Kuc,
+                         Kvc)                                   # (N, 8, 3)
+    a_exp = torch.exp(aff[0])
+    res = hit[..., 0] - a_exp * ref_color - aff[1]
+    ok_fin = torch.isfinite(res)
+    absr = torch.abs(res)
+    hw = torch.where(absr < huber_th, torch.ones_like(absr),
+                     huber_th / torch.clamp(absr, min=1e-12))
+    e_pat = hw * res * res * (2.0 - hw)
+    good_pat = inb & ok_fin
+    all_ok = good_pat.all(-1) & is_good
+    energy_pt = torch.where(good_pat, e_pat, zero).sum(-1)
+    good_new = all_ok & (energy_pt <= outlier_th * 20)
+
+    # Jacobian rows (:371-400)
+    hws = torch.where(hw < 1.0, torch.sqrt(hw), hw)
+    dxdd = (t[0] - t[2] * u) / ptp[..., 2]
+    dydd = (t[1] - t[2] * v) / ptp[..., 2]
+    dxi = hws * hit[..., 1] * fx
+    dyi = hws * hit[..., 2] * fy
+    dp = torch.stack([
+        new_id * dxi,
+        new_id * dyi,
+        -new_id * (u * dxi + v * dyi),
+        -u * v * dxi - (1 + v * v) * dyi,
+        (1 + u * u) * dxi + u * v * dyi,
+        -v * dxi + u * dyi,
+        -hws * a_exp * ref_color,
+        -hws * torch.ones_like(u),
+    ], dim=-1)                                             # (N, 8, 8)
+    dd = dxi * dxdd + dyi * dydd                           # (N, 8)
+    rw = hws * res
+    maxstep = torch.where(
+        good_pat, 1.0 / torch.clamp(torch.hypot(dxdd * fx, dydd * fy),
+                                    min=1e-12),
+        torch.full((), 1e10, dtype=f32, device=dev)).amin(-1)
+
+    gsel = good_new[:, None]
+    dp_m = torch.where(gsel[..., None], dp, zero)
+    dd_m = torch.where(gsel, dd, zero)
+    r_m = torch.where(gsel, rw, zero)
+    Hm = torch.einsum("npi,npj->ij", dp_m, dp_m)
+    bm = torch.einsum("npi,np->i", dp_m, r_m)
+    Jb = torch.cat([
+        torch.einsum("npi,np->ni", dp_m, dd_m),            # 0..7
+        (r_m * dd_m).sum(-1)[:, None],                     # 8
+        (dd_m * dd_m).sum(-1)[:, None],                    # 9
+    ], dim=-1)
+
+    # energies: failed points contribute their OLD energy (:315,:425)
+    valid = x["valid"]
+    E_phot = torch.where(good_new, energy_pt,
+                         torch.where(valid, energy, zero)).sum()
+    ea_new = (idepth - 1.0) ** 2
+    E_alpha_pts = torch.where(good_new, ea_new,
+                              torch.where(valid, energy_a, zero)).sum()
+    alpha_energy = ALPHA_W * (E_alpha_pts + torch.sum(t * t) * npts)
+    capped = alpha_energy > ALPHA_K * npts
+    alpha_energy = torch.minimum(alpha_energy, ALPHA_K * npts)
+    alpha_opt = torch.where(capped, zero, zero + ALPHA_W)
+
+    # Schur terms with alpha / coupling priors (:481-520); the coupling
+    # pulls toward the level's input iR
+    Jb8 = Jb[:, 8] + alpha_opt * (idepth - 1.0) \
+        + torch.where(capped, COUPLING_WEIGHT * (idepth - x["iR0"]), zero)
+    Jb9 = Jb[:, 9] + alpha_opt + torch.where(capped,
+                                             zero + COUPLING_WEIGHT, zero)
+    Jb9i = torch.where(good_new, 1.0 / (1.0 + Jb9), zero)
+    Hsc = torch.einsum("ni,nj,n->ij", Jb[:, :8], Jb[:, :8], Jb9i)
+    bsc = torch.einsum("ni,n->i", Jb[:, :8], Jb8 * Jb9i)
+    Hm = Hm + torch.diag(torch.cat([(alpha_opt * npts).expand(3),
+                                    torch.zeros(5, dtype=f32, device=dev)]))
+    tlog = se3.se3_log(T)[:3]
+    bm = bm + torch.cat([tlog * alpha_opt * npts,
+                         torch.zeros(5, dtype=f32, device=dev)])
+
+    Jb_out = torch.cat([Jb[:, :8], Jb8[:, None], Jb9i[:, None]], dim=-1)
+    return dict(H=Hm, b=bm, Hsc=Hsc, bsc=bsc, Jb=Jb_out,
+                E_phot=E_phot, alpha_energy=alpha_energy,
+                capped=capped, good_new=good_new,
+                energy_pt=torch.where(good_new, energy_pt, energy),
+                energy_a=torch.where(good_new, ea_new, energy_a),
+                hess=Jb[:, 9], maxstep=maxstep)
+
+
+def _opt_reg(x, idepth, iR, is_good, snapped):
+    """optReg: iR <- 0.2 id + 0.8 median(neighbour iR) (:552-589)."""
+    nbr_c = x["nbr_c"]
+    med, nnn = _median_masked(iR[nbr_c], x["nbr_ok"] & is_good[nbr_c])
+    use = is_good & (nnn > 2) & torch.isfinite(med)
+    iR_new = torch.where(use, (1 - REG_WEIGHT) * idepth
+                         + REG_WEIGHT * med, iR)
+    return torch.where(snapped, iR_new, torch.ones_like(iR))
+
+
+def _mono_body(x, c, w, h, huber_th):
+    """One LM iteration (trackFrame's inner loop, :101-205); every carry
+    frozen once `stop` holds."""
+    f32 = torch.float32
+    dev = c["lam"].device
+    eye8 = torch.eye(8, dtype=f32, device=dev)
+    wm = device_loop.constant(W_M, dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    s_scale = 0.01 / (w * h)
+    lam = c["lam"]
+    Hl = c["H"] * (1.0 + lam * eye8) - c["Hsc"] / (1.0 + lam)
+    bl = c["b"] - c["bsc"] / (1.0 + lam)
+    Hl = wm[:, None] * Hl * wm[None, :] * s_scale
+    bl = wm * bl * s_scale
+    inc = -(wm * torch.linalg.solve_ex(Hl + eye8 * 1e-12, bl)[0])
+    inc = torch.where(torch.isfinite(inc), inc, zero)
+    T_new = se3.se3_exp(inc[:6]) @ c["T"]
+    aff_new = c["aff"] + inc[6:8]
+
+    # doStep (:918-945): per-point idepth back-substitution
+    bstep = c["Jb"][:, 8] + c["Jb"][:, :8] @ inc
+    step = -bstep * c["Jb"][:, 9] / (1.0 + lam)
+    mstep = torch.clamp(0.25 * c["maxstep"], max=1e10)
+    step = torch.maximum(torch.minimum(step, mstep), -mstep)
+    id_new = torch.clamp(c["idepth"] + step, 1e-3, 50.0)
+    id_new = torch.where(c["is_good"], id_new, c["idepth"])
+
+    st = _calc_res_gs(x, T_new, aff_new, id_new, c["is_good"], c["energy"],
+                      c["energy_a"], w, h, huber_th)
+    # calcEC (:533-551): coupling energy old/new (zero pre-snap)
+    snapped = c["snapped"]
+    ec_ok = st["good_new"]
+    ec_old = torch.where(ec_ok, (c["idepth"] - c["iR"]) ** 2, zero).sum()
+    ec_new = torch.where(ec_ok, (id_new - c["iR"]) ** 2, zero).sum()
+    ec_old = torch.where(snapped, COUPLING_WEIGHT * ec_old, zero)
+    ec_new = torch.where(snapped, COUPLING_WEIGHT * ec_new, zero)
+
+    e_new = st["E_phot"] + st["alpha_energy"] + ec_new
+    e_old = c["E_phot"] + c["alpha_energy"] + ec_old
+    accept = e_old > e_new
+    snapped = snapped | (accept & st["capped"])
+
+    new = dict(T=T_new, aff=aff_new, idepth=id_new,
+               iR=_opt_reg(x, id_new, c["iR"], st["good_new"], snapped),
+               is_good=st["good_new"], energy=st["energy_pt"],
+               energy_a=st["energy_a"], last_hessian=st["hess"],
+               H=st["H"], b=st["b"], Hsc=st["Hsc"], bsc=st["bsc"],
+               Jb=st["Jb"], maxstep=st["maxstep"],
+               E_phot=st["E_phot"], alpha_energy=st["alpha_energy"],
+               lam=torch.clamp(lam * 0.5, min=1e-4),
+               fails=torch.zeros_like(c["fails"]))
+    rej = dict(lam=torch.clamp(lam * 4.0, max=1e4), fails=c["fails"] + 1)
+    nxt = {k: torch.where(accept, new[k], rej.get(k, c[k])) for k in new}
+    done = torch.linalg.vector_norm(inc) <= 1e-4
+    nxt.update(snapped=snapped, it=c["it"] + 1,
+               stop=(nxt["fails"] >= 2) | done)
+    out = {k: torch.where(c["stop"], c[k], nxt[k]) for k in c}
+    return out, ~out["stop"]
+
+
+def _level_lm_program(x, w, h, max_iters, huber_th):
+    f32 = torch.float32
     pt = {k: (v.to(f32) if v.is_floating_point() else v)
-          for k, v in pt.items()}
+          for k, v in x["pt"].items()}
+    K = x["K"].to(f32)
+    dev = pt["u"].device
     N = pt["u"].shape[0]
     fx, fy, cx, cy = K[0], K[1], K[2], K[3]
-    pat = torch.as_tensor(PATTERN_P, dtype=f32, device=dev)
-    npts = pt["is_good"].sum().to(f32) + 1e-6
+    pat = device_loop.constant(PATTERN_P, dev)
+    xs = dict(
+        K=K, ref_color=x["ref_color"].to(f32), quad_new=x["quad_new"].to(f32),
+        valid=pt["valid"], iR0=pt["iR"],
+        npts=pt["is_good"].sum().to(f32) + 1e-6,
+        wv=torch.full((N, 1), w, dtype=torch.int64, device=dev),
+        base0=torch.zeros((N, 1), dtype=torch.int64, device=dev),
+        nbr_c=torch.clamp(x["nbr_idx"], 0, N - 1), nbr_ok=x["nbr_ok"],
+        Kinv_r=torch.stack([(pt["u"][:, None] + pat[None, :, 0] - cx) / fx,
+                            (pt["v"][:, None] + pat[None, :, 1] - cy) / fy,
+                            torch.ones((N, 8), dtype=f32, device=dev)],
+                           dim=-1))                              # (N, 8, 3)
     n_total = torch.clamp(pt["valid"].sum().to(f32), min=1.0)
-    outlier_th = 8 * 12 * 12
-    wv = torch.full((N, 1), w, dtype=torch.int64, device=dev)
-    base0 = torch.zeros((N, 1), dtype=torch.int64, device=dev)
-    eye8 = torch.eye(8, dtype=f32, device=dev)
-    wm = torch.as_tensor(W_M, device=dev)
-    zero = torch.zeros((), dtype=f32, device=dev)
-    nbr_c = torch.clamp(nbr_idx, 0, N - 1)
-    Kinv_r = torch.stack([(pt["u"][:, None] + pat[None, :, 0] - cx) / fx,
-                          (pt["v"][:, None] + pat[None, :, 1] - cy) / fy,
-                          torch.ones((N, 8), dtype=f32, device=dev)],
-                         dim=-1)                                 # (N, 8, 3)
-
-    def calc_res_gs(T, aff, idepth, is_good, energy, energy_a):
-        """calcResAndGS: per-point pattern residuals -> (H, b, Hsc, bsc,
-        Jb, E, alphaEnergy, isGood_new, maxstep)."""
-        R = T[:3, :3]
-        t = T[:3, 3]
-        ptp = torch.einsum("ij,npj->npi", R, Kinv_r) \
-            + (t[None, :] * idepth[:, None])[:, None, :]
-        u = ptp[..., 0] / ptp[..., 2]
-        v = ptp[..., 1] / ptp[..., 2]
-        Ku = fx * u + cx
-        Kv = fy * v + cy
-        new_id = idepth[:, None] / ptp[..., 2]
-        inb = (Ku > 1) & (Kv > 1) & (Ku < w - 2) & (Kv < h - 2) & (new_id > 0)
-        Kuc = torch.clamp(Ku, 0.0, w - 1.01)
-        Kvc = torch.clamp(Kv, 0.0, h - 1.01)
-        hit = _quad_bilinear(quad_new, base0, wv, Kuc, Kvc)     # (N, 8, 3)
-        a_exp = torch.exp(aff[0])
-        res = hit[..., 0] - a_exp * ref_color - aff[1]
-        ok_fin = torch.isfinite(res)
-        absr = torch.abs(res)
-        hw = torch.where(absr < huber_th, torch.ones_like(absr),
-                         huber_th / torch.clamp(absr, min=1e-12))
-        e_pat = hw * res * res * (2.0 - hw)
-        good_pat = inb & ok_fin
-        all_ok = good_pat.all(-1) & is_good
-        energy_pt = torch.where(good_pat, e_pat, zero).sum(-1)
-        good_new = all_ok & (energy_pt <= outlier_th * 20)
-
-        # Jacobian rows (:371-400)
-        hws = torch.where(hw < 1.0, torch.sqrt(hw), hw)
-        dxdd = (t[0] - t[2] * u) / ptp[..., 2]
-        dydd = (t[1] - t[2] * v) / ptp[..., 2]
-        dxi = hws * hit[..., 1] * fx
-        dyi = hws * hit[..., 2] * fy
-        dp = torch.stack([
-            new_id * dxi,
-            new_id * dyi,
-            -new_id * (u * dxi + v * dyi),
-            -u * v * dxi - (1 + v * v) * dyi,
-            (1 + u * u) * dxi + u * v * dyi,
-            -v * dxi + u * dyi,
-            -hws * a_exp * ref_color,
-            -hws * torch.ones_like(u),
-        ], dim=-1)                                             # (N, 8, 8)
-        dd = dxi * dxdd + dyi * dydd                           # (N, 8)
-        rw = hws * res
-        maxstep = torch.where(
-            good_pat, 1.0 / torch.clamp(torch.hypot(dxdd * fx, dydd * fy),
-                                        min=1e-12),
-            torch.full((), 1e10, dtype=f32, device=dev)).amin(-1)
-
-        gsel = good_new[:, None]
-        dp_m = torch.where(gsel[..., None], dp, zero)
-        dd_m = torch.where(gsel, dd, zero)
-        r_m = torch.where(gsel, rw, zero)
-        Hm = torch.einsum("npi,npj->ij", dp_m, dp_m)
-        bm = torch.einsum("npi,np->i", dp_m, r_m)
-        Jb = torch.cat([
-            torch.einsum("npi,np->ni", dp_m, dd_m),            # 0..7
-            (r_m * dd_m).sum(-1)[:, None],                     # 8
-            (dd_m * dd_m).sum(-1)[:, None],                    # 9
-        ], dim=-1)
-
-        # energies: failed points contribute their OLD energy (:315,:425)
-        E_phot = torch.where(good_new, energy_pt,
-                             torch.where(pt["valid"], energy, zero)).sum()
-        ea_new = (idepth - 1.0) ** 2
-        E_alpha_pts = torch.where(good_new, ea_new,
-                                  torch.where(pt["valid"], energy_a,
-                                              zero)).sum()
-        alpha_energy = ALPHA_W * (E_alpha_pts + torch.sum(t * t) * npts)
-        capped = alpha_energy > ALPHA_K * npts
-        alpha_energy = torch.minimum(alpha_energy, ALPHA_K * npts)
-        alpha_opt = torch.where(capped, zero, zero + ALPHA_W)
-
-        # Schur terms with alpha / coupling priors (:481-520)
-        Jb8 = Jb[:, 8] + alpha_opt * (idepth - 1.0) \
-            + torch.where(capped, COUPLING_WEIGHT * (idepth - pt["iR"]), zero)
-        Jb9 = Jb[:, 9] + alpha_opt + torch.where(capped,
-                                                 zero + COUPLING_WEIGHT, zero)
-        Jb9i = torch.where(good_new, 1.0 / (1.0 + Jb9), zero)
-        Hsc = torch.einsum("ni,nj,n->ij", Jb[:, :8], Jb[:, :8], Jb9i)
-        bsc = torch.einsum("ni,n->i", Jb[:, :8], Jb8 * Jb9i)
-        Hm = Hm + torch.diag(torch.cat([(alpha_opt * npts).expand(3),
-                                        torch.zeros(5, dtype=f32,
-                                                    device=dev)]))
-        tlog = se3.se3_log(T)[:3]
-        bm = bm + torch.cat([tlog * alpha_opt * npts,
-                             torch.zeros(5, dtype=f32, device=dev)])
-
-        Jb_out = torch.cat([Jb[:, :8], Jb8[:, None], Jb9i[:, None]], dim=-1)
-        return dict(H=Hm, b=bm, Hsc=Hsc, bsc=bsc, Jb=Jb_out,
-                    E_phot=E_phot, alpha_energy=alpha_energy,
-                    capped=capped, good_new=good_new,
-                    energy_pt=torch.where(good_new, energy_pt, energy),
-                    energy_a=torch.where(good_new, ea_new, energy_a),
-                    hess=Jb[:, 9], maxstep=maxstep)
-
-    def opt_reg(idepth, iR, is_good, snapped):
-        """optReg: iR <- 0.2 id + 0.8 median(neighbour iR) (:552-589)."""
-        med, nnn = _median_masked(iR[nbr_c], nbr_ok & is_good[nbr_c])
-        use = is_good & (nnn > 2) & torch.isfinite(med)
-        iR_new = torch.where(use, (1 - REG_WEIGHT) * idepth
-                             + REG_WEIGHT * med, iR)
-        return torch.where(snapped, iR_new, torch.ones_like(iR))
-
-    st0 = calc_res_gs(T_init, aff_init, pt["idepth"], pt["is_good"],
-                      pt["energy"], pt["energy_a"])
+    T_init = x["T"].to(f32)
+    aff_init = x["aff"].to(f32)
+    st0 = _calc_res_gs(xs, T_init, aff_init, pt["idepth"], pt["is_good"],
+                       pt["energy"], pt["energy_a"], w, h, huber_th)
     # applyStep after the initial calcRes (:99): energies/hessians adopt
     c = dict(T=T_init, aff=aff_init, idepth=pt["idepth"], iR=pt["iR"],
              is_good=st0["good_new"], energy=st0["energy_pt"],
@@ -231,63 +314,17 @@ def _level_lm(T_init, aff_init, pt, nbr_idx, nbr_ok, quad_new, ref_color,
              Jb=st0["Jb"], maxstep=st0["maxstep"],
              E_phot=st0["E_phot"], alpha_energy=st0["alpha_energy"],
              lam=torch.full((), 0.1, dtype=f32, device=dev),
-             fails=torch.zeros((), dtype=torch.int64, device=dev))
-    snapped = snapped_in.to(dev)
-    s_scale = 0.01 / (w * h)
-    it = 0
-    while it < max_iters:
-        lam = c["lam"]
-        Hl = c["H"] * (1.0 + lam * eye8) - c["Hsc"] / (1.0 + lam)
-        bl = c["b"] - c["bsc"] / (1.0 + lam)
-        Hl = wm[:, None] * Hl * wm[None, :] * s_scale
-        bl = wm * bl * s_scale
-        inc = -(wm * torch.linalg.solve_ex(Hl + eye8 * 1e-12, bl)[0])
-        inc = torch.where(torch.isfinite(inc), inc, zero)
-        T_new = se3.se3_exp(inc[:6]) @ c["T"]
-        aff_new = c["aff"] + inc[6:8]
-
-        # doStep (:918-945): per-point idepth back-substitution
-        bstep = c["Jb"][:, 8] + c["Jb"][:, :8] @ inc
-        step = -bstep * c["Jb"][:, 9] / (1.0 + lam)
-        mstep = torch.clamp(0.25 * c["maxstep"], max=1e10)
-        step = torch.maximum(torch.minimum(step, mstep), -mstep)
-        id_new = torch.clamp(c["idepth"] + step, 1e-3, 50.0)
-        id_new = torch.where(c["is_good"], id_new, c["idepth"])
-
-        st = calc_res_gs(T_new, aff_new, id_new, c["is_good"],
-                         c["energy"], c["energy_a"])
-        # calcEC (:533-551): coupling energy old/new (zero pre-snap)
-        ec_ok = st["good_new"]
-        ec_old = torch.where(ec_ok, (c["idepth"] - c["iR"]) ** 2, zero).sum()
-        ec_new = torch.where(ec_ok, (id_new - c["iR"]) ** 2, zero).sum()
-        ec_old = torch.where(snapped, COUPLING_WEIGHT * ec_old, zero)
-        ec_new = torch.where(snapped, COUPLING_WEIGHT * ec_new, zero)
-
-        e_new = st["E_phot"] + st["alpha_energy"] + ec_new
-        e_old = c["E_phot"] + c["alpha_energy"] + ec_old
-        accept = e_old > e_new
-        snapped = snapped | (accept & st["capped"])
-
-        new = dict(T=T_new, aff=aff_new, idepth=id_new,
-                   iR=opt_reg(id_new, c["iR"], st["good_new"], snapped),
-                   is_good=st["good_new"], energy=st["energy_pt"],
-                   energy_a=st["energy_a"], last_hessian=st["hess"],
-                   H=st["H"], b=st["b"], Hsc=st["Hsc"], bsc=st["bsc"],
-                   Jb=st["Jb"], maxstep=st["maxstep"],
-                   E_phot=st["E_phot"], alpha_energy=st["alpha_energy"],
-                   lam=torch.clamp(lam * 0.5, min=1e-4),
-                   fails=torch.zeros_like(c["fails"]))
-        rej = dict(lam=torch.clamp(lam * 4.0, max=1e4), fails=c["fails"] + 1)
-        c = {k: torch.where(accept, new[k], rej.get(k, c[k])) for k in c}
-        it += 1
-        done = torch.linalg.vector_norm(inc) <= 1e-4
-        if bool((c["fails"] >= 2) | done):     # the iteration's one read
-            break
+             fails=torch.zeros((), dtype=torch.int64, device=dev),
+             snapped=x["snapped"].to(dev),
+             it=torch.zeros((), dtype=torch.int64, device=dev),
+             stop=torch.zeros((), dtype=torch.bool, device=dev))
+    c = device_loop.run("mono", _mono_body, xs, c, max_iters,
+                        dict(w=w, h=h, huber_th=huber_th))
     rmse = torch.sqrt(c["E_phot"] / torch.clamp(n_total * 8.0, min=1.0))
     return dict(T=c["T"], aff=c["aff"], idepth=c["idepth"], iR=c["iR"],
                 is_good=c["is_good"], energy=c["energy"],
                 energy_a=c["energy_a"], last_hessian=c["last_hessian"],
-                snapped=snapped, rmse=rmse, iters=it)
+                snapped=c["snapped"], rmse=rmse, iters=c["it"])
 
 
 class MonoInitializer:
@@ -313,6 +350,8 @@ class MonoInitializer:
         self.T = np.eye(4, dtype=np.float32)          # thisToNext
         self.aff = np.zeros(2, np.float32)
         self.pts: list[dict] = []
+        # per tracked frame, each level LM's iterations (coarse to fine)
+        self.lm_iters: list[list[int]] = []
 
     # ------------------------------------------------------------- setup
     def _draws(self, h, w, device):
@@ -470,6 +509,7 @@ class MonoInitializer:
         T = t(self.T)
         aff = t(self.aff)
         snapped = t(self.snapped)
+        iters = []
         for lvl in range(self.levels - 1, -1, -1):
             if lvl < self.levels - 1:
                 self._propagate_down(lvl + 1)
@@ -487,10 +527,12 @@ class MonoInitializer:
             T, aff, snapped = out["T"], out["aff"], out["snapped"]
             for f in LM_FIELDS:
                 p[f] = out[f].cpu().numpy()
+            iters.append(int(out["iters"]))
 
         self.T = T.cpu().numpy()
         self.aff = aff.cpu().numpy()
         self.snapped = bool(snapped)
+        self.lm_iters.append(iters)
         for lvl in range(self.levels - 1):
             self._propagate_up(lvl)
         self.frame_id += 1

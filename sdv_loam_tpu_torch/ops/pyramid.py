@@ -5,11 +5,17 @@ FrameHessian::makeImages, HessianBlocks.cpp:107-167): level l intensity is
 the exact 2x2 average of level l-1; per-level central-difference gradients
 with zeroed border rows/columns; absSquaredGrad = dx^2 + dy^2, optionally
 weighted by the squared gamma-response derivative.
+
+The pyramid is one stage program (`utils/device_loop.program`,
+"pyramid"), as the JAX package compiles `make_images`: a key per image
+shape, lanes, level count and whether `gamma_grad` is given.
 """
 
 from __future__ import annotations
 
 import torch
+
+from sdv_loam_tpu_torch.utils import device_loop
 
 
 def avg_pool2(img: torch.Tensor) -> torch.Tensor:
@@ -48,9 +54,22 @@ def make_images(color: torch.Tensor, levels: int,
         ((L, H_l, W_l, 3) for a stack).
       abs_grad: tuple of (H_l, W_l) squared-gradient tensors per level.
     """
+    single = color.dim() == 2
+    x = dict(color=color[None] if single else color)
+    if gamma_grad is not None:
+        x["gamma_grad"] = gamma_grad
+    dI, abs_grad = device_loop.program("pyramid", _pyramid_program, x,
+                                       dict(levels=int(levels)))
+    if single:
+        return tuple(d[0] for d in dI), tuple(a[0] for a in abs_grad)
+    return tuple(dI), tuple(abs_grad)
+
+
+def _pyramid_program(x, levels):
     dI = []
     abs_grad = []
-    img = color
+    img = x["color"]
+    gamma_grad = x.get("gamma_grad")
     for lvl in range(levels):
         if lvl > 0:
             img = avg_pool2(img)
@@ -67,7 +86,7 @@ def make_images(color: torch.Tensor, levels: int,
 
 def make_images_batch(colors: torch.Tensor, levels: int):
     """L-frame fleet pyramid (the JAX package's vmap of make_images): one
-    launch stream for a (L, H, W) stack. Returns per-lane pyramids, lane
+    program for a (L, H, W) stack. Returns per-lane pyramids, lane
     l's levels being views into the stacked levels."""
     dI, abs_grad = make_images(colors, levels)
     return [(tuple(d[i] for d in dI), tuple(a[i] for a in abs_grad))

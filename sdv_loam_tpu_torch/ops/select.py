@@ -7,6 +7,13 @@ the three per-cell direction-index grids from a `torch.Generator`, and the
 selection functions take those grids, so a test can feed the JAX draws.
 The keep sub-sampling uses numpy's `default_rng(sub_seed)` as in the JAX
 package, so it is identical in both.
+
+One selection attempt is one stage program (`utils/device_loop.program`):
+"select" (`select_compact_lanes`, the JAX package's compiled
+`_select_compact_impl` and `select_compact_batch`) and "select_map"
+(`select_cascade`, the status-map form of the camera-only bootstrap).
+The density feedback between attempts stays on the host, as in the JAX
+package: it reads an attempt's `counts` after the attempt.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ import numpy as np
 import torch
 
 from sdv_loam_tpu_torch.config import Settings
+from sdv_loam_tpu_torch.utils import device_loop
 
 # the 16 candidate directions (PixelSelector2.cpp:214-229)
 DIRECTIONS = np.array(
@@ -44,9 +52,12 @@ def grad_hist_thresholds(abs_grad0: torch.Tensor, min_grad_hist_cut=0.5,
     binb = inb.reshape(h32, 32, w32, 32).permute(0, 2, 1, 3).reshape(
         h32, w32, -1).expand(L, h32, w32, -1)
     bid = torch.arange(L * h32 * w32, device=dev).reshape(L, h32, w32, 1) * 49
+    # an integer sum: exact in any order (on CUDA an accumulating
+    # `index_put_` reads the indices' range on the host; `index_add_` does
+    # not)
     hist = torch.zeros(L * h32 * w32 * 49, dtype=torch.int64, device=dev)
-    hist.index_put_(((bid + blocks).reshape(-1),),
-                    binb.reshape(-1).to(torch.int64), accumulate=True)
+    hist.index_add_(0, (bid + blocks).reshape(-1),
+                    binb.reshape(-1).to(torch.int64))
     hist = hist.reshape(L, h32, w32, 49)
     total = hist.sum(dim=-1)
     cum = torch.cumsum(hist, dim=-1)
@@ -142,7 +153,7 @@ def _cascade_winners(dI0, ag0, ag1, ag2, ths_smoothed, cand_mask, dir_idx,
     hp = -(-h // p4) * p4
     wp = -(-w // p4) * p4
     nc_y, nc_x = hp // pot, wp // pot
-    dirs = torch.as_tensor(DIRECTIONS, device=dev)
+    dirs = device_loop.constant(DIRECTIONS, dev)
 
     def cell_dirs(idx, rep):
         d = dirs[idx.to(torch.int64)]                   # (L, n_y, n_x, 2)
@@ -230,16 +241,37 @@ def select_compact_lanes(dI0, ag0, ag1, ag2, cand_mask, depth_map,
     `select_compact_batch`): every tensor carries a leading L, each lane
     with its own direction draws; the statics and the float settings are
     the lanes' common ones. Returns select_compact's dict with a leading
-    L."""
+    L. One stage program (`device_loop.program`, "select"): a key per
+    lanes, image shape, pot bucket (the direction grids' shapes) and
+    cap."""
+    L, h, w = ag0.shape
+    x = dict(dI0=dI0, ag0=ag0, ag1=ag1, ag2=ag2, cand_mask=cand_mask,
+             depth_map=depth_map, px_u_map=px_u_map, px_v_map=px_v_map,
+             dir_idx=tuple(dir_idx))
+    return device_loop.program("select", _select_program, x, dict(
+        pot=int(pot), cap=int(cap),
+        select_direction_distribution=bool(select_direction_distribution),
+        th_factor=float(th_factor),
+        min_grad_hist_cut=float(min_grad_hist_cut),
+        min_grad_hist_add=float(min_grad_hist_add),
+        grad_downweight_per_level=float(grad_downweight_per_level),
+        h=int(h), w=int(w)))
+
+
+def _select_program(x, pot, cap, select_direction_distribution, th_factor,
+                    min_grad_hist_cut, min_grad_hist_add,
+                    grad_downweight_per_level, h, w):
     from sdv_loam_tpu_torch.ops.distmap import shi_tomasi
     from sdv_loam_tpu_torch.ops.trace import pattern_colors
 
-    L, h, w = ag0.shape
+    dI0, ag0, depth_map, px_u_map, px_v_map = (x[k] for k in (
+        "dI0", "ag0", "depth_map", "px_u_map", "px_v_map"))
+    L = ag0.shape[0]
     ar = torch.arange(L, device=ag0.device)[:, None]
     ths = grad_hist_thresholds(ag0, min_grad_hist_cut, min_grad_hist_add)
     winners, counts, (hp, wp) = _cascade_winners(
-        dI0, ag0, ag1, ag2, ths, cand_mask, dir_idx, pot, th_factor,
-        grad_downweight_per_level, select_direction_distribution)
+        dI0, ag0, x["ag1"], x["ag2"], ths, x["cand_mask"], x["dir_idx"], pot,
+        th_factor, grad_downweight_per_level, select_direction_distribution)
     widx = torch.cat([torch.where(s, i, torch.full_like(i, hp * wp))
                       .reshape(L, -1) for s, i, _ in winners], 1)
     wvalid = widx < hp * wp
@@ -361,13 +393,25 @@ def select_cascade(dI0, ag0, ag1, ag2, ths_smoothed, cand_mask, dir_idx,
                    select_direction_distribution: bool = True):
     """The 3-scale selection cascade of one image as the dense status
     image (the JAX package's `select_cascade`): (status (H, W) int8 in
-    {0, 1, 2, 4}, counts (3,))."""
-    h, w = ag0.shape
+    {0, 1, 2, 4}, counts (3,)). One stage program (`device_loop.program`,
+    "select_map"): a key per image shape and pot."""
+    x = dict(dI0=dI0, ag0=ag0, ag1=ag1, ag2=ag2, ths=ths_smoothed,
+             cand_mask=cand_mask, dir_idx=tuple(dir_idx))
+    return device_loop.program("select_map", _select_map_program, x, dict(
+        pot=int(pot), th_factor=float(th_factor),
+        grad_downweight_per_level=float(grad_downweight_per_level),
+        select_direction_distribution=bool(select_direction_distribution)))
+
+
+def _select_map_program(x, pot, th_factor, grad_downweight_per_level,
+                        select_direction_distribution):
+    h, w = x["ag0"].shape
     winners, counts, (hp, wp) = _cascade_winners(
-        dI0[None], ag0[None], ag1[None], ag2[None], ths_smoothed[None],
-        cand_mask[None], tuple(d[None] for d in dir_idx), pot, th_factor,
+        *(x[k][None] for k in ("dI0", "ag0", "ag1", "ag2", "ths",
+                               "cand_mask")),
+        tuple(d[None] for d in x["dir_idx"]), pot, th_factor,
         grad_downweight_per_level, select_direction_distribution)
-    status = torch.zeros(hp * wp, dtype=torch.int64, device=ag0.device)
+    status = torch.zeros(hp * wp, dtype=torch.int64, device=x["ag0"].device)
     for sel, idx, code in winners[::-1]:
         status.scatter_reduce_(
             0, torch.where(sel, idx, torch.full_like(idx, hp * wp - 1))

@@ -3,8 +3,9 @@ their `lax.while_loop`s as CUDA graphs.
 
 Loops (`run`). Each iterated stage of the JAX package (the tracking LM and
 its cutoff pre-loop, the feature alignment, the struct-pose LM, the
-windowed BA and the LiDAR components fixpoint) is a loop on the device. The
-port runs the same loops through `run`:
+windowed BA, the LiDAR components fixpoint and the camera-only
+bootstrap's level LM) is a loop on the device. The port runs the same
+loops through `run`:
 
 * a *body* is a function `body(x, st, **static) -> (st, active)`: `x` is a
   dict of input tensors that stay fixed over the loop, `st` the dict of
@@ -29,9 +30,12 @@ port runs the same loops through `run`:
   strides, and another kernel rounds otherwise.
 
 Stage programs (`program`). The JAX package compiles each stage into one
-program. `program(stage, fn, inputs, static)` is its counterpart for the
-track step, the LiDAR preprocessing, the trace, the activation and the
-keyframe optimization: on
+program. `program(stage, fn, inputs, static)` is its counterpart for every
+per-frame stage: the pyramid ("pyramid"), the track step ("track"), the
+LiDAR preprocessing ("lidar"), the trace ("trace"), a selection attempt
+("select"), the activation ("activate"), the keyframe optimization
+("kf_opt"), and the camera-only bootstrap's status-map selection attempt
+("select_map") and level LM ("mono_lm"). On
 CUDA, `fn(inputs, **static)` is captured whole as one CUDA graph per key
 (stage, function, the inputs' structure, shapes, strides and dtypes,
 device, `static`); a call copies its inputs into the graph's static
@@ -48,7 +52,8 @@ Inside a capture:
 
 The process's first call of a stage runs `fn` eagerly (early-exit loops
 and host reads: the same values), which loads the kernels' modules and
-touches every lazily made constant, and returns its results; the capture
+touches every lazily made constant, and returns its results (cloned as a
+replay's outputs are, so they come out in one layout); the capture
 follows in the same call (a cache first makes its threads' library handles
 on its streams), and a failed capture raises. A later new key (another
 shape, or another system's cache) captures at its first call and
@@ -118,9 +123,16 @@ import torch
 #   splat    the tracking reference's splat rounds (round r adds the r-th
 #            point of every pixel): outside the keyframe program only the
 #            first frame's runs here; every splat chip_smoke.py compares
-#            at 1200x360 ended within one replay of 4 rounds.
+#            at 1200x360 ended within one replay of 4 rounds;
+#   mono     the camera-only bootstrap's level LM (caps 5, 5, 10, 30, 50,
+#            fine to coarse), outside its program only in the stage form.
+#            On the 320x96 camera-only scene (three levels, 21 calls over
+#            its 7 bootstrap frames) the two fine levels ran to their cap
+#            of 5 on every call and the coarsest stopped after 6-10: one
+#            replay of 5 covers a fine level with no read, the coarsest
+#            takes one or two.
 CHUNK = {"lm": 3, "cutoff": 2, "align": 10, "struct": 10, "ba0": 2, "ba": 1,
-         "sweep": 2, "splat": 4}
+         "sweep": 2, "splat": 4, "mono": 5}
 
 # Inside a stage program a loop's chunk is one iteration: a pass of its
 # WHILE node costs a few small device copies and no host read, so a longer
@@ -820,9 +832,9 @@ _WARM: set = set()
 
 def _graph_program(stage, fn, leaves, spec, static, dev):
     """Replay the program of this key (capturing it at the first call; the
-    process's first call of `fn` returns its eager warm-up run instead);
-    returns (outputs, replayed)."""
-    from torch.utils._pytree import tree_unflatten
+    process's first call of `fn` returns its eager warm-up run instead,
+    in the layout a replay's clones have); returns (outputs, replayed)."""
+    from torch.utils._pytree import tree_map, tree_unflatten
 
     from sdv_loam_tpu_torch.ops import hopper_kernels
 
@@ -850,7 +862,10 @@ def _graph_program(stage, fn, leaves, spec, static, dev):
         _capture_program(cache, stage, fn, e, spec, static, dev)
         cache.entries[key] = e
         if not warm:
-            return out, False
+            # cloned as a replay's outputs are: a view with gaps comes out
+            # dense, so an input chained from it keeps the next program's
+            # key
+            return tree_map(torch.Tensor.clone, out), False
     if e.stream is not None and e.stream != cur:
         cur.wait_stream(e.stream)      # the last call's replay and clones
     e.stream = cur

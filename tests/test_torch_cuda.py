@@ -249,8 +249,9 @@ def test_programs_match_stage_form(cuda, lanes):
     seen = {}
     for rec in log:
         seen.setdefault(rec["stage"], []).append(rec)
-    need = {"track", "lidar", "trace", "activate", "kf_opt"} if lanes == 1 \
-        else {"track", "lidar", "kf_opt"}
+    need = {"track", "lidar", "trace", "activate", "kf_opt", "select",
+            "pyramid"} if lanes == 1 else {"track", "lidar", "kf_opt",
+                                           "pyramid"}
     assert need <= set(seen), seen.keys()
     if lanes > 1:
         assert any(r["leaves"][0].shape[0] == lanes for r in seen["kf_opt"])
@@ -294,6 +295,66 @@ def test_whole_run_programs_match_stage_form(cuda):
                             "sweep", "ba0", "ba", "match2", "marg")), c
     assert np.array_equal(trajs[0], trajs[2])
     assert np.array_equal(trajs[1], trajs[2])
+
+
+@pytest.mark.cuda
+def test_bootstrap_programs_match_stage_form(cuda):
+    """Four frames of the camera-only 320x96 scene: the bootstrap's
+    programs ("select_map", "mono_lm", "pyramid") replayed on the card
+    against the stage form on the same inputs, bit for bit; a second
+    system past the process's warm-up reads no flag, takes the stage
+    form's level LM iterations and reaches its pose bit for bit."""
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    seq = make_sequence(n_frames=4, w=320, h=96, step=0.4, lidar_stride=8)
+    kw = dict(use_struct_pose=False, pipelined_frames=False)
+    inis, log = [], []
+    for ctx in (contextlib.nullcontext(), contextlib.nullcontext(),
+                dl.stage_form()):
+        dl.reset_counts()
+        fs = FullSystem(seq.calib, seq.sensor, Settings(**kw), device=cuda)
+        first = not inis
+        with ctx:
+            for i in range(4):
+                img, _, ts = seq.get(i)
+                with dl.recording(log, programs=True) if first else \
+                        contextlib.nullcontext():
+                    fs.add_active_frame(img, None, ts)
+                if i == 0:
+                    inis.append(fs._mono)
+        if len(inis) == 2:
+            c = dl.counts()
+            assert c["mono_lm"]["replays"] > 0
+            assert c.get("mono", {}).get("reads", 0) == 0, c
+    assert inis[0].lm_iters == inis[1].lm_iters == inis[2].lm_iters
+    assert np.array_equal(inis[1].T, inis[2].T)
+    seen = {}
+    for rec in log:
+        seen.setdefault(rec["stage"], []).append(rec)
+    assert {"select_map", "mono_lm", "pyramid"} <= set(seen), seen.keys()
+    for stage, recs in seen.items():
+        for rec in recs[:4]:
+            res = dl.compare_program(rec)
+            assert res["equal"] and res["replayed"], res
+
+
+@pytest.mark.cuda
+def test_warm_up_outputs_have_replay_layout(cuda):
+    """A program whose output is a view with gaps: its process-first call
+    (the eager warm-up) and its replays return it in one layout, the dense
+    one, so a program fed from it keeps one key."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    def first_channel(x):
+        return (x["v"] * 2.0)[..., 0]
+    x = dict(v=torch.arange(24.0, device=cuda).reshape(6, 4))
+    with dl.use(dl.LoopCache()):
+        outs = [dl.program("toy_layout", first_channel, x) for _ in range(3)]
+    assert all(o.stride() == (1,) and torch.equal(o, outs[0]) for o in outs)
+    assert torch.equal(outs[0], x["v"][:, 0] * 2.0)
 
 
 def _toy(x, k2):

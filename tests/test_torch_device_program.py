@@ -1,11 +1,14 @@
 """The port's stage programs (`device_loop.program`) on the CPU.
 
-On the card each of the four stages (the track step, the LiDAR
-preprocessing, the trace, the activation) is one captured CUDA graph, its
-loops' later chunks and its conds IF nodes. The CPU cannot capture; its
-program mode (`device_loop.programs`) runs the same functions in the trace
-form a capture records: every loop to its cap, every cond computed and
-selected, no host read. On recorded 320x96 frames, one lane and two:
+On the card each stage (the pyramid, the track step, the LiDAR
+preprocessing, the trace, the selection attempt, the activation, the
+keyframe optimization, and the camera-only bootstrap's status-map
+selection and level LM) is one captured CUDA graph, its loops' later
+chunks and its conds IF nodes. The CPU cannot capture; its program mode
+(`device_loop.programs`) runs the same functions in the trace form a
+capture records: every loop to its cap, every cond computed and selected,
+no host read. On recorded 320x96 frames, one lane and two (the bootstrap's
+programs on a camera-only scene, one lane):
 
   * capture safety: a program's function dispatches none of the ops a
     capture refuses or that read the device from the host
@@ -20,7 +23,10 @@ selected, no host read. On recorded 320x96 frames, one lane and two:
     references, the windowed LM's second loop, and a second-pass target
     that one lane runs and the other skips;
   * two consecutive keyframes of one window size class give the keyframe
-    program one key (no capture per keyframe on the card).
+    program one key (no capture per keyframe on the card);
+  * the level LM's program equals its stage form on each of the loop's
+    three exits: two rejected steps in a row, a step below 1e-4, the
+    iteration cap.
 """
 
 import pytest
@@ -44,7 +50,13 @@ FORBIDDEN = ("_local_scalar_dense", "nonzero", "nonzero_static",
              "is_nonzero", "equal", "masked_select", "lift_fresh",
              "bincount", "item")
 CASES = [("track", 1), ("track", 2), ("lidar", 1), ("lidar", 2),
-         ("trace", 1), ("activate", 1), ("kf_opt", 1), ("kf_opt", 2)]
+         ("trace", 1), ("activate", 1), ("kf_opt", 1), ("kf_opt", 2),
+         ("select", 1), ("select", 2), ("pyramid", 1), ("pyramid", 2),
+         ("mono_lm", 1), ("select_map", 1)]
+# the camera-only scene (tests/test_mono_init.py's): the bootstrap's
+# programs of its first frames
+MONO_SCENE = dict(w=320, h=96, step=0.4, lidar_stride=8)
+MONO_FRAMES = 4
 
 
 class _Refused(TorchDispatchMode):
@@ -97,6 +109,20 @@ def records():
         out.setdefault((rec["stage"], lanes), rec)
         if rec["stage"] == "kf_opt":
             out.setdefault(("kf_opt", "all"), []).append(rec)
+    mono = make_sequence(n_frames=MONO_FRAMES, **MONO_SCENE)
+    fs = FullSystem(mono.calib, mono.sensor,
+                    Settings(use_struct_pose=False, pipelined_frames=False),
+                    device="cpu")
+    log = []
+    for i in range(MONO_FRAMES):
+        img, _, ts = mono.get(i)
+        with dl.recording(log, programs=True):
+            fs.add_active_frame(img, None, ts)
+    assert not fs.initialized
+    for rec in log:
+        if rec["stage"] in ("mono_lm", "select_map"):
+            out.setdefault((rec["stage"], 1), rec)
+            out.setdefault((rec["stage"], "all"), []).append(rec)
     return out
 
 
@@ -291,3 +317,48 @@ def test_kf_opt_program_key_holds_across_keyframes(records):
     keys = [dl._program_key(r["stage"], r["fn"], r["leaves"], r["spec"],
                             r["static"], "cpu") for r in (a, b)]
     assert keys[0] == keys[1]
+
+
+def _mono_exit(rec):
+    """How the level LM's loop of `rec` (a "mono_lm" program) stops in the
+    stage form: ("fails" | "done" | "cap", iterations). The loop's own
+    body, stepped from its recorded first carries."""
+    loops = []
+    with dl.stage_form(), dl.recording(loops):
+        rec["fn"](_inputs(rec), **rec["static"])
+    (loop,) = [r for r in loops if r["stage"] == "mono"]
+    st = loop["st"]
+    for n in range(loop["max_iters"]):
+        st, active = loop["body"](loop["x"], st, **loop["static"])
+        if not bool(active):
+            why = "fails" if int(st["fails"]) >= 2 else "done"
+            return (why if n + 1 < loop["max_iters"] else "cap"), n + 1
+    return "cap", loop["max_iters"]
+
+
+def _empty_level(x):
+    """No point good and no translation: the increment is zero, so the
+    first iteration's step is below the stop threshold."""
+    x["pt"]["is_good"][:] = False
+    x["T"][:3, 3] = 0.0
+
+
+@pytest.mark.parametrize("exit_", ["fails", "done", "cap"])
+def test_mono_lm_program_on_each_exit(records, exit_):
+    """The level LM stops on two rejected steps in a row (a coarse level),
+    on a step below 1e-4 (an empty level), and at its cap (a fine level's
+    five iterations): the program's trace form equals the stage form bit
+    for bit, iterations included, and reads no flag."""
+    recs = records[("mono_lm", "all")]
+    if exit_ == "done":
+        recs = [_variant(recs[0], _empty_level)]
+    rec = next(r for r in recs if _mono_exit(r)[0] == exit_)
+    why, n = _mono_exit(rec)
+    dl.reset_counts()
+    res = dl.compare_program(rec)
+    assert res["equal"], res
+    with dl.programs():
+        out = dl.program(rec["stage"], rec["fn"], _inputs(rec),
+                         rec["static"])
+    assert int(out["iters"]) == n
+    assert dl.counts()["mono"]["reads"] == n - (exit_ == "cap")

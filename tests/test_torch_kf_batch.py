@@ -3,7 +3,8 @@ trace, selection, activation and keyframe optimization), on the CPU.
 
   * `trace_points_lanes` and `select_compact_lanes` against the JAX
     package's `trace_points_batch` and `select_compact_batch` on the same
-    numpy inputs, two lanes (the selection with the JAX draws injected);
+    numpy inputs, two lanes (the selection with the JAX draws injected,
+    also as its stage program in the trace form);
   * `activate_full_lanes`, `kf_opt_step_lanes`, `build_track_ref` and
     `distance_map_lanes`: a two-lane call equals the two one-lane calls
     (`torch.equal`), on the requests two FullSystems of
@@ -30,6 +31,7 @@ from sdv_loam_tpu_torch.ops.pyramid import make_images as t_make_images
 from sdv_loam_tpu_torch.system import kf_ops
 from sdv_loam_tpu_torch.system.full_system import FullSystem
 from sdv_loam_tpu_torch.system.multi import _stack, _widen
+from sdv_loam_tpu_torch.utils import device_loop as dl
 
 # one intra-op thread per test process (see tests/test_torch_multi.py)
 torch.set_num_threads(1)
@@ -169,6 +171,18 @@ def _select_args(seq, frame, lidar):
 
 @pytest.mark.parametrize("pot,lidar", [(3, True), (2, False)])
 def test_select_compact_lanes_match_jax_batch(seqs, pot, lidar):
+    _select_lanes_against_jax(seqs, pot, lidar)
+
+
+@pytest.mark.parametrize("pot,lidar", [(3, True), (2, False)])
+def test_select_compact_lanes_program_form_match_jax_batch(seqs, pot, lidar):
+    """The "select" program in its trace form (`device_loop.programs`)
+    against `select_compact_batch`, with the same bounds."""
+    with dl.programs():
+        _select_lanes_against_jax(seqs, pot, lidar)
+
+
+def _select_lanes_against_jax(seqs, pot, lidar):
     lanes = [_select_args(seq, 3, lidar) for seq in seqs]
     keys = [jax.random.PRNGKey(11), jax.random.PRNGKey(12)]
     jo = js.select_compact_batch(

@@ -2,7 +2,8 @@
 ops/knn (knn, nearest_cross, on grid inputs full of distance ties), the
 status-map selector ops/select.make_maps with the JAX draws injected,
 ops/mono_init (`_median_masked`, one `_level_lm` level from identical
-inputs, the whole MonoInitializer over tests/test_mono_init.py's scene) and
+inputs, the selection and the level LM also as stage programs in their
+trace form, the whole MonoInitializer over tests/test_mono_init.py's scene) and
 FullSystem with no cloud on any frame (test_full_system_camera_only's
 asserts, and the port's scale-aligned trajectory against the JAX
 package's), and the lockstep MultiSystem with a LiDAR-dropout lane and a
@@ -33,6 +34,7 @@ from sdv_loam_tpu_torch.ops.pyramid import make_images as t_make_images
 from sdv_loam_tpu_torch.ops.warp import pack_bilinear as t_pack
 from sdv_loam_tpu_torch.system.full_system import FullSystem as TFullSystem
 from sdv_loam_tpu_torch.system.multi import MultiSystem
+from sdv_loam_tpu_torch.utils import device_loop as dl
 
 # the port's CPU ops are small: one intra-op thread per test process
 torch.set_num_threads(1)
@@ -133,6 +135,20 @@ def test_nearest_cross_matches_jax(block):
     (0.2, 1.0, 6),       # many points wanted: re-run with a smaller pot
 ])
 def test_make_maps_matches_jax(pyramids, density_frac, th_factor, pot):
+    _make_maps_against_jax(pyramids, density_frac, th_factor, pot)
+
+
+@pytest.mark.parametrize("density_frac,th_factor,pot", [
+    (0.03, 2.0, 3), (0.002, 1.0, 3), (0.2, 1.0, 6)])
+def test_make_maps_program_form_matches_jax(pyramids, density_frac,
+                                            th_factor, pot):
+    """`make_maps` with each attempt's "select_map" program in its trace
+    form (`device_loop.programs`) against the JAX package's."""
+    with dl.programs():
+        _make_maps_against_jax(pyramids, density_frac, th_factor, pot)
+
+
+def _make_maps_against_jax(pyramids, density_frac, th_factor, pot):
     dI, ag = pyramids[0]
     h, w = ag[0].shape
     density = density_frac * w * h
@@ -205,6 +221,19 @@ def test_level_lm_matches_jax(seq, pyramids, jax_init, top):
     calcResAndGS terms (max_iters 0) within 1e-4 relative, then the whole
     level LM: the pose within 1e-4 (rad, unit-scale translation) and the
     median idepth within 1e-3 relative."""
+    _level_lm_against_jax(seq, pyramids, jax_init, top)
+
+
+@pytest.mark.parametrize("top", [True, False])
+def test_level_lm_program_form_matches_jax(seq, pyramids, jax_init, top):
+    """test_level_lm_matches_jax with the "mono_lm" program in its trace
+    form (`device_loop.programs`: the loop to its cap, stopped iterations
+    frozen): the same tolerances and the same iteration count."""
+    with dl.programs():
+        _level_lm_against_jax(seq, pyramids, jax_init, top)
+
+
+def _level_lm_against_jax(seq, pyramids, jax_init, top):
     lvl = seq.calib.levels - 1 if top else 0
     p, img, K, wh = _level_inputs(seq, pyramids, jax_init, lvl)
     st = jax_init["state"]
