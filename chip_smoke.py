@@ -13,9 +13,10 @@ Phases (any failure exits nonzero; each prints its results):
      preset's, odd shapes and L = 4 lanes, K2 at 32 and 64 sweeps; at the
      main-path shapes each lane of an L = 4 launch against its one-lane
      launch (exact); determinism of build_track_ref; at the main-path
-     shapes each kernel's device time (torch.profiler), wrapper and plain
-     CUDA-event times, bound and share; the CUDA kernels behind the
-     windowed BA's dense solve (one window, and four in one batched call);
+     shapes and the fast preset's each kernel's device time
+     (torch.profiler), wrapper and plain CUDA-event times, bound and
+     share; the CUDA kernels behind the windowed BA's dense solve (one
+     window, and four in one batched call);
   4. slice: the 30-frame default-preset synthetic KITTI scene (1200x360)
      through the port's run_sequence with the default Settings on cuda;
      requires not lost, >= 2 keyframes, ATE <= 0.10 m, one K1 launch per
@@ -67,6 +68,30 @@ Phases (any failure exits nonzero; each prints its results):
      ATE under 2 % of the path and at least one K1 and one K2 launch, and
      prints ATE, the BA step vetoes (`ba_step_veto`, `ba_step_veto_hard`),
      keyframes and frames/s;
+  8. the fast preset (`Settings.preset_fast()`, bench.py's second
+     operating point: 424x320, 800 points, 7 frame slots) on bench.py's
+     scenes at that resolution (fx 245.6, fy 611.8), each part with its
+     kernel launch counts; accuracy gated at the drift gate's share of the
+     path (this operating point drifts in the JAX package too):
+     (a) 30 frames of scene A through run_sequence in a child process of
+         its own (the process's first call of each stage program, its
+         eager warm-up, is then the fast preset's); requires not lost,
+         >= 2 keyframes, one K1 launch per keyframe program and
+         build_track_ref call outside it, a K2 launch and no flag read on
+         the host in a frame without a warm-up; then the same frames in
+         the stage form (the same decisions and trajectory bit for bit)
+         and the stage programs of frames 5-10 against the stage form;
+         prints frames/s (whole, frames 10-30), stage ms per frame, each
+         program's captures, keys, seconds, pool MiB and graph nodes, peak
+         memory, a profile window of frames 10-20 and each loop's
+         iteration counts (the early-exit loops over frames 0-14);
+     (b) scene A pipelined: (a)'s trajectory to 1e-5;
+     (c) B = 4 (A, B, A, B, 16 frames) as the batched lockstep: each lane
+         not lost, with its scene's keyframe count; K1 and K2 launches
+         that took two lanes or more; the programs of rounds 5-10 against
+         the stage form; aggregate frames/s and peak memory;
+     (d) 20 frames of scene A as a KITTI directory through the CLI with
+         `--preset 2`: rc 0 and one trajectory row per frame;
 The pyramid, the track step, the LiDAR preprocessing, the trace, a
 selection attempt, the activation, the keyframe optimization (matcher
 refresh, windowed BA, marginalization and the K1 launch), and the
@@ -133,6 +158,9 @@ LANES = 4
 LEVELS = 4
 MAIN_K1 = (360, 1200)
 MAIN_K2 = (180, 600)
+# the fast preset's (phase 8): 424x320 input, K2 on the level-1 grid
+FAST_K1 = (320, 424)
+FAST_K2 = (160, 212)
 ATE_LIMIT_M = 0.10
 # bench.py's default operating point (bench.py:122-132): two scenes
 SCENE = dict(w=1200, h=360, fx=718.856, cy_offset=0.0, step=0.7,
@@ -199,6 +227,24 @@ KEY_STATICS = ("levels", "pot", "cap", "max_iters")
 # first frame's tracking reference, outside any program)
 KF_PROGRAM_PARTS = ("ba0", "ba", "match2", "marg")
 PROFILE_ROUNDS = (5, 10)
+# phase 8: bench.py's fast operating point (its scene keywords,
+# bench.py:104-116 and :122-132): the reference's preset 2/3 on a
+# non-proportional resize of the KITTI frame; scene A's frames for one
+# sequence and for the CLI; the frames whose loops' iterations are counted
+FAST_SCENE = dict(w=424, h=320, fx=245.6, fy=611.8, cy_offset=0.0, step=0.7,
+                  lidar_stride=2, half_width=16.0, ground_contrast=0.25,
+                  follow_path=True)
+FAST_FRAMES = 30
+FAST_CLI_FRAMES = 20
+FAST_ITER_FRAMES = 15
+# The fast preset drifts on this scene in the JAX package too, so its
+# accuracy gate is the drift gate's share of the path (LONG_ATE_FRAC), not
+# the 0.10 m of a ~10 m path: the JAX package's ATE over scene A's 30
+# frames on the CPU is 0.266 m with x64 off and 0.058 m with x64 on (raw
+# scans), 0.580 and 0.524 m mid-binned.
+FAST_ATE_FRAC = LONG_ATE_FRAC
+# the argument that runs phase 8 (a) in this script's child process
+FAST_CHILD = "--fast-child"
 # the renderer's worker processes run one thread each: eight processes of
 # eight BLAS threads each ran at half the speed on an 8-core host
 RENDER_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
@@ -309,18 +355,22 @@ def check_kernels(device):
         if not eq:
             _fail(f"{name} differs from its plain version at {what}")
 
-    def times(name, kernel, plain, bound):
+    def times(name, kernel, plain, bound, shape):
         t_dev = kt.device_ms(kernel)
         t_k = kt.wrapper_ms(kernel)
         t_p = kt.wrapper_ms(plain)
         share = bound[0] / t_dev if t_dev else None
-        print(f"{name} time: device {t_dev} ms, wrapper {t_k:.4f} ms, "
-              f"plain {t_p:.4f} ms, bound {bound[0]:.6f} ms "
+        print(f"{name} time at {shape}: device {t_dev} ms, wrapper "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound[0]:.6f} ms "
               f"({bound[1]}), share of the bound {share}", flush=True)
-        rec[name].update(ms=t_k, plain_ms=t_p, device_ms=t_dev,
-                         bound_ms=bound[0], bound_us=1e3 * bound[0],
-                         bound_by=bound[1], share=share, library_ms=None,
-                         library="none")
+        t = dict(ms=t_k, plain_ms=t_p, device_ms=t_dev, bound_ms=bound[0],
+                 bound_us=1e3 * bound[0], bound_by=bound[1], share=share,
+                 library_ms=None, library="none")
+        if shape in (MAIN_K1, MAIN_K2):
+            rec[name].update(t)
+        else:
+            # the fast preset's shape, beside the main path's
+            rec[name]["fast_preset"] = dict(t, shape=list(shape))
 
     for lanes in (None, LANES):
         for (h, w) in K1_SHAPES:
@@ -337,11 +387,11 @@ def check_kernels(device):
                        for j in range(lanes)]
                 hold("dilate_pyramid", f"{shape} lanes against one-lane "
                      "launches", got, [torch.stack(x) for x in zip(*one)])
-            if lanes is None and (h, w) == MAIN_K1:
+            if lanes is None and (h, w) in (MAIN_K1, FAST_K1):
                 times("dilate_pyramid",
                       lambda: hk.dilate_pyramid(ti, tw, LEVELS),
                       lambda: hk.dilate_pyramid_plain(ti, tw, LEVELS),
-                      kt.dilate_pyramid_bound(1, h, w, LEVELS))
+                      kt.dilate_pyramid_bound(1, h, w, LEVELS), (h, w))
     for lanes in (None, LANES):
         for (h, w) in K2_SHAPES:
             maps = np.stack([seed_map(h, w, rng)
@@ -359,11 +409,11 @@ def check_kernels(device):
                     hold("distance_transform", f"{tuple(ts.shape)} "
                          f"iters={iters} lanes against one-lane launches",
                          [got], [one])
-            if lanes is None and (h, w) == MAIN_K2:
+            if lanes is None and (h, w) in (MAIN_K2, FAST_K2):
                 times("distance_transform",
                       lambda: hk.distance_transform(ts, 32),
                       lambda: hk.distance_transform_plain(ts, 32),
-                      kt.distance_transform_bound(1, h, w, 32))
+                      kt.distance_transform_bound(1, h, w, 32), (h, w))
 
     # deterministic splat + build_track_ref on the card
     h, w = MAIN_K1
@@ -430,9 +480,28 @@ def solver_kernels(device):
     return names
 
 
+def count_builds():
+    """Count, from now on, the keyframe programs and the build_track_ref
+    calls outside them on the main path (one K1 launch each): returns the
+    one-element list that holds the count."""
+    from sdv_loam_tpu_torch.system import full_system, kf_ops
+
+    n_build = [0]
+    for mod, name in ((full_system, "build_track_ref"),
+                      (kf_ops, "kf_opt_step_lanes")):
+        orig = getattr(mod, name)
+
+        def counted(*a, _orig=orig, **k):
+            n_build[0] += 1
+            return _orig(*a, **k)
+        setattr(mod, name, counted)
+    return n_build
+
+
 def program_keys(caches, stages=KEYED_PROGRAMS):
     """Per stage of `stages`: its captures, capture and instantiate
-    seconds, replays and warm-ups since the counts' last reset, and the
+    seconds, graph pool growth (MiB), graph nodes, replays and warm-ups
+    since the counts' last reset, and the
     keys the graph caches `caches` hold for it, one per program (its
     largest input's shape and the statics of KEY_STATICS; two programs
     that print alike differ in another input's layout)."""
@@ -454,6 +523,8 @@ def program_keys(caches, stages=KEYED_PROGRAMS):
         out[stage] = dict(captures=k.get("captures", 0),
                           capture_s=k.get("capture_s", 0.0),
                           instantiate_s=k.get("instantiate_s", 0.0),
+                          pool_mib=k.get("pool_mib", 0.0),
+                          graph_nodes=k.get("ops", 0),
                           replays=k.get("replays", 0),
                           warmups=k.get("warmups", 0), keys=keys)
     return out
@@ -687,7 +758,6 @@ def run_slice(device):
     from sdv_loam_tpu_torch.data.synthetic import make_sequence
     from sdv_loam_tpu_torch.eval.ate import ate_rmse, rpe
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
-    from sdv_loam_tpu_torch.system import full_system, kf_ops
     from sdv_loam_tpu_torch.system.full_system import FullSystem
     from sdv_loam_tpu_torch.system.runner import run_sequence
     from sdv_loam_tpu_torch.utils import device_loop as dl
@@ -699,17 +769,7 @@ def run_slice(device):
     print(f"slice scene rendered in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    # count the keyframe programs and the build_track_ref calls outside
-    # them on the main path (one K1 launch each)
-    n_build = [0]
-    for mod, name in ((full_system, "build_track_ref"),
-                      (kf_ops, "kf_opt_step_lanes")):
-        orig = getattr(mod, name)
-
-        def counted(*a, _orig=orig, **k):
-            n_build[0] += 1
-            return _orig(*a, **k)
-        setattr(mod, name, counted)
+    n_build = count_builds()
 
     torch.cuda.reset_peak_memory_stats()
     hk.reset_launch_counts()
@@ -824,10 +884,12 @@ def run_slice(device):
     return summary, scene
 
 
-def profile_slice(device, scene, stage_form=False):
-    """The profile window of phase 4: frames PROFILE_FRAMES of the slice
-    (a fresh system; the frames before the window run unprofiled), as
-    stage programs or (`stage_form`) in the stage form."""
+def profile_slice(device, scene, stage_form=False, settings=None,
+                  what="slice"):
+    """The profile window of a single sequence (phases 4 and 8 (a)):
+    frames PROFILE_FRAMES of `scene` (a fresh system with `settings`, by
+    default `Settings()`; the frames before the window run unprofiled),
+    as stage programs or (`stage_form`) in the stage form."""
     from sdv_loam_tpu_torch.config import Settings
     from sdv_loam_tpu_torch.eval.profile import profile_window
     from sdv_loam_tpu_torch.system.full_system import FullSystem
@@ -835,7 +897,8 @@ def profile_slice(device, scene, stage_form=False):
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
     dl.reset_counts()
-    fs = FullSystem(scene.calib, scene.sensor, Settings(), device=device)
+    fs = FullSystem(scene.calib, scene.sensor, settings or Settings(),
+                    device=device)
     a, b = PROFILE_FRAMES
     with dl.stage_form() if stage_form else contextlib.nullcontext():
         for fr in scene.frames[:a]:
@@ -843,12 +906,12 @@ def profile_slice(device, scene, stage_form=False):
         prof, ka = profile_window(lambda i: fs.add_active_frame(
             *scene.frames[a + i]), b - a, [fs])
     form = "stage form" if stage_form else "programs"
-    print(f"profile, slice frames {a}-{b}, {form}: " + json.dumps(prof),
+    print(f"profile, {what} frames {a}-{b}, {form}: " + json.dumps(prof),
           flush=True)
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    name = "profile_slice_stage_form.txt" if stage_form else \
-        "profile_slice.txt"
+    name = f"profile_{what.replace(' ', '_')}" + \
+        ("_stage_form.txt" if stage_form else ".txt")
     with open(os.path.join(out, name), "w") as f:
         f.write(key_table(ka))
     return prof
@@ -1475,8 +1538,7 @@ def run_long(device):
         wall = time.perf_counter() - t0
         launches = dict(hk.LAUNCHES)
         gt = seq.poses_wc[:n_frames]
-        path = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0),
-                                    axis=1).sum())
+        path = _path_m(gt)
         ate = float(ate_rmse(est, gt))
         c = fs.telemetry.counters
         parts[name] = rec = dict(
@@ -1499,6 +1561,386 @@ def run_long(device):
     return parts
 
 
+class _CountedReader(Rendered):
+    """A runner reader that notes, as each frame is read (just before the
+    runner hands it on), the host clock, the loop driver's flag reads and
+    warm-ups, and the running system's stage totals."""
+
+    def __init__(self, seq, frames, systems):
+        super().__init__(seq, frames)
+        self.systems, self.marks = systems, []
+
+    def mark(self):
+        from sdv_loam_tpu_torch.utils import device_loop as dl
+
+        a = dl.counts()
+        self.marks.append(dict(
+            t=time.perf_counter(), reads=a["all"].get("reads", 0),
+            splat_reads=a.get("splat", {}).get("reads", 0),
+            warmups=a["all"].get("warmups", 0),
+            stage_time=dict(self.systems[-1].telemetry.stage_time)
+            if self.systems else {}))
+
+    def get(self, i):
+        self.mark()
+        return self.frames[i]
+
+
+def _path_m(poses):
+    """The length (m) of a trajectory's path."""
+    return float(np.linalg.norm(np.diff(poses[:, :3, 3], axis=0),
+                                axis=1).sum())
+
+
+def fast_child(device, frames_path):
+    """Phase 8 (a), in a process of its own (so that each stage program's
+    first call in the process, its eager warm-up, is the fast preset's):
+    30 frames of the fast scene A through run_sequence, then in the stage
+    form, the recorded programs against the stage form, a profile window
+    and the loops' iteration counts. Writes its trajectory next to
+    `frames_path` and prints its record last, on a line that starts with
+    FAST_CHILD."""
+    import pickle
+
+    import torch
+
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.system import runner
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    with open(frames_path, "rb") as f:
+        frames = pickle.load(f)
+    n = len(frames)
+    seq = make_sequence(n_frames=n, **FAST_SCENE, **FLEET_SCENES["A"])
+    settings = Settings.preset_fast()
+    systems = []
+    scene = _CountedReader(seq, frames, systems)
+    n_build = count_builds()
+    orig_fs = runner.FullSystem
+
+    def keep(*a, **k):
+        systems.append(orig_fs(*a, **k))
+        return systems[-1]
+    runner.FullSystem = keep
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    hk.reset_launch_counts()
+    dl.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        fs, _ = runner.run_sequence(scene, settings, device=device,
+                                    prefetch=False, allow_reset=False)
+    finally:
+        runner.FullSystem = orig_fs
+    torch.cuda.synchronize()
+    scene.mark()
+    wall = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    marks = scene.marks
+    per = [dict(reads=b["reads"] - a["reads"],
+                splat_reads=b["splat_reads"] - a["splat_reads"],
+                warmups=b["warmups"] - a["warmups"])
+           for a, b in zip(marks, marks[1:])]
+    a = PROFILE_FRAMES[0]
+    steady_s = marks[-1]["t"] - marks[a]["t"]
+    est = fs.get_trajectory()
+    rec = dict(
+        frames=n, lost=bool(fs.is_lost), n_keyframes=len(fs.kf_shells),
+        ate_m=float(ate_rmse(est, seq.poses_wc[:n])), wall_s=wall,
+        fps=n / wall, steady_fps=(n - a) / steady_s,
+        stage_ms_per_frame=_stage_ms(fs, n),
+        steady_stage_ms_per_frame={
+            k: 1000.0 * (v - marks[a]["stage_time"].get(k, 0.0)) / (n - a)
+            for k, v in sorted(fs.telemetry.stage_time.items())},
+        peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
+        mem_at_start_bytes=int(mem0),
+        launches=launches, build_track_ref_calls=n_build[0],
+        reads_per_frame=[p["reads"] for p in per],
+        warmups_per_frame=[p["warmups"] for p in per],
+        programs=program_keys([fs.loops], sorted(dl.PROGRAMS)),
+        loops=loop_counts(n, [fs.loops]),
+        kf_program=kf_program("fast preset, one system (its process's "
+                              "first calls)", [fs.loops], strict=False))
+    print("phase 8 (a) fast preset, programs: " + json.dumps(rec), flush=True)
+    rec["path_m"] = _path_m(seq.poses_wc[:n])
+    if rec["lost"] or rec["n_keyframes"] < 2 or not np.isfinite(est).all() \
+            or not rec["ate_m"] <= FAST_ATE_FRAC * rec["path_m"]:
+        _fail(f"fast preset: lost, < 2 keyframes or ATE {rec['ate_m']} m "
+              f"over {FAST_ATE_FRAC} x path {rec['path_m']} m")
+    if not (launches["dilate_pyramid"] > 0
+            and launches["dilate_pyramid"] == n_build[0]):
+        _fail(f"fast preset: {launches['dilate_pyramid']} K1 launches for "
+              f"{n_build[0]} keyframe programs and build_track_ref calls")
+    if launches["distance_transform"] < 1:
+        _fail("fast preset: distance_transform never launched")
+    # past each program's first call (its warm-up) no flag is read: a
+    # frame without a warm-up reads none (the first frame's tracking
+    # reference, outside the programs, reads its splat rounds' flags)
+    late = [(i, p["reads"]) for i, p in enumerate(per)
+            if not p["warmups"] and p["reads"] - (p["splat_reads"] if i == 0
+                                                  else 0)]
+    if late:
+        _fail(f"fast preset: flags read on the host past the programs' "
+              f"first calls (frame, reads): {late}")
+
+    # the same frames in the stage form: the same decisions and trajectory
+    # bit for bit; the programs of PROGRAM_FRAMES recorded
+    ref = FullSystem(seq.calib, seq.sensor, settings, device=device)
+    programs = []
+    t0 = time.perf_counter()
+    with dl.stage_form():
+        for i, fr in enumerate(frames):
+            with dl.recording(programs, programs=True) \
+                    if i in PROGRAM_FRAMES else contextlib.nullcontext():
+                ref.add_active_frame(*fr)
+    est_ref = ref.get_trajectory()
+    torch.cuda.synchronize()
+    staged = dict(wall_s=time.perf_counter() - t0,
+                  n_keyframes=len(ref.kf_shells),
+                  track_iters_equal=_same_iters(fs.track_iters_hist,
+                                                ref.track_iters_hist),
+                  ba_lm_iters=[fs.telemetry.counters["ba_lm_iters"],
+                               ref.telemetry.counters["ba_lm_iters"]],
+                  trajectory_equal=bool(np.array_equal(est, est_ref)))
+    staged["fps"] = n / staged["wall_s"]
+    rec["stage_form"] = staged
+    print("phase 8 (a), stage form against programs: " + json.dumps(staged),
+          flush=True)
+    if not (staged["track_iters_equal"] and staged["n_keyframes"]
+            == rec["n_keyframes"] and staged["ba_lm_iters"][0]
+            == staged["ba_lm_iters"][1] and staged["trajectory_equal"]):
+        _fail("fast preset: the programs and the stage form took other "
+              "decisions")
+    del ref
+    rec["program_check"] = compare_programs(programs,
+                                            "fast preset (one lane)")
+    del programs
+
+    rec["profile"] = profile_slice(device, Rendered(seq, frames),
+                                   settings=settings, what="fast preset")
+
+    # each loop's iterations, run by the early-exit loops (eager, on the
+    # card): how many calls ran n iterations
+    it_fs = FullSystem(seq.calib, seq.sensor, settings, device=device)
+    dl.reset_counts()
+    with dl.reference():
+        for fr in frames[:FAST_ITER_FRAMES]:
+            it_fs.add_active_frame(*fr)
+    rec["loop_iterations"] = {k: dict(sorted(v.items()))
+                              for k, v in sorted(dl.HIST.items())}
+    print(f"phase 8 (a): loop iterations over frames 0-"
+          f"{FAST_ITER_FRAMES - 1} (calls per count), CHUNK {dl.CHUNK}: "
+          + json.dumps(rec["loop_iterations"]), flush=True)
+    np.save(frames_path + ".traj.npy", est)
+    print("FAST_CHILD " + json.dumps(rec), flush=True)
+
+
+def run_fast(device):
+    """Phase 8: the fast preset (bench.py's second operating point) on the
+    card: (a) one sequence in a child process, (b) pipelined, (c) the B = 4
+    batched lockstep, (d) the CLI with --preset 2."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from sdv_loam_tpu_torch import run as cli
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.data.kitti_fixture import write_kitti_fixture
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.system.multi import MultiSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    t0 = time.perf_counter()
+    seqs, frames = {}, {}
+    for name, n in (("A", FAST_FRAMES), ("B", FLEET_FRAMES)):
+        seqs[name] = make_sequence(n_frames=n, **FAST_SCENE,
+                                   **FLEET_SCENES[name])
+        frames[name] = render(seqs[name], n)
+    print(f"phase 8: fast scenes rendered in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out = {}
+
+    # (a) one sequence, sequential, in a child process
+    tmp = tempfile.mkdtemp()
+    path = os.path.join(tmp, "fast_a.pkl")
+    with open(path, "wb") as f:
+        pickle.dump(frames["A"], f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           FAST_CHILD, path], stdout=subprocess.PIPE,
+                          text=True)
+    print(proc.stdout, end="", flush=True)
+    if proc.returncode != 0:
+        _fail(f"phase 8 (a): the child process exited {proc.returncode}")
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("FAST_CHILD ")]
+    out["sequential"] = json.loads(line[-1][len("FAST_CHILD "):])
+    out["sequential"]["process_s"] = time.perf_counter() - t0
+    seq_traj = np.load(path + ".traj.npy")
+    shutil.rmtree(tmp)
+
+    def ate(name, traj):
+        return float(ate_rmse(traj, seqs[name].poses_wc[:len(traj)]))
+
+    def lanes_of(launches, lanes):
+        return dict(launches=dict(launches), lanes=dict(lanes))
+
+    # (b) scene A pipelined against (a)'s sequential trajectory
+    fs = FullSystem(seqs["A"].calib, seqs["A"].sensor,
+                    Settings.preset_fast(pipelined_frames=True),
+                    device=device)
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    dl.reset_counts()
+    t0 = time.perf_counter()
+    for fr in frames["A"]:
+        fs.add_active_frame(*fr)
+    traj = fs.get_trajectory()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["pipelined"] = rec = dict(
+        lost=bool(fs.is_lost), n_keyframes=len(fs.kf_shells),
+        ate_m=ate("A", traj), fps=FAST_FRAMES / wall,
+        launches=dict(hk.LAUNCHES),
+        max_abs_vs_sequential=float(np.abs(traj - seq_traj).max()),
+        loops=loop_counts(FAST_FRAMES, [fs.loops]))
+    print("phase 8 (b) fast preset, pipelined: " + json.dumps(rec),
+          flush=True)
+    if rec["lost"] or not rec["max_abs_vs_sequential"] <= FLEET_TRAJ_TOL:
+        _fail(f"phase 8 (b): lost, or the pipelined trajectory "
+              f"{rec['max_abs_vs_sequential']} from the sequential one")
+    del fs
+
+    # (c) the B = 4 batched lockstep: each scene alone first, for its
+    # keyframe count and trajectory
+    n = FLEET_FRAMES
+    refs = {}
+    for name in ("A", "B"):
+        fs = FullSystem(seqs[name].calib, seqs[name].sensor,
+                        Settings.preset_fast(), device=device)
+        for fr in frames[name][:n]:
+            fs.add_active_frame(*fr)
+        refs[name] = dict(traj=fs.get_trajectory(), n_kf=len(fs.kf_shells))
+    del fs
+    lanes = [("A", "B")[b % 2] for b in range(FLEET_B)]
+
+    def fleet():
+        return MultiSystem([FullSystem(seqs[x].calib, seqs[x].sensor,
+                                       Settings.preset_fast(), device=device)
+                            for x in lanes], batch_track=True)
+    m = fleet()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what the process holds before the fleet runs (the earlier phases'
+    # live memory counts in the peak)
+    mem0 = torch.cuda.memory_allocated()
+    hk.reset_launch_counts()
+    dl.reset_counts()
+    t0 = time.perf_counter()
+    for i in range(n):
+        if i == PROFILE_ROUNDS[0]:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        m.add_frames([frames[x][i] for x in lanes])
+    trajs = [fs.get_trajectory() for fs in m.systems]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches, kernel_lanes = dict(hk.LAUNCHES), dict(hk.LANES)
+    rec = dict(aggregate_fps=FLEET_B * n / (t1 - t0),
+               steady_aggregate_fps=FLEET_B * (n - PROFILE_ROUNDS[0])
+               / (t1 - t_steady),
+               peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
+               mem_at_start_bytes=int(mem0),
+               launches=launches, kernel_lanes=kernel_lanes,
+               programs=program_keys([fs.loops for fs in m.systems]
+                                     + [m.loops], sorted(dl.PROGRAMS)),
+               kf_program=kf_program("fast preset, batched lockstep",
+                                     [fs.loops for fs in m.systems]
+                                     + [m.loops], FLEET_B),
+               lanes=[dict(scene=x, lost=bool(fs.is_lost),
+                           n_kf=len(fs.kf_shells), ate_m=ate(x, t),
+                           max_abs_vs_alone=float(np.abs(
+                               t - refs[x]["traj"]).max()))
+                      for x, fs, t in zip(lanes, m.systems, trajs)])
+    del m
+    print("phase 8 (c) fast preset, batched lockstep: " + json.dumps(rec),
+          flush=True)
+    for b, ln in enumerate(rec["lanes"]):
+        limit = FAST_ATE_FRAC * _path_m(seqs[ln["scene"]].poses_wc[:n])
+        if ln["lost"] or not ln["ate_m"] <= limit or \
+                ln["n_kf"] != refs[ln["scene"]]["n_kf"]:
+            _fail(f"phase 8 (c) lane {b}: lost, ATE {ln['ate_m']} or "
+                  f"{ln['n_kf']} keyframes against "
+                  f"{refs[ln['scene']]['n_kf']}")
+    for k in launches:
+        if not kernel_lanes[k] > launches[k] >= 1:
+            _fail(f"phase 8 (c): {k} never took two lanes or more "
+                  f"({launches[k]} launches, {kernel_lanes[k]} lanes)")
+    # the lockstep's programs of PROGRAM_FRAMES in the stage form, recorded
+    # and held to it
+    m = fleet()
+    programs = []
+    for i in range(max(PROGRAM_FRAMES) + 1):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(dl.stage_form())
+            if i in PROGRAM_FRAMES:
+                stack.enter_context(dl.recording(programs, programs=True))
+            m.add_frames([frames[x][i] for x in lanes])
+    del m
+    rec["program_check"] = check = compare_programs(
+        programs, "fast preset, batched lockstep (lanes)",
+        need=("track", "lidar", "kf_opt", "pyramid", "select"))
+    del programs
+    for stage in ("track", "pyramid"):
+        if FLEET_B not in check[stage]["lanes"]:
+            _fail(f"phase 8 (c): no {stage} program of {FLEET_B} lanes")
+    if max(check["kf_opt"]["lanes"]) < 2:
+        _fail("phase 8 (c): no keyframe program of two lanes or more")
+    out["lockstep"] = rec
+
+    # (d) the CLI, --preset 2, on FAST_CLI_FRAMES frames of scene A
+    d = os.path.join(os.path.dirname(OUT_DIR), "phase8")
+    n = FAST_CLI_FRAMES
+    paths = write_kitti_fixture(Rendered(seqs["A"], frames["A"][:n]),
+                                os.path.join(d, "kitti"))
+    result = os.path.join(d, "traj.txt")
+    torch.cuda.synchronize()
+    hk.reset_launch_counts()
+    dl.reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--seq-dir", paths["seq_dir"], "--calib",
+                       paths["calib"], "--sensor", paths["sensor"],
+                       "--preset", "2", "--result", result,
+                       "--device", str(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = np.loadtxt(result).reshape(-1, 12)
+    T = np.tile(np.eye(4), (rows.shape[0], 1, 1))
+    T[:, :3, :] = rows.reshape(-1, 3, 4)
+    out["cli"] = rec = dict(rc=rc, rows=int(rows.shape[0]),
+                            ate_m=ate("A", T), fps=n / wall,
+                            launches=dict(hk.LAUNCHES))
+    shutil.rmtree(os.path.join(d, "kitti"))
+    print("phase 8 (d) CLI --preset 2: " + json.dumps(rec), flush=True)
+    if rc != 0 or rows.shape[0] != n or \
+            not rec["ate_m"] <= FAST_ATE_FRAC * _path_m(seqs["A"].poses_wc[:n]):
+        _fail(f"phase 8 (d): rc {rc}, {rows.shape[0]} rows, ATE "
+              f"{rec['ate_m']}")
+    if not min(rec["launches"].values()) >= 1:
+        _fail(f"phase 8 (d): a kernel was not launched ({rec['launches']})")
+    return out
+
+
 def main():
     import torch
 
@@ -1506,6 +1948,9 @@ def main():
     if not torch.cuda.is_available():
         _fail("CUDA is not available")
     device = torch.device("cuda:0")
+    if len(sys.argv) == 3 and sys.argv[1] == FAST_CHILD:
+        fast_child(device, sys.argv[2])
+        return
     os.makedirs(os.path.dirname(OUT_DIR), exist_ok=True)
     sys.stdout = _Tee(sys.stdout, os.path.join(os.path.dirname(OUT_DIR),
                                                "chip_smoke.log"))
@@ -1600,6 +2045,25 @@ def main():
             n_keyframes=r["n_keyframes"], k1=r["launches"]["dilate_pyramid"],
             k2=r["launches"]["distance_transform"]))
 
+    # 8. the fast preset
+    t0 = time.perf_counter()
+    phase8 = run_fast(device)
+    print(f"phase 8 {time.perf_counter() - t0:.1f} s", flush=True)
+    a, c = phase8["sequential"], phase8["lockstep"]
+    print(f"phase 8 (a): ATE {a['ate_m']:.4f} m, keyframes "
+          f"{a['n_keyframes']}, {a['fps']:.3f} frames/s (frames "
+          f"{PROFILE_FRAMES[0]}-{FAST_FRAMES}: {a['steady_fps']:.3f}; stage "
+          f"form {a['stage_form']['fps']:.3f}), peak memory "
+          f"{a['peak_mem_bytes'] / 2**20:.1f} MiB; (c): "
+          f"{c['aggregate_fps']:.3f} frames/s aggregate (rounds "
+          f"{PROFILE_ROUNDS[0]}-{FLEET_FRAMES}: "
+          f"{c['steady_aggregate_fps']:.3f}), peak memory "
+          f"{c['peak_mem_bytes'] / 2**20:.1f} MiB ("
+          f"{c['mem_at_start_bytes'] / 2**20:.1f} MiB held at its start)",
+          flush=True)
+    by_phase8 = {k: phase8[k]["launches"]
+                 for k in ("sequential", "pipelined", "lockstep", "cli")}
+
     by_path = {"cli": phase6["cli"]["launches"],
                "dropout_sequential":
                    phase6["dropout"]["sequential"]["launches"],
@@ -1615,6 +2079,8 @@ def main():
                               for k, v in by_path.items()},
              launches_phase7={k: v["launches"]["dilate_pyramid"]
                               for k, v in phase7.items()},
+             launches_phase8={k: v["dilate_pyramid"]
+                              for k, v in by_phase8.items()},
              **rec["dilate_pyramid"]),
         dict(name="distance_transform", route="cuda",
              source="sdv_loam_tpu_torch/csrc/distance_transform.cu",
@@ -1624,6 +2090,8 @@ def main():
                               for k, v in by_path.items()},
              launches_phase7={k: v["launches"]["distance_transform"]
                               for k, v in phase7.items()},
+             launches_phase8={k: v["distance_transform"]
+                              for k, v in by_phase8.items()},
              **rec["distance_transform"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -131,6 +131,11 @@ import torch
 #            of 5 on every call and the coarsest stopped after 6-10: one
 #            replay of 5 covers a fine level with no read, the coarsest
 #            takes one or two.
+# The fast preset's counts (424x320, bench.py's scene A, frames 0-14, the
+# early-exit loops on an H100; chip_smoke.py phase 8): lm 4-6 iterations
+# on 38 of 70 calls and 10 or more on 21; align at its cap of 10 on 33 of
+# 48; struct at its cap on 12 of 14; ba0 2 on all 7; ba 2 on 6 of 7;
+# sweep 2 on all 15; splat 1-2. The chunks are not retuned for it.
 CHUNK = {"lm": 3, "cutoff": 2, "align": 10, "struct": 10, "ba0": 2, "ba": 1,
          "sweep": 2, "splat": 4, "mono": 5}
 

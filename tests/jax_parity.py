@@ -33,21 +33,27 @@ def mid_binned(frames):
             for img, cloud, ts in frames]
 
 
-def jax_dir_source(key, h, w):
+def jax_dir_source(key, h, w, x64=True):
     """A port system's selection draws taken from the JAX system's key
     chain: one key per selection call (`FullSystem._next_key`), its three
     direction grids drawn as the JAX package's cascade draws them, for
-    each attempt's pot. Assign it to the port system's `_dir_source`."""
+    each attempt's pot. Assign it to the port system's `_dir_source`.
+
+    `jax.random.randint` draws other bits with x64 on than off, so the
+    draws are made in the float mode the JAX run had: `x64` (on, as
+    tests/conftest.py sets it, unless the JAX run turned it off)."""
     state = {"key": key}
 
     def source():
         state["key"], k = jax.random.split(state["key"])
 
         def draw(pot):
-            ks = jax.random.split(k, 3)
-            return tuple(torch.from_numpy(np.array(
-                jax.random.randint(kk, shape, 0, 16)))
-                for kk, shape in zip(ks, cascade_grid_shapes(h, w, pot)))
+            with jax.enable_x64(x64):
+                ks = jax.random.split(k, 3)
+                return tuple(torch.from_numpy(np.array(
+                    jax.random.randint(kk, shape, 0, 16)))
+                    for kk, shape in zip(ks, cascade_grid_shapes(h, w,
+                                                                 pot)))
         return draw
     return source
 
