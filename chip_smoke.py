@@ -15,13 +15,25 @@ Phases (any failure exits nonzero; each prints its results):
      launch (exact); determinism of build_track_ref; at the main-path
      shapes and the fast preset's each kernel's device time
      (torch.profiler), wrapper and plain CUDA-event times, bound and
-     share; the CUDA kernels behind the windowed BA's dense solve (one
-     window, and four in one batched call);
+     share; K3 (track_res_gs) and K4 (lm_update_step, lm_update_accept)
+     against their plain versions at the main path's shapes of both
+     presets (the hypothesis ladder, level 0, the struct-pose veto), one
+     lane and L = 4, with points out of bounds, saturated, at depth 0 and
+     under an image patch of inf (K3's counts exact, its other outputs
+     within TRACK_REL of each row's largest magnitude, non-finite outputs
+     where the plain version's are; K4's step within SOLVE_REL of its
+     norm, its accept bit for bit), a row alone bit for bit as among the
+     others, and their times at the ladder's and level 0's shapes; the
+     CUDA kernels behind the windowed BA's dense solve (one window, and
+     four in one batched call);
   4. slice: the 30-frame default-preset synthetic KITTI scene (1200x360)
      through the port's run_sequence with the default Settings on cuda;
      requires not lost, >= 2 keyframes, ATE <= 0.10 m, one K1 launch per
-     keyframe optimization and build_track_ref call outside it, and at
-     least one K2 launch;
+     keyframe optimization and build_track_ref call outside it, at
+     least one K2 launch, and K3's and K4's device counters equal to the
+     evaluations the tracking loops ran (`check_track_evaluations`: the
+     same frames with the eager loops, where device_loop counts every LM call
+     and iteration);
   5. fleet: bench.py's two default-preset scenes (16 frames each) alone in
      pipelined mode (scene A also with the deferred keyframe readback),
      then B = 4 sequences (A, B, A, B) on the card as InterleavedFleet
@@ -31,7 +43,9 @@ Phases (any failure exits nonzero; each prints its results):
      optimization as lanes of one call per round; host work on one
      thread, the CUDA default, and on a thread per system); requires every
      lane not lost, ATE <= 0.10 m, its scene's keyframe count, (for the
-     interleaved fleets) its scene's trajectory to 1e-5, and of the
+     interleaved fleets) its scene's trajectory to 1e-5, K3 and K4
+     launched in every composition (and in the batched lockstep once per
+     evaluation its loops ran, against an eager run), and of the
      batched lockstep K1 and K2 launches that took two lanes or more and
      fewer K1 launches than its lanes made keyframes; prints aggregate
      frames/s, scaling efficiency, peak memory, kernel launches and the
@@ -60,12 +74,13 @@ Phases (any failure exits nonzero; each prints its results):
          stage form, which must take the same iterations and reach the
          same pose bit for bit, and its recorded "mono_lm", "select_map"
          and "pyramid" programs held to the stage form;
-     each part requires at least one K1 and one K2 launch;
+     each part requires at least one launch of each of K1-K4;
   7. long horizon, sequential through run_sequence, each part with its own
      kernel launch counts: (a) tests/test_drift_gate.py's scene and
      Settings (320x96, 100 frames); (b) phase 4's scene A at the default
      preset and full width (1200x360), 100 frames; each requires not lost,
-     ATE under 2 % of the path and at least one K1 and one K2 launch, and
+     ATE under 2 % of the path and at least one launch of each of K1-K4,
+     and
      prints ATE, the BA step vetoes (`ba_step_veto`, `ba_step_veto_hard`),
      keyframes and frames/s;
   8. the fast preset (`Settings.preset_fast()`, bench.py's second
@@ -83,8 +98,10 @@ Phases (any failure exits nonzero; each prints its results):
          and the stage programs of frames 5-10 against the stage form;
          prints frames/s (whole, frames 10-30), stage ms per frame, each
          program's captures, keys, seconds, pool MiB and graph nodes, peak
-         memory, a profile window of frames 10-20 and each loop's
-         iteration counts (the early-exit loops over frames 0-14);
+         memory, a profile window of frames 10-20, then the same 30
+         frames with the eager loops: K3's and K4's counters equal to
+         the evaluations the loops ran, and each loop's iteration counts
+         over frames 0-14;
      (b) scene A pipelined: (a)'s trajectory to 1e-5;
      (c) B = 4 (A, B, A, B, 16 frames) as the batched lockstep: each lane
          not lost, with its scene's keyframe count; K1 and K2 launches
@@ -126,9 +143,11 @@ Besides:
     (phases 4, 6, 7), printed beside this run's;
   * profile windows (torch.profiler): phase 4's frames 10-20 and five
     rounds of the batched lockstep: host launch calls, device kernels,
-    device busy share, replays, reads, captures, program replays and
-    stage ms, per frame;
-then one JSON line with the kernels, and the device JSON as the last line.
+    device busy share, replays, reads, captures, program replays, each
+    stage program's device ms (CUDA events around its replays) and stage
+    ms, per frame;
+then one JSON line with the four kernels (K3 and K4 with their launches
+in every phase), and the device JSON as the last line.
 The script imports nothing of JAX.
 """
 
@@ -161,6 +180,27 @@ MAIN_K2 = (180, 600)
 # the fast preset's (phase 8): 424x320 input, K2 on the level-1 grid
 FAST_K1 = (320, 424)
 FAST_K2 = (160, 212)
+# K3 and K4, the tracking LM's body: the main path's (h, w, points, rows)
+# at each preset: the hypothesis ladder on the coarsest level (32 rows),
+# the refinement on level 0 (3 rows), the struct-pose veto on level 1 (2
+# rows); the ladder's and level 0's are timed. Tolerances (as in
+# tests/test_torch_cuda.py): K3's counts exact, its other outputs within
+# TRACK_REL of the row's largest magnitude (float32 sums of up to 6144
+# terms, whose own error K3's float64 sums leave out, with cancellation:
+# 1.3e-5 measured at level 0 on an H100); K4's step within SOLVE_REL of
+# its norm (its float64 LU against torch.linalg.solve_ex's float32 one:
+# the float32 solve's error grows with the damped system's condition, 3.2e-5
+# measured on the fast ladder), the pose and affine
+# update of the kernel's own step within UPDATE_TOL of max(1, |value|),
+# its accept bit for bit
+TRACK_SHAPES = {"default": ((45, 150, 1024, 32), (360, 1200, 6144, 3),
+                            (180, 600, 4096, 2)),
+                "fast": ((40, 53, 512, 32), (320, 424, 3072, 3),
+                         (160, 212, 2048, 2))}
+TRACK_REL = 1e-4
+SOLVE_REL = 1e-3
+UPDATE_TOL = 1e-5
+HUBER = 9.0
 ATE_LIMIT_M = 0.10
 # bench.py's default operating point (bench.py:122-132): two scenes
 SCENE = dict(w=1200, h=360, fx=718.856, cy_offset=0.0, step=0.7,
@@ -441,6 +481,190 @@ def check_kernels(device):
     return rec
 
 
+def _res_errors(got, ref):
+    """K3's outputs against its plain version's: (whether every count is
+    equal, every non-finite output sits where the plain version's does and
+    every other is within TRACK_REL of its row's largest magnitude; the
+    largest absolute and relative error over the finite outputs)."""
+    import torch
+
+    ok = torch.equal(got["n"], ref["n"]) and torch.equal(
+        torch.round(got["sat_frac"] * ref["n"].clamp(min=1)),
+        torch.round(ref["sat_frac"] * ref["n"].clamp(min=1)))
+    worst_abs = worst_rel = 0.0
+    for k in ("E", "H", "b", "flow_t", "flow_rt"):
+        g = got[k].double().reshape(got[k].shape[0], -1)
+        r = ref[k].double().reshape(ref[k].shape[0], -1)
+        f = torch.isfinite(r)
+        ok = ok and torch.equal(torch.isfinite(g), f)
+        d = torch.where(f, (g - r).abs(), torch.zeros_like(r))
+        scale = torch.where(f, r.abs(), torch.zeros_like(r)).amax(1)
+        rel = d.amax(1) / scale.clamp(min=1e-30)
+        worst_abs = max(worst_abs, float(d.max()))
+        worst_rel = max(worst_rel, float(rel.max()))
+    return ok and worst_rel <= TRACK_REL, worst_abs, worst_rel
+
+
+def _rel_dev(a, b):
+    """Largest |a - b| / max(1, |b|)."""
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def check_track_kernels(device):
+    """Phase 3 for K3 (track_res_gs) and K4 (lm_update_step and
+    lm_update_accept) at the main path's shapes of both presets, one lane
+    (no lane index) and LANES, on kernel_timing.track_scene's inputs with
+    points out of bounds, saturated points, a point at depth 0 and an
+    image patch of inf; at the ladder's and level 0's shapes (one lane)
+    device, wrapper and plain times, bound and share. Returns per-kernel
+    records (max_abs_err, max_rel_err, and the ladder's times at the
+    default preset, the rest beside them)."""
+    import torch
+
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+    from sdv_loam_tpu_torch.utils import se3
+
+    rec = {"track_res_gs": dict(max_abs_err=0.0, max_rel_err=0.0),
+           "track_lm_update": dict(max_abs_err=0.0, max_rel_err=0.0)}
+    S = torch.tensor(hk.STEP_SCALE, device=device)
+
+    def note(name, what, ok, err_abs, err_rel):
+        r = rec[name]
+        r["max_abs_err"] = max(r["max_abs_err"], err_abs)
+        r["max_rel_err"] = max(r["max_rel_err"], err_rel)
+        print(f"{name} {what}: within tolerance={ok} max_abs_err={err_abs} "
+              f"max_rel_err={err_rel}", flush=True)
+        if not ok:
+            _fail(f"{name} differs from its plain version at {what}")
+
+    def times(name, kernel, plain, bound, where):
+        t_dev = kt.device_ms(kernel)
+        t_k = kt.wrapper_ms(kernel)
+        t_p = kt.wrapper_ms(plain)
+        share = bound[0] / t_dev if t_dev else None
+        print(f"{name} time at {where}: device {t_dev} ms, wrapper "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound[0]:.6f} ms "
+              f"({bound[1]}), share of the bound {share}", flush=True)
+        return dict(ms=t_k, plain_ms=t_p, device_ms=t_dev, bound_ms=bound[0],
+                    bound_by=bound[1], share=share, library_ms=None,
+                    library="none")
+
+    for preset, shapes in TRACK_SHAPES.items():
+        for i, (h, w, n, rows) in enumerate(shapes):
+            for lanes in (1, LANES):
+                sc = kt.track_scene(100 + i, h, w, n, lanes, rows,
+                                    poison=True)
+                x = kt.track_inputs(sc, device)
+                single = lanes == 1
+                pool = {k: v[0] for k, v in x["pool"].items()} if single \
+                    else x["pool"]
+                args = (pool, x["dI"][0] if single else x["dI"],
+                        x["K"][0] if single else x["K"], x["T"],
+                        x["aff_rel"], x["ref_b"], x["cutoff"], HUBER)
+                kw = dict(packed=x["packed"], lane=None if single
+                          else x["lane"])
+                what = f"{preset} {(h, w)} n={n} rows={rows} lanes={lanes}"
+                got = hk.track_res_gs(*args, **kw)
+                ref = hk.calc_res_gs_plain(*args, **kw)
+                torch.cuda.synchronize()
+                note("track_res_gs", what, *_res_errors(got, ref))
+                if not single and i == 0:
+                    # a row alone: the bits it has among the others
+                    for b in (0, x["T"].shape[0] - 1):
+                        sl = slice(b, b + 1)
+                        one = hk.track_res_gs(
+                            pool, x["dI"], x["K"], x["T"][sl],
+                            x["aff_rel"][sl], x["ref_b"][sl],
+                            x["cutoff"][sl], HUBER, packed=x["packed"],
+                            lane=x["lane"][sl])
+                        same = all(dl.same_bits(one[k][0], got[k][b])
+                                   for k in one)
+                        print(f"track_res_gs {what}: row {b} alone bit for "
+                              f"bit as among the rows: {same}", flush=True)
+                        if not same:
+                            _fail(f"track_res_gs: row {b} alone differs "
+                                  f"from the row among others at {what}")
+
+                # K4 on the plain version's systems
+                B = x["T"].shape[0]
+                rng = np.random.default_rng(200 + i)
+
+                def t(v, dtype=torch.float32):
+                    return torch.as_tensor(np.asarray(v), dtype=dtype,
+                                           device=device)
+                lam = t(np.array([1e-4, 0.01, 0.3, 1.0])[np.arange(B) % 4])
+                aff = t(rng.normal(0, [0.02, 1.0], (B, 2)))
+                ex = t(rng.uniform(0.8, 1.2, (B, 2) if lanes > 1 else (2,)))
+                ra = t(rng.normal(0, [0.05, 2.0], (B, 2) if lanes > 1
+                                  else (2,)))
+                done = t(rng.random(B) < 0.3, torch.bool)
+                n_it = t(rng.integers(0, 5, B), torch.int64)
+                step_in = (ref["H"], ref["b"], lam, x["T"], aff, ex, ra)
+                T_new, aff_new, aff_rel, inc = hk.lm_update_step(*step_in)
+                inc_p = hk.lm_update_step_plain(*step_in)[3]
+                d_inc = (inc - inc_p).abs().amax(-1)
+                norm = torch.linalg.vector_norm(inc_p, dim=-1)
+                upd = max(_rel_dev(a, b) for a, b in (
+                    (T_new, se3.se3_exp((inc * S)[:, :6]) @ x["T"]),
+                    (aff_new, aff + (inc * S)[:, 6:]),
+                    (aff_rel, hk.aff_transfer(ex[..., 0], ex[..., 1], ra,
+                                              aff_new))))
+                r_new = hk.calc_res_gs_plain(args[0], args[1], args[2],
+                                             T_new, aff_rel, x["ref_b"],
+                                             x["cutoff"], HUBER, **kw)
+                acc_in = (ref, r_new, x["T"], T_new, aff, aff_new, lam,
+                          done, n_it, inc)
+                ok_k, ok_p = (hk.lm_update_accept(*acc_in),
+                              hk.lm_update_accept_plain(*acc_in))
+                torch.cuda.synchronize()
+                same = all(dl.same_bits(ok_k[k], ok_p[k]) for k in
+                           ("T", "aff", "lam", "done", "n_it", "active")) \
+                    and all(dl.same_bits(ok_k["r"][k], ok_p["r"][k])
+                            for k in ok_k["r"])
+                rel = float((d_inc / norm.clamp(min=1e-30)).max())
+                print(f"track_lm_update {what}: step update {upd} (of "
+                      f"max(1, |value|)), accept bit for bit {same}",
+                      flush=True)
+                note("track_lm_update", what, bool(
+                    (d_inc <= SOLVE_REL * norm + 1e-30).all()) and
+                    upd <= UPDATE_TOL and same, float(d_inc.max()), rel)
+                if not single or i == 2:
+                    continue
+
+                # times at the ladder's and level 0's shapes, one lane
+                def k3():
+                    return hk.track_res_gs(*args, **kw)
+
+                def p3():
+                    return hk.calc_res_gs_plain(*args, **kw)
+
+                def k4():
+                    T_n, a_n, _, d = hk.lm_update_step(*step_in)
+                    return hk.lm_update_accept(ref, r_new, x["T"], T_n, aff,
+                                               a_n, lam, done, n_it, d)
+
+                def p4():
+                    T_n, a_n, _, d = hk.lm_update_step_plain(*step_in)
+                    return hk.lm_update_accept_plain(ref, r_new, x["T"], T_n,
+                                                     aff, a_n, lam, done,
+                                                     n_it, d)
+                where = f"{preset} {(h, w)} n={n} rows={rows}"
+                t3 = times("track_res_gs", k3, p3,
+                           kt.track_res_gs_bound(1, rows, n), where)
+                t4 = times("track_lm_update", k4, p4,
+                           kt.lm_update_bound(rows), where)
+                for name, tt in (("track_res_gs", t3),
+                                 ("track_lm_update", t4)):
+                    tt["shape"] = [h, w, n, rows]
+                    if preset == "default" and i == 0:
+                        rec[name].update(tt)
+                    else:
+                        rec[name][f"{preset}_{('ladder', 'level0')[i]}"] = tt
+    return rec
+
+
 def solver_kernels(device):
     """The CUDA kernels behind the windowed BA's dense solve
     (`torch.linalg.solve_ex` on the (D, D) system, D = 4 + 6 * 8): one
@@ -496,6 +720,62 @@ def count_builds():
             return _orig(*a, **k)
         setattr(mod, name, counted)
     return n_build
+
+
+def _track_launches(what, launched):
+    """K3's and K4's device counts of a main-path run (`device_launches`):
+    both kernels launched, K4's two entry points alike often."""
+    if not (launched["track_res_gs"] > 0 and launched["lm_step"] > 0
+            and launched["lm_step"] == launched["lm_accept"]):
+        _fail(f"{what}: K3 or K4 not launched, or K4's halves unequal "
+              f"({launched})")
+
+
+def check_track_evaluations(what, launched, drive):
+    """The main path's K3 and K4 launches (`launched`, the device counters
+    of a run with stage programs) against the evaluations its loops ran:
+    `drive()` runs the same frames again with the eager early-exit loops
+    (`device_loop.reference`, the same decisions bit for bit), where
+    device_loop counts every tracking LM call and iteration and the
+    cutoff loop's iterations, and the track step's calls are counted. Per
+    track step K3 runs once per LM call (its first evaluation), once per
+    LM and cutoff iteration and once for the struct-pose veto; K4 twice
+    per LM iteration. Both runs' counters must equal that."""
+    from sdv_loam_tpu_torch.ops import frame_step
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    _track_launches(what, launched)
+    calls = [0]
+    orig = frame_step._track_program
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+    hk.reset_launch_counts()
+    dl.reset_counts()
+    frame_step._track_program = counted
+    try:
+        with dl.reference():
+            drive()
+    finally:
+        frame_step._track_program = orig
+    ref = hk.device_launches()
+    c = dl.counts()
+    lm, cut = c.get("lm", {}), c.get("cutoff", {})
+    want = {"track_res_gs": lm.get("calls", 0) + lm.get("iters", 0)
+            + cut.get("iters", 0) + calls[0],
+            "track_lm_update": 2 * lm.get("iters", 0)}
+    rec = dict(main_path={k: launched[k] for k in want},
+               eager_run={k: ref[k] for k in want}, evaluations=want,
+               lm_calls=lm.get("calls", 0), lm_iters=lm.get("iters", 0),
+               cutoff_iters=cut.get("iters", 0), track_steps=calls[0])
+    print(f"K3 / K4 launches against the loops' evaluations, {what}: "
+          + json.dumps(rec), flush=True)
+    if not rec["main_path"] == rec["eager_run"] == want:
+        _fail(f"{what}: K3 / K4 launches differ from the evaluations the "
+              "loops ran")
+    return rec
 
 
 def program_keys(caches, stages=KEYED_PROGRAMS):
@@ -779,7 +1059,8 @@ def run_slice(device):
                                prefetch=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launch_counts()
+    track_launched = hk.device_launches()
     n_build_main = n_build[0]
     loops = loop_counts(n_frames, [fs.loops])
     kf_prog = kf_program("slice (one system)", [fs.loops], strict=False)
@@ -868,6 +1149,19 @@ def run_slice(device):
     if not summary["programs_again"]["trajectory_equal"]:
         _fail("slice: a second program run took another trajectory")
     summary["stage_check"] = compare_stages(records, "slice (one lane)")
+
+    # the same frames with the eager loops: K3 and K4 launched once per
+    # evaluation the loops ran
+    eager_traj = []
+
+    def eager_slice():
+        eager = FullSystem(seq.calib, seq.sensor, Settings(), device=device)
+        for fr in scene.frames:
+            eager.add_active_frame(*fr)
+        eager_traj.append(eager.get_trajectory())
+    summary["track_check"] = dict(
+        check_track_evaluations("slice", track_launched, eager_slice),
+        trajectory_equal=bool(np.array_equal(eager_traj[0], est)))
     print("slice: " + json.dumps(summary), flush=True)
     if fs.is_lost:
         _fail("slice lost tracking")
@@ -1063,6 +1357,8 @@ def run_fleet(device):
         steady = FLEET_B * (n - PROFILE_ROUNDS[0]) / (time.perf_counter()
                                                        - t_steady)
         launches = dict(hk.LAUNCHES)
+        track_launched = hk.device_launches()
+        _track_launches(f"fleet {name}", track_launched)
         loops = loop_counts(FLEET_B * n, [fs.loops for fs in fleet.systems]
                             + [getattr(fleet, "loops", ())])
         kf_prog = kf_program(
@@ -1085,6 +1381,7 @@ def run_fleet(device):
                    scaling_efficiency=agg / (FLEET_B * single_fps),
                    peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
                    launches=launches, kernel_lanes=kernel_lanes,
+                   track_launches=track_launched,
                    stage_ms_per_frame=stage_ms, lm_iters=lm, loops=loops,
                    kf_program=kf_prog, lanes=[])
         for x, fs, traj in zip(lanes, fleet.systems, trajs):
@@ -1122,6 +1419,16 @@ def run_fleet(device):
             if not launches["dilate_pyramid"] < n_kf:
                 _fail(f"{name}: {launches['dilate_pyramid']} K1 launches "
                       f"for {n_kf} keyframes")
+    # the batched lockstep with the eager loops: its K3 and K4 launches
+    # once per evaluation the loops ran
+    def eager_lockstep():
+        eager = MultiSystem([system(x) for x in lanes], batch_track=True)
+        for i in range(n):
+            eager.add_frames([scenes[x][1][i] for x in lanes])
+    track_check = check_track_evaluations(
+        "batched lockstep", results["lockstep_batched"]["track_launches"],
+        eager_lockstep)
+
     # the batched lockstep once more, apart from the timed compositions
     # (whose peak memory the records' clones would raise), in the stage
     # form: its stage programs of PROGRAM_FRAMES, and the windowed BA's
@@ -1174,11 +1481,12 @@ def run_fleet(device):
                 references={k: {kk: v for kk, v in r.items() if kk != "traj"}
                             for k, r in refs.items()},
                 compositions=results, stage_check=stage_check,
-                program_check=program_check, profile=prof)
+                program_check=program_check, track_check=track_check,
+                profile=prof)
 
 
 def _kernels_ran(part, launches):
-    if launches["dilate_pyramid"] < 1 or launches["distance_transform"] < 1:
+    if min(launches.values()) < 1:
         _fail(f"phase 6 {part}: a kernel was not launched ({launches})")
 
 
@@ -1243,7 +1551,7 @@ def run_cli(device, scene):
         runner.run_sequence = orig
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launch_counts()
     summary = json.loads(buf.getvalue().strip().splitlines()[-1])
 
     def rows_to_T(rows):
@@ -1324,7 +1632,7 @@ def run_dropout(device, scene):
         traj = fs.get_trajectory()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(hk.LAUNCHES)
+        launches = hk.launch_counts()
         kinds = [json.loads(x)["kind"] for x in open(log)]
         trajs[mode] = traj
         recs[mode] = rec = dict(
@@ -1431,7 +1739,7 @@ def run_mono(device):
         wall = time.perf_counter() - t0
     finally:
         mono_init.knn = orig
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launch_counts()
     rec = dict(initialized=bool(fs.initialized), lost=bool(fs.is_lost),
                n_keyframes=len(fs.kf_shells), wall_s=wall, fps=n / wall,
                launches=launches, knn_level0=knn_calls[0] if knn_calls
@@ -1536,7 +1844,7 @@ def run_long(device):
         est = fs.get_trajectory()
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-        launches = dict(hk.LAUNCHES)
+        launches = hk.launch_counts()
         gt = seq.poses_wc[:n_frames]
         path = _path_m(gt)
         ate = float(ate_rmse(est, gt))
@@ -1555,8 +1863,7 @@ def run_long(device):
                 or not ate < LONG_ATE_FRAC * path:
             _fail(f"phase 7 {name}: lost or ATE {ate} m over "
                   f"{LONG_ATE_FRAC} x path {path} m")
-        if launches["dilate_pyramid"] < 1 or \
-                launches["distance_transform"] < 1:
+        if min(launches.values()) < 1:
             _fail(f"phase 7 {name}: a kernel was not launched ({launches})")
     return parts
 
@@ -1639,7 +1946,8 @@ def fast_child(device, frames_path):
     torch.cuda.synchronize()
     scene.mark()
     wall = time.perf_counter() - t0
-    launches = dict(hk.LAUNCHES)
+    launches = hk.launch_counts()
+    track_launched = hk.device_launches()
     marks = scene.marks
     per = [dict(reads=b["reads"] - a["reads"],
                 splat_reads=b["splat_reads"] - a["splat_reads"],
@@ -1723,15 +2031,22 @@ def fast_child(device, frames_path):
     rec["profile"] = profile_slice(device, Rendered(seq, frames),
                                    settings=settings, what="fast preset")
 
-    # each loop's iterations, run by the early-exit loops (eager, on the
-    # card): how many calls ran n iterations
-    it_fs = FullSystem(seq.calib, seq.sensor, settings, device=device)
-    dl.reset_counts()
-    with dl.reference():
-        for fr in frames[:FAST_ITER_FRAMES]:
+    # the same frames with the early-exit loops (eager, on the card): K3
+    # and K4 launched once per evaluation the loops ran, and each loop's
+    # iterations over the first FAST_ITER_FRAMES frames (how many calls
+    # ran n iterations)
+    hist = {}
+
+    def eager_fast():
+        it_fs = FullSystem(seq.calib, seq.sensor, settings, device=device)
+        for i, fr in enumerate(frames):
+            if i == FAST_ITER_FRAMES:
+                hist.update({k: dict(sorted(v.items()))
+                             for k, v in sorted(dl.HIST.items())})
             it_fs.add_active_frame(*fr)
-    rec["loop_iterations"] = {k: dict(sorted(v.items()))
-                              for k, v in sorted(dl.HIST.items())}
+    rec["track_check"] = check_track_evaluations(
+        "fast preset", track_launched, eager_fast)
+    rec["loop_iterations"] = hist
     print(f"phase 8 (a): loop iterations over frames 0-"
           f"{FAST_ITER_FRAMES - 1} (calls per count), CHUNK {dl.CHUNK}: "
           + json.dumps(rec["loop_iterations"]), flush=True)
@@ -1809,7 +2124,7 @@ def run_fast(device):
     out["pipelined"] = rec = dict(
         lost=bool(fs.is_lost), n_keyframes=len(fs.kf_shells),
         ate_m=ate("A", traj), fps=FAST_FRAMES / wall,
-        launches=dict(hk.LAUNCHES),
+        launches=hk.launch_counts(),
         max_abs_vs_sequential=float(np.abs(traj - seq_traj).max()),
         loops=loop_counts(FAST_FRAMES, [fs.loops]))
     print("phase 8 (b) fast preset, pipelined: " + json.dumps(rec),
@@ -1854,12 +2169,15 @@ def run_fast(device):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches, kernel_lanes = dict(hk.LAUNCHES), dict(hk.LANES)
+    track_launched = hk.device_launches()
+    _track_launches("phase 8 (c)", track_launched)
     rec = dict(aggregate_fps=FLEET_B * n / (t1 - t0),
                steady_aggregate_fps=FLEET_B * (n - PROFILE_ROUNDS[0])
                / (t1 - t_steady),
                peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
                mem_at_start_bytes=int(mem0),
                launches=launches, kernel_lanes=kernel_lanes,
+               track_launches=track_launched,
                programs=program_keys([fs.loops for fs in m.systems]
                                      + [m.loops], sorted(dl.PROGRAMS)),
                kf_program=kf_program("fast preset, batched lockstep",
@@ -1929,7 +2247,7 @@ def run_fast(device):
     T[:, :3, :] = rows.reshape(-1, 3, 4)
     out["cli"] = rec = dict(rc=rc, rows=int(rows.shape[0]),
                             ate_m=ate("A", T), fps=n / wall,
-                            launches=dict(hk.LAUNCHES))
+                            launches=hk.launch_counts())
     shutil.rmtree(os.path.join(d, "kitti"))
     print("phase 8 (d) CLI --preset 2: " + json.dumps(rec), flush=True)
     if rc != 0 or rows.shape[0] != n or \
@@ -1971,6 +2289,7 @@ def main():
 
     # 3. kernels against their plain versions
     rec = check_kernels(device)
+    rec.update(check_track_kernels(device))
 
     solver_kernels(device)
 
@@ -2021,7 +2340,7 @@ def main():
         k2=phase6["cli"]["launches"]["distance_transform"]))
     d = phase6["dropout"]["sequential"]
     recorded("phase6_dropout", dict(
-        ate_m=d["ate_m"], ba_step_veto=d["counters"]["ba_step_veto"],
+        ate_m=d["ate_m"], ba_step_veto=d["counters"].get("ba_step_veto", 0),
         k1=d["launches"]["dilate_pyramid"],
         k2=d["launches"]["distance_transform"]))
     recorded("phase6_mono", dict(ready_frame=phase6["mono"].get(
@@ -2094,6 +2413,24 @@ def main():
                               for k, v in by_phase8.items()},
              **rec["distance_transform"]),
     ]
+    # K3 and K4: no Pallas kernel of the JAX package; they stand for its
+    # XLA-fused calc_res_gs and LM body
+    for name, replaces in (
+            ("track_res_gs", "sdv_loam_tpu/ops/photometric.py:162"),
+            ("track_lm_update", "sdv_loam_tpu/ops/photometric.py:310")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"sdv_loam_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            launches=summary["launches"][name],
+            launches_phase5={k: r["track_launches"][name]
+                             for k, r in fleet["compositions"].items()},
+            launches_phase6={k: v[name] for k, v in by_path.items()},
+            launches_phase7={k: v["launches"][name]
+                             for k, v in phase7.items()},
+            launches_phase8=dict(
+                {k: v[name] for k, v in by_phase8.items() if k != "lockstep"},
+                lockstep=phase8["lockstep"]["track_launches"][name]),
+            **rec[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,6 +75,27 @@ def distance_transform_bound(lanes, h, w, iters):
     return _bound(4 * 2 * cells, 6 * cells * iters)
 
 
+def track_res_gs_bound(lanes, rows, n):
+    """(bound_ms, bound_by) of K3 over `rows` rows of `n` points (pools of
+    `lanes` lanes): the pools read once (17 bytes a point), one 48-byte
+    bilinear support per point and row, the per-row inputs and outputs;
+    ~230 operations per point and row (the projection and the sample ~50,
+    the residual, weight and Jacobian ~35, J^T W J and J^T W r 144)."""
+    nbytes = 17 * lanes * n + 48 * rows * n + rows * (4 * 20 + 8 + 4 * 76)
+    return _bound(nbytes, 230 * rows * n)
+
+
+def lm_update_bound(rows):
+    """(bound_ms, bound_by) of K4's two entry points over `rows` rows: the
+    step reads H, b, lambda, T, the affine states and exposures (96
+    floats) and writes T_new, aff_new, aff_rel and the step (28), ~650
+    operations (the 8x8 LU and substitutions ~400, se3_exp and the 4x4
+    product ~250); the accept reads two residual carries, the poses, the
+    affine states, lambda, done, n_it and the step (~810 bytes) and
+    writes one carry set (~400 bytes), ~30 operations."""
+    return _bound(rows * (4 * (96 + 28) + 810 + 400), rows * (650 + 30))
+
+
 def _bound(nbytes, ops):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ops / FP32_OPS_PER_S
@@ -151,6 +172,74 @@ def baseline_chain(old, idepth0, weight0, levels):
                                    diagonal=(lvl < 2))
         out.append((idl, wl))
     return out
+
+
+def track_scene(seed, h, w, n, lanes, rows, poison=False):
+    """Seeded numpy inputs of K3 and K4: `lanes` images (lanes, h, w, 3)
+    (an intensity pattern with noise, and its central differences), pools
+    of `n` points per lane (90 % valid), intrinsics, and `rows` pose rows
+    per lane (lane-major) near the identity with per-row affine transfer,
+    reference b and cutoff, so that some points leave the image and some
+    saturate. With `poison`, row 0's pose puts its lane's point 5 at depth
+    0 (a NaN Jacobian), and with several lanes the last lane's image holds
+    a patch of inf under some of its points (which reach every row of that
+    lane: one lane keeps finite systems beside row 0)."""
+    from sdv_loam_tpu_torch.utils.se3 import se3_exp_np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    imgs, pools, Ks = [], [], []
+    for ln in range(lanes):
+        i0 = (128 + 60 * np.sin(xx / (5.0 + ln)) * np.cos(yy / 7.0)
+              + 4 * rng.standard_normal((h, w))).astype(np.float32)
+        gy, gx = np.gradient(i0)
+        imgs.append(np.stack([i0, gx, gy], -1).astype(np.float32))
+        u = rng.integers(3, w - 3, n)
+        v = rng.integers(3, h - 3, n)
+        pools.append(dict(
+            u=u.astype(np.float32), v=v.astype(np.float32),
+            idepth=rng.uniform(0.05, 0.5, n).astype(np.float32),
+            color=(i0[v, u] + 6 * rng.standard_normal(n)).astype(np.float32),
+            valid=rng.random(n) < 0.9))
+        Ks.append(np.array([0.78 * w + 10 * ln, 0.77 * w, w / 2, h / 2],
+                           np.float32))
+    B = lanes * rows
+    T = np.stack([se3_exp_np(np.concatenate([
+        rng.normal(0, 0.03, 3), rng.normal(0, 0.01, 3)]))
+        for _ in range(B)]).astype(np.float32)
+    sc = dict(imgs=np.stack(imgs), pools=pools, Ks=np.stack(Ks),
+              lane=np.repeat(np.arange(lanes), rows), T=T,
+              aff_rel=np.stack([1.0 + 0.05 * rng.standard_normal(B),
+                                2.0 * rng.standard_normal(B)],
+                               -1).astype(np.float32),
+              ref_b=rng.normal(0, 3, B).astype(np.float32),
+              cutoff=rng.uniform(12.0, 30.0, B).astype(np.float32))
+    if poison:
+        sc["T"][0] = np.eye(4, dtype=np.float32)
+        sc["T"][0, :3, 3] = (0.01, 0.0, -0.5)
+        sc["pools"][0]["idepth"][5] = 2.0
+    if poison and lanes > 1:
+        p = sc["pools"][-1]
+        u, v = int(p["u"][7]), int(p["v"][7])
+        sc["imgs"][-1, max(v - 8, 0):v + 8, max(u - 8, 0):u + 8] = np.inf
+    return sc
+
+
+def track_inputs(sc, device):
+    """`track_scene`'s arrays as the port's K3 arguments on `device`:
+    dict(pool (L, N) fields, dI, packed, K, lane, T, aff_rel, ref_b,
+    cutoff)."""
+    from sdv_loam_tpu_torch.ops.warp import pack_bilinear
+
+    def t(x):
+        return torch.as_tensor(x, device=device)
+    dI = t(sc["imgs"])
+    return dict(pool={k: t(np.stack([p[k] for p in sc["pools"]]))
+                      for k in sc["pools"][0]},
+                dI=dI, packed=pack_bilinear(dI), K=t(sc["Ks"]),
+                lane=t(sc["lane"]).long(), T=t(sc["T"]),
+                aff_rel=t(sc["aff_rel"]), ref_b=t(sc["ref_b"]),
+                cutoff=t(sc["cutoff"]))
 
 
 def _splat(lanes, h, w, rng, frac=0.04):

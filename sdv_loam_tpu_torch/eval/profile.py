@@ -25,7 +25,11 @@ holds, per frame (a round of B sequences counts as B frames when
     last reset (the captures happen before a steady window);
   * stage_ms: host-clock ms of each telemetry stage per frame of one
     system, the mean over `systems` (each stage ends in a wait for the
-    system's stream; a batched stage is entered on each of its lanes).
+    system's stream; a batched stage is entered on each of its lanes);
+  * program_device_ms: per stage program, the device ms of its replays
+    per frame (a CUDA event pair around each replay,
+    `device_loop.program_timing`, only inside the window), and
+    program_device_replays their count per frame.
 
 `count_dispatches(step, n)` counts, on the CPU, the ops a window
 dispatches per frame inside and outside the iterated stages' loops: the
@@ -35,6 +39,9 @@ default; `--device cpu` for the eager counts):
 
     python -m sdv_loam_tpu_torch.eval.profile --device cpu [--window 4 8] \
         [--w 1200 --h 360]
+
+`lm_iteration_ops()` (`--lm-ops`) counts the ops of one tracking LM
+iteration, with the K3 / K4 plain versions and with their kernels.
 """
 
 from __future__ import annotations
@@ -72,7 +79,8 @@ def profile_window(step, n_steps: int, systems, frames_per_step: int = 1,
     c0 = device_loop.counts()
     loops0, progs0 = c0.get("all", {}), c0.get("programs", {})
     with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+                             ProfilerActivity.CUDA]) as prof, \
+            device_loop.program_timing() as prog_dev:
         t0 = time.perf_counter()
         for i in range(n_steps):
             step(i)
@@ -116,6 +124,10 @@ def profile_window(step, n_steps: int, systems, frames_per_step: int = 1,
             "captures", "capture_s", "instantiate_s", "pool_mib", "ops")},
         stage_ms_per_frame={k: 1000.0 * v / per_sys / n_steps
                             for k, v in sorted(stages.items())},
+        program_device_ms_per_frame={k: v["ms"] / n for k, v in
+                                     sorted(prog_dev.items())},
+        program_device_replays_per_frame={k: v["replays"] / n for k, v in
+                                          sorted(prog_dev.items())},
         top_kernels=[dict(name=e.key[:120],
                           device_ms_per_frame=_dev_us(e) / 1000.0 / n,
                           calls_per_frame=e.count / n)
@@ -173,10 +185,81 @@ def count_dispatches(step, n_steps: int) -> dict:
                 per_stage={k[6:]: v for k, v in sorted(per.items())})
 
 
+def lm_iteration_ops() -> dict:
+    """Ops one tracking LM iteration (`photometric._lm_body`) and one first
+    evaluation (`photometric._level_res`) dispatch, views excluded, on the
+    CPU on `kernel_timing.track_scene`'s 320x96 inputs (two lanes, three
+    rows each, 1024 points): `plain` counts every op of the K3 / K4 plain
+    versions (the op-by-op body the card ran before the kernels), `kernels`
+    counts each K3 / K4 wrapper call as one launch and the ops around them
+    (what the card path launches)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.ops import photometric as ph
+
+    x = kt.track_inputs(kt.track_scene(0, 96, 320, 1024, 2, 3), "cpu")
+    B = x["T"].shape[0]
+    loop_x = {"pool_" + k: v for k, v in x["pool"].items()}
+    loop_x.update(K=x["K"], packed=x["packed"], lane=x["lane"],
+                  cutoff=x["cutoff"], ref_aff=torch.zeros(B, 2),
+                  exposures=torch.ones(B, 2))
+    aff = torch.zeros(B, 2)
+    state = {"n": 0, "inside": 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not state["inside"] and \
+                    func.overloadpacket.__name__ not in _VIEW_OPS:
+                state["n"] += 1
+            return func(*args, **(kwargs or {}))
+
+    def counted(fn):
+        def call(*a, **k):
+            state["n"] += 1
+            state["inside"] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                state["inside"] -= 1
+        return call
+
+    def first():
+        return ph._level_res(loop_x, x["T"], aff, x["cutoff"], 96, 320, 9.0,
+                             True)
+    r = first()
+    st = dict({"r_" + k: v for k, v in r.items()}, T=x["T"], aff=aff,
+              lam=torch.full((B,), 0.01),
+              done=torch.zeros(B, dtype=torch.bool),
+              n_it=torch.zeros(B, dtype=torch.int64))
+    out = {}
+    names = ("track_res_gs", "lm_update_step", "lm_update_accept")
+    saved = {n: getattr(ph, n) for n in names}
+    for mode in ("plain", "kernels"):
+        if mode == "kernels":
+            for n in names:
+                setattr(ph, n, counted(saved[n]))
+        try:
+            res = {}
+            for what, fn in (("lm_iteration", lambda: ph._lm_body(
+                    loop_x, st, 96, 320, 9.0, True)),
+                             ("first_evaluation", first)):
+                state["n"] = 0
+                with Count():
+                    fn()
+                res[what] = state["n"]
+            out[mode] = res
+        finally:
+            for n in names:
+                setattr(ph, n, saved[n])
+    return out
+
+
 def main():
     """Dispatch counts of a frame window of phase 4's scene
     (chip_smoke.py's SCENE, seed 7, default Settings), on the card unless
-    `--device cpu` is given."""
+    `--device cpu` is given; with `--lm-ops`, the ops of one tracking LM
+    iteration instead (`lm_iteration_ops`, on the CPU)."""
     import argparse
     import json
 
@@ -189,7 +272,11 @@ def main():
     ap.add_argument("--w", type=int, default=1200)
     ap.add_argument("--h", type=int, default=360)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--lm-ops", action="store_true")
     args = ap.parse_args()
+    if args.lm_ops:
+        print(json.dumps(lm_iteration_ops()))
+        return
     a, b = args.window
     seq = make_sequence(n_frames=b, w=args.w, h=args.h, fx=718.856,
                         cy_offset=0.0, step=0.7, lidar_stride=2,

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 Counterpart of `sdv_loam_tpu/ops/pallas_kernels.py`, whose two Pallas TPU
-kernels are both on the odometry main path:
+kernels are both on the odometry main path, and of the tracking LM's body,
+which the JAX package leaves to XLA to fuse:
 
   * `dilate_pyramid` (K1, csrc/dilate_pyramid.cu) replaces the chain of
     `dilate_depth_pallas` calls in `build_track_ref`: the hole-filling
@@ -11,8 +12,20 @@ kernels are both on the odometry main path:
     `distance_transform_pallas`: the chamfer distance map behind the
     activation spread test, one launch per keyframe.
 
-Both take one map (H, W) or a stack of lanes (L, H, W) and compute each
-lane as the single-map call would.
+  * `track_res_gs` (K3, csrc/track_res_gs.cu) computes
+    `photometric.calc_res_gs` (the JAX package's `calc_res_gs`,
+    sdv_loam_tpu/ops/photometric.py:162): the residual and the scaled 8x8
+    system of B pose rows, each row reading its lane's pool directly;
+  * `lm_update_step` and `lm_update_accept` (K4, two entry points of
+    csrc/track_lm_update.cu) compute the rest of one tracking LM
+    iteration (`photometric._lm_body`; the JAX package's LM body,
+    sdv_loam_tpu/ops/photometric.py:310): the damped solve and the pose
+    step before K3, the accept test and the per-row selects after it.
+
+K1 and K2 take one map (H, W) or a stack of lanes (L, H, W) and compute
+each lane as the single-map call would. K3 and K4 take B rows; a row's
+result does not depend on the other rows (each row's sums run in a fixed
+order, csrc/track_res_gs.cu).
 
 Dispatch: a CPU tensor goes to the plain version beside each kernel; a CUDA
 tensor goes to the kernel, and a failed build or launch raises. There is no
@@ -23,13 +36,19 @@ plain C interface (bound with ctypes) under `sdv_loam_tpu_torch/build/`, at
 the first CUDA call, from the sources in `csrc/` only; a change of any
 source's hash builds a new library. Importing this module never needs nvcc.
 
-`LAUNCHES` counts the kernel launches the card ran (plain-version calls do
-not count), so a run can show that the main path went through the kernels;
-`LANES` counts the lanes (maps) those launches took, so a fleet run can
-show its launches took several sequences at once. A wrapper called while a
-stage program is being captured (utils/device_loop.program) launches
-nothing then: the capture records the launch, and every replay of the
-program counts it.
+`LAUNCHES` counts K1's and K2's launches the card ran (plain-version calls
+do not count), so a run can show that the main path went through the
+kernels; `LANES` counts the lanes (maps) those launches took, so a fleet
+run can show its launches took several sequences at once. A wrapper called
+while a stage program is being captured (utils/device_loop.program)
+launches nothing then: the capture records the launch, and every replay of
+the program counts it. K3 and K4 run inside the programs' IF and WHILE
+nodes, where a replay decides on the card how often they run, so they
+count themselves on the card: one thread of each launch adds one to the
+kernel's device counter. `device_launches()` reads those counters (a
+device synchronize: only for a caller that asks, never on the frame path),
+`launch_counts()` gives all four kernels' counts, and
+`reset_launch_counts()` zeroes both kinds.
 
 The same library holds csrc/graph_cond.cu, the conditional (IF and WHILE)
 nodes of the captured stage programs (`sdv_cond_begin`, `sdv_cond_set`,
@@ -51,15 +70,24 @@ import threading
 
 import torch
 
-from sdv_loam_tpu_torch.utils import device_loop
+from sdv_loam_tpu_torch.ops.warp import bilinear_sample_packed, pack_bilinear
+from sdv_loam_tpu_torch.utils import device_loop, se3
 
 LAUNCHES = {"dilate_pyramid": 0, "distance_transform": 0}
 LANES = {"dilate_pyramid": 0, "distance_transform": 0}
+# the kernels that count their launches on the card
+DEVICE_COUNTED = ("track_res_gs", "track_lm_update")
+
+STEP_SCALE = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
+LAMBDA_EXTRAPOLATION_LIMIT = 0.001
+# a residual evaluation's outputs, the LM's `r_*` carries
+RES_KEYS = ("E", "n", "sat_frac", "H", "b", "flow_t", "flow_rt")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("dilate_pyramid.cu", "distance_transform.cu", "graph_cond.cu")
+SOURCES = ("dilate_pyramid.cu", "distance_transform.cu", "graph_cond.cu",
+           "track_res_gs.cu", "track_lm_update.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 DILATE_MAX_LEVELS = 8   # levels one K1 launch takes (csrc/dilate_pyramid.cu)
@@ -67,13 +95,57 @@ DILATE_MAX_LEVELS = 8   # levels one K1 launch takes (csrc/dilate_pyramid.cu)
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
+# the CUDA devices K3 or K4 launched on (whose counters a read visits)
+_counted_devices: set = set()
 
 
 def reset_launch_counts() -> None:
+    """Zero `LAUNCHES`, `LANES` and the device counters of K3 and K4 (after
+    a device synchronize)."""
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
             LANES[k] = 0
+    _device_counts(reset=True)
+
+
+def _device_counts(reset: bool = False):
+    """(K3 launches, K4 step launches, K4 accept launches) summed over the
+    devices that launched them, read from their counters after a device
+    synchronize; zeroed after the read with `reset`."""
+    tot = [0, 0, 0]
+    if _lib is None:
+        return tot
+    for d in sorted(_counted_devices):
+        with torch.cuda.device(d):
+            torch.cuda.synchronize()
+            k3 = (ctypes.c_ulonglong * 1)()
+            k4 = (ctypes.c_ulonglong * 2)()
+            _check_rc(_lib.sdv_track_res_gs_counts(k3, int(reset)),
+                      "reading track_res_gs's counter")
+            _check_rc(_lib.sdv_track_lm_update_counts(k4, int(reset)),
+                      "reading track_lm_update's counters")
+        tot = [tot[0] + k3[0], tot[1] + k4[0], tot[2] + k4[1]]
+    return tot
+
+
+def device_launches() -> dict:
+    """The launches K3 and K4 counted on the card since the last reset: per
+    kernel (K4's two entry points together), and K4's `lm_step` and
+    `lm_accept` apart (one each per LM iteration). Synchronizes."""
+    k3, step, accept = _device_counts()
+    return {"track_res_gs": k3, "track_lm_update": step + accept,
+            "lm_step": step, "lm_accept": accept}
+
+
+def launch_counts() -> dict:
+    """All four kernels' launches: `LAUNCHES` (K1, K2) and the device
+    counters (K3, K4). Synchronizes."""
+    dev = device_launches()
+    with _count_lock:
+        out = dict(LAUNCHES)
+    out.update({k: dev[k] for k in DEVICE_COUNTED})
+    return out
 
 
 def _count_launch(name: str, lanes: int = 1) -> None:
@@ -184,6 +256,197 @@ def distance_transform_plain(seed: torch.Tensor, iters: int = 32):
     return d
 
 
+def _step_scale(like):
+    """STEP_SCALE on `like`'s device and dtype (made once)."""
+    return device_loop.constant(STEP_SCALE, like.device, like.dtype)
+
+
+def aff_transfer(exposure_ref, exposure_new, aff_ref, aff_new):
+    """AffLight::fromToVecExposure: (a, b) with I_new ~ a * I_ref + b.
+    `aff_new` may carry leading batch dimensions (..., 2); `aff_ref` and
+    the exposures are one frame's or carry the same leading dimensions."""
+    zero = (exposure_ref == 0) | (exposure_new == 0)
+    one = torch.ones_like(exposure_ref)
+    er = torch.where(zero, one, exposure_ref)
+    en = torch.where(zero, one, exposure_new)
+    a = torch.exp(aff_new[..., 0] - aff_ref[..., 0]) * en / er
+    b = aff_new[..., 1] - a * aff_ref[..., 1]
+    return torch.stack([a, b], dim=-1)
+
+
+def select_rows(mask, new, old):
+    """Per-lane select over a dict or tensor with leading batch dim."""
+    if isinstance(new, dict):
+        return {k: select_rows(mask, new[k], old[k]) for k in new}
+    m = mask.reshape(mask.shape + (1,) * (new.dim() - 1))
+    return torch.where(m, new, old)
+
+
+def _lane_inputs(pool, K, B, lane, device):
+    """(pool fields (B, N), K (B, 4), lane) for B rows: each row reads its
+    lane's pool; one lane's (N,) pool runs as lane 0."""
+    if lane is None:
+        pool = {k: pool[k][None] for k in ("u", "v", "idepth", "color",
+                                           "valid")}
+        K = K[None]
+        lane = torch.zeros(B, dtype=torch.int64, device=device)
+    rows = {k: pool[k].index_select(0, lane)
+            for k in ("u", "v", "idepth", "color", "valid")}
+    return rows, K.index_select(0, lane), lane
+
+
+def calc_res_gs_plain(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b,
+                      cutoff, huber_th, packed=None, lane=None, hw=None):
+    """K3's plain version: `photometric.calc_res_gs` in tensor operations
+    (see there for the arguments)."""
+    h, w = hw if hw is not None else (dI_new.shape[-3], dI_new.shape[-2])
+    if packed is None:
+        packed = pack_bilinear(dI_new)
+    B = T_ref_to_new.shape[0]
+    dev = T_ref_to_new.device
+    rows, Kb, lane = _lane_inputs(pool, K, B, lane, dev)
+    u0, v0 = rows["u"], rows["v"]                                    # (B,N)
+    idp, color, valid = rows["idepth"], rows["color"], rows["valid"]
+    fx, fy, cx, cy = (Kb[:, i:i + 1] for i in range(4))              # (B,1)
+    cutoff = torch.as_tensor(cutoff, dtype=torch.float32,
+                             device=dev).expand(B)[:, None]
+    ref_aff_b = torch.as_tensor(ref_aff_b, dtype=torch.float32,
+                                device=dev).expand(B)[:, None]
+
+    xn = (u0 - cx) / fx
+    yn = (v0 - cy) / fy
+    R = T_ref_to_new[:, :3, :3]
+    t = T_ref_to_new[:, :3, 3]
+    p = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)         # (B,N,3)
+    pr = torch.einsum("bnj,bij->bni", p, R)                          # p @ R^T
+    pt = pr + t[:, None, :] * idp[:, :, None]                        # (B,N,3)
+    u = pt[..., 0] / pt[..., 2]
+    v = pt[..., 1] / pt[..., 2]
+    Ku = fx * u + cx
+    Kv = fy * v + cy
+    new_idepth = idp / pt[..., 2]
+
+    inb = valid & (Ku > 2) & (Kv > 2) & (Ku < w - 3) & (Kv < h - 3) \
+        & (new_idepth > 0)
+    hit, hit_ok = bilinear_sample_packed(packed, h, w, Ku, Kv,
+                                         base=lane[:, None] * (h * w))
+    inb = inb & hit_ok & torch.isfinite(hit[..., 0])
+
+    r = hit[..., 0] - (aff_rel[:, 0:1] * color + aff_rel[:, 1:2])
+    absr = torch.abs(r)
+    one = torch.ones_like(absr)
+    hw = torch.where(absr < huber_th, one,
+                     huber_th / torch.clamp(absr, min=1e-12))
+    saturated = inb & (absr > cutoff)
+    inlier = inb & (absr <= cutoff)
+    zero = torch.zeros_like(absr)
+
+    max_energy = 2.0 * huber_th * cutoff - huber_th * huber_th       # (B,1)
+    E = torch.where(inlier, hw * r * r * (2.0 - hw), zero).sum(-1) + \
+        torch.where(saturated, max_energy.expand_as(absr), zero).sum(-1)
+    n_terms = inb.sum(-1)
+    sat_frac = saturated.sum(-1) / torch.clamp(n_terms, min=1)
+
+    dxf = hit[..., 1] * fx
+    dyf = hit[..., 2] * fy
+    idn = new_idepth
+    J = torch.stack([
+        idn * dxf,
+        idn * dyf,
+        -idn * (u * dxf + v * dyf),
+        -(u * v * dxf + (1.0 + v * v) * dyf),
+        u * v * dyf + (1.0 + u * u) * dxf,
+        u * dyf - v * dxf,
+        aff_rel[:, 0:1] * (ref_aff_b - color),
+        -torch.ones_like(u),
+    ], dim=-1)                                                        # (B,N,8)
+    wgt = torch.where(inlier, hw, zero)
+    n_in = torch.clamp(inlier.sum(-1), min=1).to(J.dtype)
+    Jw = J * wgt[..., None]
+    Hm = (J.transpose(1, 2) @ Jw) / n_in[:, None, None]
+    bv = (Jw.transpose(1, 2) @ r[..., None])[..., 0] / n_in[:, None]
+    S = _step_scale(J)
+    Hm = Hm * S[:, None] * S[None, :]
+    bv = bv * S
+
+    # flow indicators (calcRes:538-565): every 32nd pool slot
+    m = valid & (torch.arange(u0.shape[1], device=dev) % 32 == 0)
+    ti = t[:, None, :] * idp[:, :, None]
+    ptT = p + ti
+    ptT2 = p - ti
+    pt3 = pr - ti
+
+    def pix_shift(q):
+        uu = fx * (q[..., 0] / q[..., 2]) + cx
+        vv = fy * (q[..., 1] / q[..., 2]) + cy
+        return (uu - u0) ** 2 + (vv - v0) ** 2
+
+    num = m.sum(-1) * 2.0
+    zf = torch.zeros((), dtype=u.dtype, device=dev)
+    flow_t = torch.where(m, pix_shift(ptT) + pix_shift(ptT2), zf).sum(-1) \
+        / (num + 0.1)
+    flow_rt = torch.where(m, pix_shift(pt) + pix_shift(pt3), zf).sum(-1) \
+        / (num + 0.1)
+    return dict(E=E, n=n_terms, sat_frac=sat_frac, H=Hm, b=bv,
+                flow_t=flow_t, flow_rt=flow_rt)
+
+
+def _solve_scaled(H, b, lam):
+    """LM-damped solve of the scaled (B, 8, 8) systems; lam (B,)."""
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    Hl = H + torch.diag_embed(diag) * lam[:, None, None] + eye * 1e-12
+    inc = torch.linalg.solve_ex(Hl, -b)[0]
+    extrap = torch.where(
+        lam < LAMBDA_EXTRAPOLATION_LIMIT,
+        torch.sqrt(torch.sqrt(LAMBDA_EXTRAPOLATION_LIMIT
+                              / torch.clamp(lam, min=1e-12))),
+        torch.ones_like(lam))
+    inc = inc * extrap[:, None]
+    return torch.where(torch.isfinite(inc), inc, torch.zeros_like(inc))
+
+
+def lm_update_step_plain(H, b, lam, T, aff, exposures, ref_aff):
+    """K4's first half in tensor operations: the damped solve of each row's
+    scaled system (H (B, 8, 8), b (B, 8), lam (B,)), the pose and affine
+    step from T (B, 4, 4) and aff (B, 2), and the brightness transfer of
+    the new affine from `ref_aff` and `exposures` ((2,), or (B, 2) per
+    row). Returns (T_new, aff_new, aff_rel, inc): the step `inc` (B, 8)
+    before STEP_SCALE."""
+    inc = _solve_scaled(H, b, lam)
+    inc_scaled = inc * _step_scale(inc)
+    T_new = se3.se3_exp(inc_scaled[:, :6]) @ T
+    aff_new = aff + inc_scaled[:, 6:]
+    aff_rel = aff_transfer(exposures[..., 0], exposures[..., 1], ref_aff,
+                           aff_new)
+    return T_new, aff_new, aff_rel, inc
+
+
+def lm_update_accept_plain(r, r_new, T, T_new, aff, aff_new, lam, done,
+                           n_it, inc):
+    """K4's second half in tensor operations: rows not `done` take the new
+    state where its energy per term is lower; lambda halves on an accept
+    and grows fourfold (at least to the limit) on a reject; a row is done
+    once its step's norm is not above 1e-3. `r`, `r_new`: residual dicts
+    (RES_KEYS). Returns dict(r, T, aff, lam, done, n_it, active), `active`
+    a () bool: whether any row still runs."""
+    act = ~done
+    accept = (r_new["E"] / torch.clamp(r_new["n"], min=1)) < \
+        (r["E"] / torch.clamp(r["n"], min=1))
+    acc = accept & act
+    T = select_rows(acc, T_new, T)
+    aff = select_rows(acc, aff_new, aff)
+    lam_n = torch.where(accept, lam * 0.5,
+                        torch.clamp(lam * 4.0,
+                                    min=LAMBDA_EXTRAPOLATION_LIMIT))
+    lam = torch.where(act, lam_n, lam)
+    r = select_rows(acc, r_new, r)
+    done = done | (act & ~(torch.linalg.vector_norm(inc, dim=-1) > 1e-3))
+    n_it = n_it + act.to(torch.int64)
+    return dict(r=r, T=T, aff=aff, lam=lam, done=done, n_it=n_it,
+                active=(~done).any())
+
+
 # ---------------------------------------------------------------------------
 # build + bind
 # ---------------------------------------------------------------------------
@@ -254,6 +517,19 @@ def _load():
             lib.sdv_cond_end.restype = ci
             lib.sdv_capture_nodes.argtypes = [vp, ctypes.POINTER(ull)]
             lib.sdv_capture_nodes.restype = ci
+            vpp, ll, cf = ctypes.POINTER(vp), ctypes.c_longlong, \
+                ctypes.c_float
+            lib.sdv_track_res_gs.argtypes = [vpp, ll, ci, ci, ci, ci, ll, cf,
+                                             ll, cf, cf, vp]
+            lib.sdv_track_res_gs.restype = ci
+            lib.sdv_lm_step.argtypes = [vpp, ci, ll, ll, vp]
+            lib.sdv_lm_step.restype = ci
+            lib.sdv_lm_accept.argtypes = [vpp, ci, vp]
+            lib.sdv_lm_accept.restype = ci
+            for fn in (lib.sdv_track_res_gs_counts,
+                       lib.sdv_track_lm_update_counts):
+                fn.argtypes = [ctypes.POINTER(ull), ci]
+                fn.restype = ci
             _lib = lib
     return _lib
 
@@ -347,4 +623,201 @@ def distance_transform(seed: torch.Tensor, iters: int = 32):
     _check_rc(rc, "distance_transform")
     if iters and seed.numel():   # 0 sweeps are a copy, not a launch
         _count_launch("distance_transform", lanes)
+    return out
+
+
+def _on_card(what, *tensors):
+    """The one CUDA device of `tensors`; raises when they lie on several."""
+    devs = {t.device for t in tensors if isinstance(t, torch.Tensor)}
+    if len(devs) != 1:
+        raise ValueError(f"{what}: inputs on several devices {devs}")
+    dev = devs.pop()
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    _counted_devices.add(dev.index)
+    return dev
+
+
+def _f32(x, name):
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name}: float32 required, got {x.dtype}")
+    return x.contiguous()
+
+
+def _per_row(x, B, name):
+    """A float, a () tensor or a (B,) tensor as the kernels take it:
+    (pointer or None, row stride, value)."""
+    if not isinstance(x, torch.Tensor):
+        return None, 0, float(x)
+    if x.dtype != torch.float32 or x.dim() > 1 or \
+            (x.dim() == 1 and x.shape[0] not in (1, B)):
+        raise ValueError(f"{name}: a float, or a float32 () or ({B},) "
+                         f"tensor required, got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    stride = x.stride(0) if x.dim() == 1 and x.shape[0] == B else 0
+    return x.data_ptr(), stride, 0.0
+
+
+def _ptrs(*tensors):
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t if isinstance(t, int) else t.data_ptr()
+          for t in tensors))
+
+
+def track_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b, cutoff,
+                 huber_th, packed=None, lane=None, hw=None):
+    """K3: `photometric.calc_res_gs` (same arguments and results). CPU ->
+    plain version; CUDA -> one launch for the B rows, each reading its
+    lane's pool fields (L, N) and `packed` rows directly."""
+    if T_ref_to_new.device.type == "cpu":
+        return calc_res_gs_plain(pool, dI_new, K, T_ref_to_new, aff_rel,
+                                 ref_aff_b, cutoff, huber_th, packed=packed,
+                                 lane=lane, hw=hw)
+    if isinstance(huber_th, torch.Tensor):
+        raise TypeError("huber_th: a float required (a device tensor would "
+                        "need a host read)")
+    h, w = hw if hw is not None else (dI_new.shape[-3], dI_new.shape[-2])
+    if packed is None:
+        packed = pack_bilinear(dI_new)
+    B = T_ref_to_new.shape[0]
+    f = {k: _f32(pool[k], k) for k in ("u", "v", "idepth", "color")}
+    valid = pool["valid"].contiguous()
+    if valid.dtype != torch.bool:
+        raise TypeError("valid: bool required")
+    N = f["u"].shape[-1]
+    if any(x.shape != f["u"].shape for x in (*f.values(), valid)) or \
+            f["u"].dim() != (1 if lane is None else 2):
+        raise ValueError("pool fields: (N,) each, or (L, N) with `lane`")
+    packed = _f32(packed, "packed")
+    if packed.dim() != 2 or packed.shape[1] != 12 or packed.data_ptr() % 16:
+        raise ValueError("packed: (L * h * w, 12), 16-byte aligned, "
+                         "required (pack_bilinear of a 3-channel level)")
+    K = _f32(K, "K")
+    T = _f32(T_ref_to_new, "T_ref_to_new")
+    aff_rel = _f32(aff_rel, "aff_rel")
+    if T.shape != (B, 4, 4) or aff_rel.shape != (B, 2):
+        raise ValueError("T_ref_to_new (B, 4, 4) and aff_rel (B, 2) "
+                         "required")
+    if lane is not None:
+        if lane.dtype != torch.int64 or lane.shape != (B,):
+            raise ValueError("lane: int64 (B,) required")
+        lane = lane.contiguous()
+    dev = _on_card("track_res_gs", T, aff_rel, K, packed, valid, lane,
+                   *f.values(), *(x for x in (ref_aff_b, cutoff)
+                                  if isinstance(x, torch.Tensor)))
+    rb_ptr, rb_stride, rb_val = _per_row(ref_aff_b, B, "ref_aff_b")
+    co_ptr, co_stride, co_val = _per_row(cutoff, B, "cutoff")
+    lib = _load()
+    out = dict(E=torch.empty(B, device=dev),
+               n=torch.empty(B, dtype=torch.int64, device=dev),
+               sat_frac=torch.empty(B, device=dev),
+               H=torch.empty((B, 8, 8), device=dev),
+               b=torch.empty((B, 8), device=dev),
+               flow_t=torch.empty(B, device=dev),
+               flow_rt=torch.empty(B, device=dev))
+    ptrs = _ptrs(f["u"], f["v"], f["idepth"], f["color"], valid, packed, K,
+                 lane, T, aff_rel, rb_ptr, co_ptr,
+                 *(out[k] for k in RES_KEYS))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdv_track_res_gs(
+            ptrs, N if f["u"].dim() == 2 else 0, N, int(h), int(w), B,
+            rb_stride, rb_val, co_stride, co_val, float(huber_th), stream)
+    _check_rc(rc, "track_res_gs")
+    return out
+
+
+def _row_pairs(x, B, name):
+    """(2,) or (B, 2) float32 -> (tensor with unit last stride, row
+    stride)."""
+    if x.dtype != torch.float32 or x.shape not in ((2,), (B, 2)):
+        raise ValueError(f"{name}: float32 (2,) or ({B}, 2) required")
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    return x, (x.stride(0) if x.dim() == 2 else 0)
+
+
+def lm_update_step(H, b, lam, T, aff, exposures, ref_aff):
+    """K4's first entry point: `lm_update_step_plain` (same arguments and
+    results). CPU -> plain version; CUDA -> one launch, a thread per
+    row."""
+    if H.device.type == "cpu":
+        return lm_update_step_plain(H, b, lam, T, aff, exposures, ref_aff)
+    B = H.shape[0]
+    H, b, lam, T, aff = (_f32(x, n) for x, n in (
+        (H, "H"), (b, "b"), (lam, "lam"), (T, "T"), (aff, "aff")))
+    if (H.shape, b.shape, lam.shape, T.shape, aff.shape) != \
+            ((B, 8, 8), (B, 8), (B,), (B, 4, 4), (B, 2)):
+        raise ValueError("H (B, 8, 8), b (B, 8), lam (B,), T (B, 4, 4) and "
+                         "aff (B, 2) required")
+    exposures, ex_stride = _row_pairs(exposures, B, "exposures")
+    ref_aff, ra_stride = _row_pairs(ref_aff, B, "ref_aff")
+    dev = _on_card("lm_update_step", H, b, lam, T, aff, exposures, ref_aff)
+    lib = _load()
+    T_new = torch.empty((B, 4, 4), device=dev)
+    aff_new = torch.empty((B, 2), device=dev)
+    aff_rel = torch.empty((B, 2), device=dev)
+    inc = torch.empty((B, 8), device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdv_lm_step(_ptrs(H, b, lam, T, aff, exposures, ref_aff,
+                                   T_new, aff_new, aff_rel, inc),
+                             B, ex_stride, ra_stride, stream)
+    _check_rc(rc, "lm_update_step")
+    return T_new, aff_new, aff_rel, inc
+
+
+def lm_update_accept(r, r_new, T, T_new, aff, aff_new, lam, done, n_it,
+                     inc):
+    """K4's second entry point: `lm_update_accept_plain` (same arguments
+    and results). CPU -> plain version; CUDA -> one launch of one block
+    (a thread per row, and the flag reduced over the block)."""
+    if T.device.type == "cpu":
+        return lm_update_accept_plain(r, r_new, T, T_new, aff, aff_new, lam,
+                                      done, n_it, inc)
+    B = T.shape[0]
+    shapes = dict(E=(B,), n=(B,), sat_frac=(B,), H=(B, 8, 8), b=(B, 8),
+                  flow_t=(B,), flow_rt=(B,))
+
+    def res(d, what):
+        out = []
+        for k in RES_KEYS:
+            x = d[k].contiguous()
+            if x.shape != shapes[k] or x.dtype != (
+                    torch.int64 if k == "n" else torch.float32):
+                raise ValueError(f"{what}[{k}]: {shapes[k]} "
+                                 f"{'int64' if k == 'n' else 'float32'} "
+                                 "required")
+            out.append(x)
+        return out
+    ins = res(r, "r") + res(r_new, "r_new")
+    T, T_new, aff, aff_new, lam, inc = (_f32(x, n) for x, n in (
+        (T, "T"), (T_new, "T_new"), (aff, "aff"), (aff_new, "aff_new"),
+        (lam, "lam"), (inc, "inc")))
+    done, n_it = done.contiguous(), n_it.contiguous()
+    if (T.shape, T_new.shape, aff.shape, aff_new.shape, lam.shape,
+            inc.shape, done.shape, n_it.shape) != (
+            (B, 4, 4), (B, 4, 4), (B, 2), (B, 2), (B,), (B, 8), (B,),
+            (B,)) or done.dtype != torch.bool or n_it.dtype != torch.int64:
+        raise ValueError("lm_update_accept: row shapes or dtypes differ "
+                         "from lm_update_accept_plain's")
+    dev = _on_card("lm_update_accept", T, T_new, aff, aff_new, lam, done,
+                   n_it, inc, *ins)
+    lib = _load()
+    r_out = {k: torch.empty(shapes[k], device=dev,
+                            dtype=torch.int64 if k == "n" else torch.float32)
+             for k in RES_KEYS}
+    out = dict(r=r_out, T=torch.empty((B, 4, 4), device=dev),
+               aff=torch.empty((B, 2), device=dev),
+               lam=torch.empty(B, device=dev),
+               done=torch.empty(B, dtype=torch.bool, device=dev),
+               n_it=torch.empty(B, dtype=torch.int64, device=dev),
+               active=torch.empty((), dtype=torch.bool, device=dev))
+    ptrs = _ptrs(*ins, T, T_new, aff, aff_new, lam, done, n_it, inc,
+                 *(r_out[k] for k in RES_KEYS), out["T"], out["aff"],
+                 out["lam"], out["done"], out["n_it"], out["active"])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.sdv_lm_accept(ptrs, B, stream)
+    _check_rc(rc, "lm_update_accept")
     return out

@@ -21,30 +21,11 @@ from __future__ import annotations
 
 import torch
 
-from sdv_loam_tpu_torch.ops.hopper_kernels import dilate_pyramid
-from sdv_loam_tpu_torch.ops.warp import bilinear_sample_packed, pack_bilinear
-from sdv_loam_tpu_torch.utils import device_loop, se3
-
-STEP_SCALE = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
-LAMBDA_EXTRAPOLATION_LIMIT = 0.001
-
-
-def _step_scale(like):
-    """STEP_SCALE on `like`'s device and dtype (made once)."""
-    return device_loop.constant(STEP_SCALE, like.device, like.dtype)
-
-
-def aff_transfer(exposure_ref, exposure_new, aff_ref, aff_new):
-    """AffLight::fromToVecExposure: (a, b) with I_new ~ a * I_ref + b.
-    `aff_new` may carry leading batch dimensions (..., 2); `aff_ref` and
-    the exposures are one frame's or carry the same leading dimensions."""
-    zero = (exposure_ref == 0) | (exposure_new == 0)
-    one = torch.ones_like(exposure_ref)
-    er = torch.where(zero, one, exposure_ref)
-    en = torch.where(zero, one, exposure_new)
-    a = torch.exp(aff_new[..., 0] - aff_ref[..., 0]) * en / er
-    b = aff_new[..., 1] - a * aff_ref[..., 1]
-    return torch.stack([a, b], dim=-1)
+from sdv_loam_tpu_torch.ops.hopper_kernels import (
+    RES_KEYS, aff_transfer, dilate_pyramid, lm_update_accept, lm_update_step,
+    select_rows, track_res_gs)
+from sdv_loam_tpu_torch.ops.warp import pack_bilinear
+from sdv_loam_tpu_torch.utils import device_loop
 
 
 # ---------------------------------------------------------------------------
@@ -201,19 +182,6 @@ def build_track_ref(dI_pyr, idepth0, weight0, levels: int,
 # residual + Hessian evaluation (calcRes + calcGSSSE fused), batched over B
 # ---------------------------------------------------------------------------
 
-def _lane_inputs(pool, K, B, lane, device):
-    """(pool fields (B, N), K (B, 4), lane) for B rows: each row reads its
-    lane's pool; one lane's (N,) pool runs as lane 0."""
-    if lane is None:
-        pool = {k: pool[k][None] for k in ("u", "v", "idepth", "color",
-                                           "valid")}
-        K = K[None]
-        lane = torch.zeros(B, dtype=torch.int64, device=device)
-    rows = {k: pool[k].index_select(0, lane)
-            for k in ("u", "v", "idepth", "color", "valid")}
-    return rows, K.index_select(0, lane), lane
-
-
 def calc_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b, cutoff,
                 huber_th, packed=None, lane=None, hw=None):
     """Fused residual + 8x8 system evaluation for one level.
@@ -224,120 +192,10 @@ def calc_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b, cutoff,
     are (L, N), K (L, 4), dI_new (L, H, W, 3) and `packed` their stacked
     packs; `hw` = (h, w) stands for `dI_new` when `packed` is given.
     Returns dict(E, n, sat_frac, H (B,8,8), b (B,8), flow_t, flow_rt),
-    each with leading dimension B."""
-    h, w = hw if hw is not None else (dI_new.shape[-3], dI_new.shape[-2])
-    if packed is None:
-        packed = pack_bilinear(dI_new)
-    B = T_ref_to_new.shape[0]
-    dev = T_ref_to_new.device
-    rows, Kb, lane = _lane_inputs(pool, K, B, lane, dev)
-    u0, v0 = rows["u"], rows["v"]                                    # (B,N)
-    idp, color, valid = rows["idepth"], rows["color"], rows["valid"]
-    fx, fy, cx, cy = (Kb[:, i:i + 1] for i in range(4))              # (B,1)
-    cutoff = torch.as_tensor(cutoff, dtype=torch.float32,
-                             device=dev).expand(B)[:, None]
-    ref_aff_b = torch.as_tensor(ref_aff_b, dtype=torch.float32,
-                                device=dev).expand(B)[:, None]
-
-    xn = (u0 - cx) / fx
-    yn = (v0 - cy) / fy
-    R = T_ref_to_new[:, :3, :3]
-    t = T_ref_to_new[:, :3, 3]
-    p = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)         # (B,N,3)
-    pr = torch.einsum("bnj,bij->bni", p, R)                          # p @ R^T
-    pt = pr + t[:, None, :] * idp[:, :, None]                        # (B,N,3)
-    u = pt[..., 0] / pt[..., 2]
-    v = pt[..., 1] / pt[..., 2]
-    Ku = fx * u + cx
-    Kv = fy * v + cy
-    new_idepth = idp / pt[..., 2]
-
-    inb = valid & (Ku > 2) & (Kv > 2) & (Ku < w - 3) & (Kv < h - 3) \
-        & (new_idepth > 0)
-    hit, hit_ok = bilinear_sample_packed(packed, h, w, Ku, Kv,
-                                         base=lane[:, None] * (h * w))
-    inb = inb & hit_ok & torch.isfinite(hit[..., 0])
-
-    r = hit[..., 0] - (aff_rel[:, 0:1] * color + aff_rel[:, 1:2])
-    absr = torch.abs(r)
-    one = torch.ones_like(absr)
-    hw = torch.where(absr < huber_th, one,
-                     huber_th / torch.clamp(absr, min=1e-12))
-    saturated = inb & (absr > cutoff)
-    inlier = inb & (absr <= cutoff)
-    zero = torch.zeros_like(absr)
-
-    max_energy = 2.0 * huber_th * cutoff - huber_th * huber_th       # (B,1)
-    E = torch.where(inlier, hw * r * r * (2.0 - hw), zero).sum(-1) + \
-        torch.where(saturated, max_energy.expand_as(absr), zero).sum(-1)
-    n_terms = inb.sum(-1)
-    sat_frac = saturated.sum(-1) / torch.clamp(n_terms, min=1)
-
-    dxf = hit[..., 1] * fx
-    dyf = hit[..., 2] * fy
-    idn = new_idepth
-    J = torch.stack([
-        idn * dxf,
-        idn * dyf,
-        -idn * (u * dxf + v * dyf),
-        -(u * v * dxf + (1.0 + v * v) * dyf),
-        u * v * dyf + (1.0 + u * u) * dxf,
-        u * dyf - v * dxf,
-        aff_rel[:, 0:1] * (ref_aff_b - color),
-        -torch.ones_like(u),
-    ], dim=-1)                                                        # (B,N,8)
-    wgt = torch.where(inlier, hw, zero)
-    n_in = torch.clamp(inlier.sum(-1), min=1).to(J.dtype)
-    Jw = J * wgt[..., None]
-    Hm = (J.transpose(1, 2) @ Jw) / n_in[:, None, None]
-    bv = (Jw.transpose(1, 2) @ r[..., None])[..., 0] / n_in[:, None]
-    S = _step_scale(J)
-    Hm = Hm * S[:, None] * S[None, :]
-    bv = bv * S
-
-    # flow indicators (calcRes:538-565): every 32nd pool slot
-    m = valid & (torch.arange(u0.shape[1], device=dev) % 32 == 0)
-    ti = t[:, None, :] * idp[:, :, None]
-    ptT = p + ti
-    ptT2 = p - ti
-    pt3 = pr - ti
-
-    def pix_shift(q):
-        uu = fx * (q[..., 0] / q[..., 2]) + cx
-        vv = fy * (q[..., 1] / q[..., 2]) + cy
-        return (uu - u0) ** 2 + (vv - v0) ** 2
-
-    num = m.sum(-1) * 2.0
-    zf = torch.zeros((), dtype=u.dtype, device=dev)
-    flow_t = torch.where(m, pix_shift(ptT) + pix_shift(ptT2), zf).sum(-1) \
-        / (num + 0.1)
-    flow_rt = torch.where(m, pix_shift(pt) + pix_shift(pt3), zf).sum(-1) \
-        / (num + 0.1)
-    return dict(E=E, n=n_terms, sat_frac=sat_frac, H=Hm, b=bv,
-                flow_t=flow_t, flow_rt=flow_rt)
-
-
-def _solve_scaled(H, b, lam):
-    """LM-damped solve of the scaled (B, 8, 8) systems; lam (B,)."""
-    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
-    diag = torch.diagonal(H, dim1=-2, dim2=-1)
-    Hl = H + torch.diag_embed(diag) * lam[:, None, None] + eye * 1e-12
-    inc = torch.linalg.solve_ex(Hl, -b)[0]
-    extrap = torch.where(
-        lam < LAMBDA_EXTRAPOLATION_LIMIT,
-        torch.sqrt(torch.sqrt(LAMBDA_EXTRAPOLATION_LIMIT
-                              / torch.clamp(lam, min=1e-12))),
-        torch.ones_like(lam))
-    inc = inc * extrap[:, None]
-    return torch.where(torch.isfinite(inc), inc, torch.zeros_like(inc))
-
-
-def _select(mask, new, old):
-    """Per-lane select over a dict or tensor with leading batch dim."""
-    if isinstance(new, dict):
-        return {k: _select(mask, new[k], old[k]) for k in new}
-    m = mask.reshape(mask.shape + (1,) * (new.dim() - 1))
-    return torch.where(m, new, old)
+    each with leading dimension B. The K3 kernel on CUDA
+    (`hopper_kernels.track_res_gs`), its plain version on the CPU."""
+    return track_res_gs(pool, dI_new, K, T_ref_to_new, aff_rel, ref_aff_b,
+                        cutoff, huber_th, packed=packed, lane=lane, hw=hw)
 
 
 _POOL_FIELDS = ("u", "v", "idepth", "color", "valid")
@@ -362,37 +220,28 @@ def _cutoff_body(x, st, h, w, huber_th, lanes):
     rep_n = torch.where(go, rep * 2.0, rep)
     r_n = _level_res(x, x["T0"], x["aff0"], x["cutoff_base"] * rep_n, h, w,
                      huber_th, lanes)
-    r0 = _select(go, r_n, r0)
+    r0 = select_rows(go, r_n, r0)
     out = dict({"r_" + k: v for k, v in r0.items()}, rep=rep_n)
     return out, ((r0["sat_frac"] > 0.6) & (rep_n < 50.0)).any()
 
 
 def _lm_body(x, st, h, w, huber_th, lanes):
     """One LM iteration of every row; rows that have stopped keep their
-    carries."""
-    r = {k[2:]: v for k, v in st.items() if k.startswith("r_")}
-    T, aff, lam, done = st["T"], st["aff"], st["lam"], st["done"]
-    act = ~done
-    inc = _solve_scaled(r["H"], r["b"], lam)
-    inc_scaled = inc * _step_scale(inc)
-    T_new = se3.se3_exp(inc_scaled[:, :6]) @ T
-    aff_new = aff + inc_scaled[:, 6:]
-    r_new = _level_res(x, T_new, aff_new, x["cutoff"], h, w, huber_th, lanes)
-    accept = (r_new["E"] / torch.clamp(r_new["n"], min=1)) < \
-        (r["E"] / torch.clamp(r["n"], min=1))
-    acc = accept & act
-    T = _select(acc, T_new, T)
-    aff = _select(acc, aff_new, aff)
-    lam_n = torch.where(accept, lam * 0.5,
-                        torch.clamp(lam * 4.0,
-                                    min=LAMBDA_EXTRAPOLATION_LIMIT))
-    lam = torch.where(act, lam_n, lam)
-    r = _select(acc, r_new, r)
-    done = done | (act & ~(torch.linalg.vector_norm(inc, dim=-1) > 1e-3))
-    n_it = st["n_it"] + act.to(torch.int64)
-    out = dict({"r_" + k: v for k, v in r.items()}, T=T, aff=aff, lam=lam,
-               done=done, n_it=n_it)
-    return out, (~done).any()
+    carries. Three launches on CUDA: K4's step, K3 at the stepped pose,
+    K4's accept."""
+    r = {k: st["r_" + k] for k in RES_KEYS}
+    T, aff, lam = st["T"], st["aff"], st["lam"]
+    T_new, aff_new, aff_rel, inc = lm_update_step(
+        r["H"], r["b"], lam, T, aff, x["exposures"], x["ref_aff"])
+    r_new = calc_res_gs({k: x["pool_" + k] for k in _POOL_FIELDS}, None,
+                        x["K"], T_new, aff_rel, x["ref_aff"][..., 1],
+                        x["cutoff"], huber_th, packed=x["packed"],
+                        lane=x["lane"] if lanes else None, hw=(h, w))
+    o = lm_update_accept(r, r_new, T, T_new, aff, aff_new, lam, st["done"],
+                         st["n_it"], inc)
+    out = dict({"r_" + k: v for k, v in o["r"].items()}, T=o["T"],
+               aff=o["aff"], lam=o["lam"], done=o["done"], n_it=o["n_it"])
+    return out, o["active"]
 
 
 def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
@@ -491,7 +340,7 @@ def track_pyramid(pools, dI_new_pyr, Ks, T_init, aff_init, ref_aff,
 
         def repeat(c, run_level=run_level, do_repeat=do_repeat):
             T2, aff2, r2, _ = run_level(c["T"], c["aff"])
-            return _select(do_repeat, dict(r2, T=T2, aff=aff2), c)
+            return select_rows(do_repeat, dict(r2, T=T2, aff=aff2), c)
         c = device_loop.cond("repeat", do_repeat.any(), repeat,
                              dict(r, T=T, aff=aff))
         T, aff = c.pop("T"), c.pop("aff")

@@ -60,7 +60,8 @@ shape, or another system's cache) captures at its first call and
 replays. Conditional bodies run on the cache's body streams (one per
 nesting depth) and allocate from the cache's body pool. A Hopper kernel
 captured in a program counts one launch per replay
-(`ops/hopper_kernels`), and none may sit in a conditional body. On the
+(`ops/hopper_kernels`), and none of those may sit in a conditional body
+(K3 and K4, which count themselves on the card, may). On the
 CPU `fn` runs in the stage form (early-exit loops, host reads), or under
 `programs()` in the *trace form* a capture records: every loop to its
 cap, every `cond` computed and selected (the same values, since rows
@@ -84,7 +85,9 @@ capture) exist for the comparisons of `chip_smoke.py` and the tests.
 `STATS` counts, per stage, captures and their seconds, replays, host reads
 of a stop flag, and (eager loops) the iterations run; per program also
 instantiate seconds, the ops its capture recorded (graph nodes), the graph
-pools' growth (MiB) and warm-up calls.
+pools' growth (MiB) and warm-up calls. Inside `program_timing()` (a
+profile window, eval/profile) a pair of CUDA events brackets every program
+replay, read once at the window's end: each program's device time.
 """
 
 from __future__ import annotations
@@ -149,6 +152,9 @@ PROGRAM_CHUNK = 1
 STATS: dict = {}
 # the stages that have run through `program`
 PROGRAMS: set = set()
+# (stage, start event, end event) of each program replay while
+# `program_timing` is open, else None
+_TIMED: list | None = None
 # eager loops: how many calls of each stage ran n iterations
 HIST: dict = {}
 _lock = threading.Lock()
@@ -296,6 +302,29 @@ def recording(log: list, programs: bool = False):
         yield log
     finally:
         setattr(_tls, key, prev)
+
+
+@contextlib.contextmanager
+def program_timing():
+    """Time every stage program's replay (any thread) on the device while
+    open: a CUDA event pair on the replay's stream around it. Yields a dict
+    that holds, after the block, {stage: dict(ms, replays)}: the replays'
+    summed device ms (event to event) and their count. The events are read
+    once, at the end, after a synchronize; outside the block nothing is
+    recorded."""
+    global _TIMED
+    log, res = [], {}
+    prev, _TIMED = _TIMED, log
+    try:
+        yield res
+    finally:
+        _TIMED = prev
+        if log:
+            torch.cuda.synchronize()
+        for stage, a, b in log:
+            d = res.setdefault(stage, dict(ms=0.0, replays=0))
+            d["ms"] += a.elapsed_time(b)
+            d["replays"] += 1
 
 
 def read(stage: str, flag) -> bool:
@@ -740,10 +769,11 @@ def _cond_node(pred, loop=False):
 
 
 def launch_log():
-    """The list a capture records Hopper kernel launches into (None
-    outside a capture); raises inside a conditional body, whose launches a
-    replay may skip or repeat, so that no count can depart from the
-    card's."""
+    """The list a capture records the host-counted Hopper kernels' (K1's
+    and K2's) launches into (None outside a capture); raises inside a
+    conditional body, whose launches a replay may skip or repeat, so that
+    no count can depart from the card's. (K3 and K4 count on the card and
+    never ask.)"""
     log = getattr(_tls, "launch_log", None)
     if log is not None and getattr(_tls, "depth", 0):
         raise RuntimeError("a Hopper kernel inside an IF or WHILE node "
@@ -877,7 +907,16 @@ def _graph_program(stage, fn, leaves, spec, static, dev):
     for buf, v in zip(e.inputs, leaves):
         if isinstance(v, torch.Tensor):
             buf.copy_(v)
+    timed = _TIMED
+    if timed is not None:
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(cur)
     e.graph.replay()
+    if timed is not None:
+        ev[1].record(cur)
+        with _lock:
+            timed.append((stage, *ev))
     hopper_kernels.count_launches(e.launches)
     _count(stage, replays=1, calls=1)
     outs = [v.clone() for v in e.out_leaves]

@@ -469,3 +469,215 @@ def test_kernel_inside_if_node_is_refused(cuda):
                                                match="cannot be counted"):
         dl.program("k2if", fn, x)
 
+
+
+# ---------------------------------------------------------------------------
+# K3 (track_res_gs) and K4 (lm_update_step / lm_update_accept)
+# ---------------------------------------------------------------------------
+
+# K3 against its plain version: counts exact, every other output within
+# TRACK_REL of the row's largest magnitude of that output (the sums' order
+# differs, and K3 sums in float64: csrc/track_res_gs.cu; 1.3e-5 measured
+# at 6144 points), non-finite outputs at the same places; K4's step within
+# SOLVE_REL of the step's norm (a float64 LU against solve_ex's float32
+# one, whose error grows with the system's condition), the pose and
+# affine update from that step within UPDATE_TOL
+# of max(1, |value|), the accept exact (chip_smoke.py's tolerances)
+TRACK_REL = 1e-4
+SOLVE_REL = 1e-3
+UPDATE_TOL = 1e-5
+# (h, w, points, rows): the main path's K3 shapes at the default preset
+# (the hypothesis ladder on the coarsest level, the refinement on level 0,
+# the struct-pose veto on level 1) and at the fast preset
+TRACK_SHAPES = [(45, 150, 1024, 32), (360, 1200, 6144, 3),
+                (180, 600, 4096, 2), (40, 53, 512, 32), (320, 424, 3072, 3),
+                (160, 212, 2048, 2)]
+
+
+def _track_args(x, single):
+    """track_res_gs's arguments from kernel_timing.track_inputs: the lane
+    form, or (`single`) lane 0 with (N,) pools."""
+    if single:
+        return (({k: v[0] for k, v in x["pool"].items()}, x["dI"][0],
+                 x["K"][0], x["T"], x["aff_rel"], x["ref_b"], x["cutoff"],
+                 9.0), dict(packed=x["packed"], lane=None))
+    return ((x["pool"], x["dI"], x["K"], x["T"], x["aff_rel"], x["ref_b"],
+             x["cutoff"], 9.0), dict(packed=x["packed"], lane=x["lane"]))
+
+
+def _res_close(got, ref, what):
+    g = {k: v.double().cpu().numpy() for k, v in got.items()}
+    r = {k: v.double().cpu().numpy() for k, v in ref.items()}
+    assert np.array_equal(g["n"], r["n"]), what
+    n = np.maximum(r["n"], 1)
+    assert np.array_equal(np.round(g["sat_frac"] * n),
+                          np.round(r["sat_frac"] * n)), what
+    for k in ("E", "H", "b", "flow_t", "flow_rt"):
+        for b in range(g[k].shape[0]):
+            gb, rb = g[k][b], r[k][b]
+            assert np.array_equal(np.isfinite(gb), np.isfinite(rb)), \
+                (what, k, b)
+            f = np.isfinite(rb)
+            if f.any():
+                scale = max(float(np.abs(rb[f]).max()), 1e-30)
+                err = float(np.abs(gb[f] - rb[f]).max())
+                assert err <= TRACK_REL * scale, (what, k, b, err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [None, 4])
+@pytest.mark.parametrize("shape", TRACK_SHAPES)
+def test_track_res_gs_kernel_matches_plain(cuda, shape, lanes):
+    """K3 against its plain version at the main path's shapes, one lane
+    ((N,) pools, no lane index) and four, with points out of bounds,
+    saturated points, a point at depth 0 and an image patch of inf."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+
+    h, w, n, rows = shape
+    sc = kt.track_scene(31, h, w, n, lanes or 1, rows, poison=True)
+    x = kt.track_inputs(sc, cuda)
+    a, kw = _track_args(x, lanes is None)
+    hk.reset_launch_counts()
+    got = hk.track_res_gs(*a, **kw)
+    ref = hk.calc_res_gs_plain(*a, **kw)
+    assert hk.device_launches()["track_res_gs"] == 1
+    _res_close(got, ref, f"{shape} lanes={lanes}")
+    assert not torch.isfinite(ref["H"][0]).all()     # the poisoned row
+
+
+@pytest.mark.cuda
+def test_track_res_gs_row_alone_equals_row_among_lanes(cuda):
+    """A row's sums run in a fixed order: the row launched alone gives the
+    bits it gives among the 128 rows of four lanes."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+
+    sc = kt.track_scene(32, 45, 150, 1024, 4, 32, poison=True)
+    x = kt.track_inputs(sc, cuda)
+    a, kw = _track_args(x, False)
+    full = hk.track_res_gs(*a, **kw)
+    for b in (0, 37, 127):
+        s = slice(b, b + 1)
+        one = hk.track_res_gs(a[0], a[1], a[2], x["T"][s], x["aff_rel"][s],
+                              x["ref_b"][s], x["cutoff"][s], 9.0,
+                              packed=x["packed"], lane=x["lane"][s])
+        for k in one:
+            assert dl_same_bits(one[k][0], full[k][b]), (b, k)
+
+
+def dl_same_bits(a, b):
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+    return dl.same_bits(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("shape", [TRACK_SHAPES[0], TRACK_SHAPES[1]])
+def test_lm_update_kernels_match_plain(cuda, shape, per_row):
+    """K4's step against its plain version (the solve within SOLVE_REL of
+    the step, a poisoned system's step zeroed in both, the pose and affine
+    update of the kernel's own step within UPDATE_TOL), and its accept bit
+    for bit, on the scene's systems with lambda from 1e-4 to 1, rows done
+    and running; exposures and the reference affine one pair or one per
+    row."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.utils import se3
+
+    h, w, n, rows = shape
+    sc = kt.track_scene(33, h, w, n, 4, rows, poison=True)
+    x = kt.track_inputs(sc, cuda)
+    a, kw = _track_args(x, False)
+    r = hk.calc_res_gs_plain(*a, **kw)
+    B = x["T"].shape[0]
+    rng = np.random.default_rng(34)
+
+    def t(v, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=cuda)
+    lam = t(np.array([1e-4, 0.01, 0.3, 1.0])[np.arange(B) % 4])
+    aff = t(rng.normal(0, [0.02, 1.0], (B, 2)))
+    exposures = t(rng.uniform(0.8, 1.2, (B, 2) if per_row else (2,)))
+    ref_aff = t(rng.normal(0, [0.05, 2.0], (B, 2) if per_row else (2,)))
+    hk.reset_launch_counts()
+    got = hk.lm_update_step(r["H"], r["b"], lam, x["T"], aff, exposures,
+                            ref_aff)
+    ref = hk.lm_update_step_plain(r["H"], r["b"], lam, x["T"], aff,
+                                  exposures, ref_aff)
+    T_new, aff_new, aff_rel, inc = got
+    err = (inc - ref[3]).abs().amax(-1)
+    assert (err <= SOLVE_REL * torch.linalg.vector_norm(ref[3], dim=-1)
+            + 1e-30).all(), err
+    assert not inc[0].any() and not ref[3][0].any()   # poisoned: zeroed
+    S = torch.tensor(hk.STEP_SCALE, device=cuda)
+    for got_, own in (
+            (T_new, se3.se3_exp((inc * S)[:, :6]) @ x["T"]),
+            (aff_new, aff + (inc * S)[:, 6:]),
+            (aff_rel, hk.aff_transfer(exposures[..., 0], exposures[..., 1],
+                                      ref_aff, aff_new))):
+        assert ((got_ - own).abs() <= UPDATE_TOL * own.abs().clamp(min=1.0)
+                ).all()
+    r_new = hk.calc_res_gs_plain(a[0], a[1], a[2], T_new, aff_rel, a[5],
+                                 a[6], 9.0, **kw)
+    done = t(rng.random(B) < 0.3, torch.bool)
+    n_it = t(rng.integers(0, 5, B), torch.int64)
+    args = (r, r_new, x["T"], T_new, aff, aff_new, lam, done, n_it, inc)
+    ok = hk.lm_update_accept(*args)
+    op = hk.lm_update_accept_plain(*args)
+    for k in ("T", "aff", "lam", "done", "n_it", "active"):
+        assert dl_same_bits(ok[k], op[k]), k
+    for k in ok["r"]:
+        assert dl_same_bits(ok["r"][k], op["r"][k]), k
+    assert hk.device_launches() == {"track_res_gs": 0, "track_lm_update": 2,
+                                    "lm_step": 1, "lm_accept": 1}
+
+
+def _track_level_program(x, huber_th, max_iters):
+    from sdv_loam_tpu_torch.ops import photometric as tph
+    T, aff, r, rep = tph.track_level(
+        x["pool"], x["dI"], x["K"], x["T"], x["aff"], x["ref_aff"],
+        x["exposures"], x["cutoff_base"], huber_th, max_iters,
+        packed=x["packed"], lane=x["lane"])
+    return dict(T=T, aff=aff, n_iters=r["n_iters"], rep=rep)
+
+
+@pytest.mark.cuda
+def test_track_kernels_count_the_loops_evaluations(cuda):
+    """K3 and K4 inside a captured program's WHILE node: their device
+    counters equal the evaluations the LM ran (per call: one first
+    evaluation and one per iteration for K3, two launches per iteration
+    for K4; iterations = the rows' largest n_iters, the cutoff loop idle),
+    over the process's eager first call and the replays; a replay in a
+    profile window is timed on the device."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    sc = kt.track_scene(35, 45, 150, 1024, 2, 8)
+    x = kt.track_inputs(sc, cuda)
+    B = x["T"].shape[0]
+    rng = np.random.default_rng(36)
+    inputs = dict(pool=x["pool"], dI=x["dI"], K=x["K"], T=x["T"],
+                  packed=x["packed"], lane=x["lane"],
+                  aff=torch.as_tensor(rng.normal(0, [0.02, 1.0], (B, 2)),
+                                      dtype=torch.float32, device=cuda),
+                  ref_aff=torch.zeros((B, 2), device=cuda),
+                  exposures=torch.ones((B, 2), device=cuda),
+                  cutoff_base=torch.full((), 1000.0, device=cuda))
+    hk.reset_launch_counts()
+    want, outs = [0, 0], []
+    with dl.use(dl.LoopCache()):
+        for i in range(4):
+            with dl.program_timing() as timed:
+                out = dl.program("tl_count", _track_level_program, inputs,
+                                 dict(huber_th=9.0, max_iters=10))
+            outs.append(out)
+            it = int(out["n_iters"].max())
+            want[0] += 1 + it
+            want[1] += 2 * it
+            assert float(out["rep"].max()) == 1.0
+            if i:
+                assert timed["tl_count"]["replays"] == 1 and \
+                    timed["tl_count"]["ms"] > 0, timed
+    got = hk.device_launches()
+    assert [got["track_res_gs"], got["track_lm_update"]] == want, (got, want)
+    assert got["lm_step"] == got["lm_accept"]
+    assert 1 < int(outs[-1]["n_iters"].max()) <= 10
+    for k in outs[0]:
+        assert dl.same_bits(outs[1][k], outs[-1][k]), k
