@@ -6,7 +6,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases (any failure exits nonzero; each prints its results):
   1. device: requires CUDA; prints the card's name and power limit;
-  2. build: compiles the Hopper kernels (csrc/*.cu, nvcc sm_90a);
+  2. build: compiles the Hopper kernels (csrc/*.cu, nvcc sm_90a; a
+     library already built from the same sources is reused with the
+     ptxas report kept beside it) and prints ptxas's registers, spills
+     and shared memory of K3's and K4's kernels (fails on a spill);
   3. kernels: K1 (dilate_pyramid, build_track_ref's whole 4-level chain)
      and K2 (distance_transform) against their plain PyTorch versions on
      the card (exact equality required) at the main-path shapes, the fast
@@ -15,15 +18,19 @@ Phases (any failure exits nonzero; each prints its results):
      launch (exact); determinism of build_track_ref; at the main-path
      shapes and the fast preset's each kernel's device time
      (torch.profiler), wrapper and plain CUDA-event times, bound and
-     share; K3 (track_res_gs) and K4 (lm_update_step, lm_update_accept)
-     against their plain versions at the main path's shapes of both
+     share; K3 (track_res_gs) and K4 (lm_update_step and
+     lm_update_accept_step) against their plain versions (the
+     accept-step against the plain accept then step) at the main path's
+     shapes of both
      presets (the hypothesis ladder, level 0, the struct-pose veto), one
      lane and L = 4, with points out of bounds, saturated, at depth 0 and
      under an image patch of inf (K3's counts exact, its other outputs
      within TRACK_REL of each row's largest magnitude, non-finite outputs
-     where the plain version's are; K4's step within SOLVE_REL of its
-     norm, its accept bit for bit), a row alone bit for bit as among the
-     others, and their times at the ladder's and level 0's shapes; the
+     where the plain version's are; K4's steps within SOLVE_REL of their
+     norm, its accept and carries bit for bit), a row alone bit for bit
+     as among the others, and their times at the ladder's and level 0's
+     shapes and at the ladder's with L = 4 (K4 per LM iteration: one
+     accept-step launch; its step entry beside it); the
      CUDA kernels behind the windowed BA's dense solve (one window, and
      four in one batched call);
   4. slice: the 30-frame default-preset synthetic KITTI scene (1200x360)
@@ -181,22 +188,19 @@ MAIN_K2 = (180, 600)
 FAST_K1 = (320, 424)
 FAST_K2 = (160, 212)
 # K3 and K4, the tracking LM's body: the main path's (h, w, points, rows)
-# at each preset: the hypothesis ladder on the coarsest level (32 rows),
-# the refinement on level 0 (3 rows), the struct-pose veto on level 1 (2
-# rows); the ladder's and level 0's are timed. Tolerances (as in
-# tests/test_torch_cuda.py): K3's counts exact, its other outputs within
-# TRACK_REL of the row's largest magnitude (float32 sums of up to 6144
-# terms, whose own error K3's float64 sums leave out, with cancellation:
-# 1.3e-5 measured at level 0 on an H100); K4's step within SOLVE_REL of
-# its norm (its float64 LU against torch.linalg.solve_ex's float32 one:
-# the float32 solve's error grows with the damped system's condition, 3.2e-5
-# measured on the fast ladder), the pose and affine
-# update of the kernel's own step within UPDATE_TOL of max(1, |value|),
-# its accept bit for bit
-TRACK_SHAPES = {"default": ((45, 150, 1024, 32), (360, 1200, 6144, 3),
-                            (180, 600, 4096, 2)),
-                "fast": ((40, 53, 512, 32), (320, 424, 3072, 3),
-                         (160, 212, 2048, 2))}
+# at each preset are `kernel_timing.TRACK_SHAPES`: the hypothesis ladder
+# on the coarsest level (32 rows), the refinement on level 0 (3 rows), the
+# struct-pose veto on level 1 (2 rows); the ladder's and level 0's are
+# timed, and the ladder's of LANES lanes (the batched lockstep's).
+# Tolerances (as in tests/test_torch_cuda.py): K3's counts exact, its
+# other outputs within TRACK_REL of the row's largest magnitude (float32
+# sums of up to 6144 terms, whose own error K3's float64 sums leave out,
+# with cancellation: 1.3e-5 measured at level 0 on an H100); K4's step
+# within SOLVE_REL of its norm (its float64 LU against
+# torch.linalg.solve_ex's float32 one: the float32 solve's error grows
+# with the damped system's condition, 3.2e-5 measured on the fast ladder),
+# the pose and affine update of the kernel's own step within UPDATE_TOL of
+# max(1, |value|), its accept bit for bit
 TRACK_REL = 1e-4
 SOLVE_REL = 1e-3
 UPDATE_TOL = 1e-5
@@ -512,13 +516,14 @@ def _rel_dev(a, b):
 
 def check_track_kernels(device):
     """Phase 3 for K3 (track_res_gs) and K4 (lm_update_step and
-    lm_update_accept) at the main path's shapes of both presets, one lane
-    (no lane index) and LANES, on kernel_timing.track_scene's inputs with
-    points out of bounds, saturated points, a point at depth 0 and an
-    image patch of inf; at the ladder's and level 0's shapes (one lane)
-    device, wrapper and plain times, bound and share. Returns per-kernel
-    records (max_abs_err, max_rel_err, and the ladder's times at the
-    default preset, the rest beside them)."""
+    lm_update_accept_step) at the main path's shapes of both presets, one
+    lane (no lane index) and LANES, on kernel_timing.track_scene's inputs
+    with points out of bounds, saturated points, a point at depth 0 and
+    an image patch of inf; device, wrapper and plain times, bound and
+    share at the ladder's and level 0's shapes with one lane and at the
+    ladder's with LANES. Returns per-kernel records (max_abs_err,
+    max_rel_err, and the ladder's times at the default preset with one
+    lane, the rest beside them)."""
     import torch
 
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
@@ -551,7 +556,7 @@ def check_track_kernels(device):
                     bound_by=bound[1], share=share, library_ms=None,
                     library="none")
 
-    for preset, shapes in TRACK_SHAPES.items():
+    for preset, shapes in kt.TRACK_SHAPES.items():
         for i, (h, w, n, rows) in enumerate(shapes):
             for lanes in (1, LANES):
                 sc = kt.track_scene(100 + i, h, w, n, lanes, rows,
@@ -602,66 +607,88 @@ def check_track_kernels(device):
                 done = t(rng.random(B) < 0.3, torch.bool)
                 n_it = t(rng.integers(0, 5, B), torch.int64)
                 step_in = (ref["H"], ref["b"], lam, x["T"], aff, ex, ra)
-                T_new, aff_new, aff_rel, inc = hk.lm_update_step(*step_in)
-                inc_p = hk.lm_update_step_plain(*step_in)[3]
-                d_inc = (inc - inc_p).abs().amax(-1)
-                norm = torch.linalg.vector_norm(inc_p, dim=-1)
-                upd = max(_rel_dev(a, b) for a, b in (
-                    (T_new, se3.se3_exp((inc * S)[:, :6]) @ x["T"]),
-                    (aff_new, aff + (inc * S)[:, 6:]),
-                    (aff_rel, hk.aff_transfer(ex[..., 0], ex[..., 1], ra,
-                                              aff_new))))
+
+                def step_check(step, plain_inc, T, aff):
+                    """(step within SOLVE_REL, its largest error, relative
+                    error, the pose and affine update's deviation)."""
+                    T_new, aff_new, aff_rel, inc = step
+                    d_inc = (inc - plain_inc).abs().amax(-1)
+                    norm = torch.linalg.vector_norm(plain_inc, dim=-1)
+                    upd = max(_rel_dev(a, b) for a, b in (
+                        (T_new, se3.se3_exp((inc * S)[:, :6]) @ T),
+                        (aff_new, aff + (inc * S)[:, 6:]),
+                        (aff_rel, hk.aff_transfer(ex[..., 0], ex[..., 1],
+                                                  ra, aff_new))))
+                    return (bool((d_inc <= SOLVE_REL * norm + 1e-30).all()),
+                            float(d_inc.max()),
+                            float((d_inc / norm.clamp(min=1e-30)).max()),
+                            upd)
+                step = hk.lm_update_step(*step_in)
+                ok_s, err_s, rel_s, upd_s = step_check(
+                    step, hk.lm_update_step_plain(*step_in)[3], x["T"], aff)
+                T_new, aff_new, aff_rel, inc = step
                 r_new = hk.calc_res_gs_plain(args[0], args[1], args[2],
                                              T_new, aff_rel, x["ref_b"],
                                              x["cutoff"], HUBER, **kw)
                 acc_in = (ref, r_new, x["T"], T_new, aff, aff_new, lam,
-                          done, n_it, inc)
-                ok_k, ok_p = (hk.lm_update_accept(*acc_in),
-                              hk.lm_update_accept_plain(*acc_in))
+                          done, n_it, inc, ex, ra)
+                ok_k, ok_p = (hk.lm_update_accept_step(*acc_in),
+                              hk.lm_update_accept_step_plain(*acc_in))
                 torch.cuda.synchronize()
                 same = all(dl.same_bits(ok_k[k], ok_p[k]) for k in
                            ("T", "aff", "lam", "done", "n_it", "active")) \
                     and all(dl.same_bits(ok_k["r"][k], ok_p["r"][k])
                             for k in ok_k["r"])
-                rel = float((d_inc / norm.clamp(min=1e-30)).max())
+                ok_n, err_n, rel_n, upd_n = step_check(
+                    tuple(ok_k[k] for k in ("T_new", "aff_new", "aff_rel",
+                                            "inc")),
+                    ok_p["inc"], ok_p["T"], ok_p["aff"])
+                upd = max(upd_s, upd_n)
                 print(f"track_lm_update {what}: step update {upd} (of "
-                      f"max(1, |value|)), accept bit for bit {same}",
-                      flush=True)
-                note("track_lm_update", what, bool(
-                    (d_inc <= SOLVE_REL * norm + 1e-30).all()) and
-                    upd <= UPDATE_TOL and same, float(d_inc.max()), rel)
-                if not single or i == 2:
+                      f"max(1, |value|)), accept-step: accept and carries "
+                      f"bit for bit {same}, next step within SOLVE_REL "
+                      f"{ok_n}", flush=True)
+                note("track_lm_update", what, ok_s and ok_n and
+                     upd <= UPDATE_TOL and same, max(err_s, err_n),
+                     max(rel_s, rel_n))
+                if i == 2 or (not single and i != 0):
                     continue
 
-                # times at the ladder's and level 0's shapes, one lane
+                # times at the ladder's and level 0's shapes with one lane,
+                # and at the ladder's with LANES (the batched lockstep's
+                # rows)
                 def k3():
                     return hk.track_res_gs(*args, **kw)
 
                 def p3():
                     return hk.calc_res_gs_plain(*args, **kw)
 
+                # K4 per LM iteration: one accept-step launch
                 def k4():
-                    T_n, a_n, _, d = hk.lm_update_step(*step_in)
-                    return hk.lm_update_accept(ref, r_new, x["T"], T_n, aff,
-                                               a_n, lam, done, n_it, d)
+                    return hk.lm_update_accept_step(*acc_in)
 
                 def p4():
-                    T_n, a_n, _, d = hk.lm_update_step_plain(*step_in)
-                    return hk.lm_update_accept_plain(ref, r_new, x["T"], T_n,
-                                                     aff, a_n, lam, done,
-                                                     n_it, d)
-                where = f"{preset} {(h, w)} n={n} rows={rows}"
+                    return hk.lm_update_accept_step_plain(*acc_in)
+                where = f"{preset} {(h, w)} n={n} rows={B} lanes={lanes}"
                 t3 = times("track_res_gs", k3, p3,
-                           kt.track_res_gs_bound(1, rows, n), where)
+                           kt.track_res_gs_bound(lanes, B, n), where)
                 t4 = times("track_lm_update", k4, p4,
-                           kt.lm_update_bound(rows), where)
+                           kt.lm_update_bound(B), where)
+                # and the step entry, once per LM call
+                t4["step_entry"] = times(
+                    "track_lm_update (step entry)",
+                    lambda: hk.lm_update_step(*step_in),
+                    lambda: hk.lm_update_step_plain(*step_in),
+                    kt.lm_update_bound(B, "step"), where)
                 for name, tt in (("track_res_gs", t3),
                                  ("track_lm_update", t4)):
-                    tt["shape"] = [h, w, n, rows]
-                    if preset == "default" and i == 0:
+                    tt["shape"] = [h, w, n, B]
+                    if preset == "default" and i == 0 and single:
                         rec[name].update(tt)
                     else:
-                        rec[name][f"{preset}_{('ladder', 'level0')[i]}"] = tt
+                        rec[name][f"{preset}_{('ladder', 'level0')[i]}"
+                                  f"{'' if single else f'_lanes{lanes}'}"] \
+                            = tt
     return rec
 
 
@@ -722,13 +749,39 @@ def count_builds():
     return n_build
 
 
+# K3's and K4's kernel entries (a substring of each mangled name)
+TRACK_ENTRIES = {"track_res_gs": ("track_res_gs_kernel",),
+                 "track_lm_update": ("lm_step_kernel",
+                                     "lm_accept_step_kernel")}
+
+
+def track_kernel_usage(usage):
+    """Phase 2: the ptxas report (registers, spills, shared memory) of
+    each K3 and K4 kernel entry, printed; fails when one spills or is
+    missing from the report."""
+    out = {}
+    for name, entries in TRACK_ENTRIES.items():
+        out[name] = {}
+        for entry in entries:
+            found = [v for k, v in usage.items() if entry in k]
+            if len(found) != 1 or "registers" not in found[0]:
+                _fail(f"ptxas reported no usage for {entry}")
+            out[name][entry] = found[0]
+            print(f"ptxas {entry}: {json.dumps(found[0])}", flush=True)
+            if found[0].get("spill_stores", 1) or \
+                    found[0].get("spill_loads", 1):
+                _fail(f"{entry} spills registers")
+    return out
+
+
 def _track_launches(what, launched):
     """K3's and K4's device counts of a main-path run (`device_launches`):
-    both kernels launched, K4's two entry points alike often."""
+    K3 and both of K4's entry points launched, the accept-step (one per LM
+    iteration) at least as often as the step (one per LM call)."""
     if not (launched["track_res_gs"] > 0 and launched["lm_step"] > 0
-            and launched["lm_step"] == launched["lm_accept"]):
-        _fail(f"{what}: K3 or K4 not launched, or K4's halves unequal "
-              f"({launched})")
+            and launched["lm_accept_step"] >= launched["lm_step"]):
+        _fail(f"{what}: K3 or K4 not launched, or K4's accept-step less "
+              f"often than its step ({launched})")
 
 
 def check_track_evaluations(what, launched, drive):
@@ -739,8 +792,9 @@ def check_track_evaluations(what, launched, drive):
     device_loop counts every tracking LM call and iteration and the
     cutoff loop's iterations, and the track step's calls are counted. Per
     track step K3 runs once per LM call (its first evaluation), once per
-    LM and cutoff iteration and once for the struct-pose veto; K4 twice
-    per LM iteration. Both runs' counters must equal that."""
+    LM and cutoff iteration and once for the struct-pose veto; K4's step
+    once per LM call and its accept-step once per LM iteration. Both runs'
+    counters must equal that."""
     from sdv_loam_tpu_torch.ops import frame_step
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.utils import device_loop as dl
@@ -765,7 +819,9 @@ def check_track_evaluations(what, launched, drive):
     lm, cut = c.get("lm", {}), c.get("cutoff", {})
     want = {"track_res_gs": lm.get("calls", 0) + lm.get("iters", 0)
             + cut.get("iters", 0) + calls[0],
-            "track_lm_update": 2 * lm.get("iters", 0)}
+            "track_lm_update": lm.get("calls", 0) + lm.get("iters", 0),
+            "lm_step": lm.get("calls", 0),
+            "lm_accept_step": lm.get("iters", 0)}
     rec = dict(main_path={k: launched[k] for k in want},
                eager_run={k: ref[k] for k in want}, evaluations=want,
                lm_calls=lm.get("calls", 0), lm_iters=lm.get("iters", 0),
@@ -2286,10 +2342,13 @@ def main():
     path = hk.build_library(verbose=True)
     hk._load()
     print(f"build: {path} in {time.perf_counter() - t0:.2f} s", flush=True)
+    usage = track_kernel_usage(hk.ptxas_usage(hk.build_report(path)))
 
     # 3. kernels against their plain versions
     rec = check_kernels(device)
     rec.update(check_track_kernels(device))
+    for name, entries in usage.items():
+        rec[name]["ptxas"] = entries
 
     solver_kernels(device)
 

@@ -4,7 +4,7 @@ Used by chip_smoke.py (phase 3) and, run as a script, to compare the
 kernels with those of an earlier checkout in one process on one card:
 
     python3 -m sdv_loam_tpu_torch.eval.kernel_timing --baseline DIR \
-        [--out kernel_timing.json]
+        [--track] [--out kernel_timing.json]
 
 DIR is the root of another checkout of this repository (for example
 `git archive` of the parent commit unpacked into an ignored directory).
@@ -12,7 +12,11 @@ Its `sdv_loam_tpu_torch/ops/hopper_kernels.py` is loaded under another
 module name and builds its own kernels into DIR. The baseline is taken to
 be the single-pass K1 (`dilate_depth`, called once per level with the 2x2
 sum-pool between, as its `build_track_ref` did) and the single-map K2
-(`distance_transform`, at most 32 sweeps). Each measurement runs in the
+(`distance_transform`, at most 32 sweeps). With `--track`, K3 and K4
+instead (`compare_track`, against the baseline's `track_res_gs`,
+`lm_update_step` and one LM iteration's K4 launches: its
+`lm_update_accept_step`, or, in a checkout without it, its
+`lm_update_accept` then `lm_update_step`). Each measurement runs in the
 order baseline, current, current, baseline.
 
 Times:
@@ -85,15 +89,35 @@ def track_res_gs_bound(lanes, rows, n):
     return _bound(nbytes, 230 * rows * n)
 
 
-def lm_update_bound(rows):
-    """(bound_ms, bound_by) of K4's two entry points over `rows` rows: the
-    step reads H, b, lambda, T, the affine states and exposures (96
-    floats) and writes T_new, aff_new, aff_rel and the step (28), ~650
-    operations (the 8x8 LU and substitutions ~400, se3_exp and the 4x4
-    product ~250); the accept reads two residual carries, the poses, the
-    affine states, lambda, done, n_it and the step (~810 bytes) and
-    writes one carry set (~400 bytes), ~30 operations."""
-    return _bound(rows * (4 * (96 + 28) + 810 + 400), rows * (650 + 30))
+# K4 per row. The step reads H, b, lambda, T, the affine state, the
+# exposures and the reference affine (380 bytes), of which the exposures
+# and the reference affine are 16, and writes T_new, aff_new, aff_rel and
+# the step (112 bytes); ~650 operations (the 8x8 LU and substitutions
+# ~400, se3_exp and the 4x4 product ~250). The accept needs E and n of
+# both residual carries to decide (24 bytes), then the chosen side's other
+# carries (sat_frac, H, b and the flows, 300 bytes) with one of T / T_new
+# and one of aff / aff_new (72 bytes), and lambda, done, n_it and the step
+# (45 bytes); it writes one carry set, T, aff, lambda, done and n_it (397
+# bytes); ~30 operations
+LM_STEP = (380 + 112, 650)
+LM_STEP_OWN_BYTES = 16 + 112
+LM_ACCEPT = (24 + 300 + 72 + 45 + 397, 30)
+
+
+def lm_update_bound(rows, launch="accept_step"):
+    """(bound_ms, bound_by) of one K4 launch over `rows` rows. `launch`:
+    "accept_step" (the fused entry, one per LM iteration): per row the
+    accept's bytes and operations (LM_ACCEPT) and the step's operations,
+    with only the step's own bytes (the exposures and reference affine it
+    reads, the 112 it writes: the rest of its inputs are the carries the
+    accept selected); "step" (one per LM call): the step's alone. The
+    LU's operations are float64, counted against the float32 peak: a
+    smaller bound than float64's rate would give, and moot here, where
+    bytes bind."""
+    if launch == "step":
+        return _bound(rows * LM_STEP[0], rows * LM_STEP[1])
+    return _bound(rows * (LM_ACCEPT[0] + LM_STEP_OWN_BYTES),
+                  rows * (LM_ACCEPT[1] + LM_STEP[1]))
 
 
 def _bound(nbytes, ops):
@@ -372,6 +396,141 @@ def compare(baseline_root, dev):
     return rows
 
 
+# K3's and K4's main-path shapes (h, w, points, rows) per preset: the
+# hypothesis ladder on the coarsest level, the refinement on level 0, the
+# struct-pose veto on level 1 (chip_smoke.py phase 3 checks and times K3
+# and K4 at them)
+TRACK_SHAPES = {"default": ((45, 150, 1024, 32), (360, 1200, 6144, 3),
+                            (180, 600, 4096, 2)),
+                "fast": ((40, 53, 512, 32), (320, 424, 3072, 3),
+                         (160, 212, 2048, 2))}
+
+
+def _ulps(a, b):
+    """Per element, the float32 ulps between a and b (0 where both are the
+    same NaN-ness and bits, inf where one is NaN and the other not)."""
+    ai = a.float().contiguous().view(torch.int32).long()
+    bi = b.float().contiguous().view(torch.int32).long()
+    # the float32 bit patterns on one monotone integer line
+    ai = torch.where(ai < 0, -(ai & 0x7FFFFFFF), ai)
+    bi = torch.where(bi < 0, -(bi & 0x7FFFFFFF), bi)
+    d = (ai - bi).abs().double()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    d = torch.where(na & nb, torch.zeros_like(d), d)
+    return torch.where(na ^ nb, torch.full_like(d, float("inf")), d)
+
+
+def compare_track(baseline_root, dev):
+    """K3 and K4 of this tree against a baseline checkout's on
+    track_scene's inputs at TRACK_SHAPES, one lane and four: K3's outputs
+    (how many differ, the largest float32 ulps, counts equal), K4's step
+    (bit for bit) and one LM iteration's accept and next step (bit for
+    bit; a baseline without the fused `lm_update_accept_step` runs its
+    `lm_update_accept` then `lm_update_step`); device and wrapper times of
+    K3 and of one LM iteration's K4 launches, in the order baseline,
+    current, current, baseline, at the ladder and level 0 with one lane
+    and at the ladder with four (the batched lockstep's rows)."""
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.utils.device_loop import same_bits
+    old = load_baseline(baseline_root)
+    hk.build_library()
+    rows_out = []
+    for preset, shapes in TRACK_SHAPES.items():
+        for i, (h, w, n, rows) in enumerate(shapes):
+            for lanes in (1, 4):
+                sc = track_scene(100 + i, h, w, n, lanes, rows, poison=True)
+                x = track_inputs(sc, dev)
+                single = lanes == 1
+                pool = {k: v[0] for k, v in x["pool"].items()} if single \
+                    else x["pool"]
+                args = (pool, x["dI"][0] if single else x["dI"],
+                        x["K"][0] if single else x["K"], x["T"],
+                        x["aff_rel"], x["ref_b"], x["cutoff"], 9.0)
+                kw = dict(packed=x["packed"], lane=None if single
+                          else x["lane"])
+                got, ref = hk.track_res_gs(*args, **kw), \
+                    old.track_res_gs(*args, **kw)
+                u = torch.cat([_ulps(got[k], ref[k]).reshape(-1)
+                               for k in got if k != "n"])
+                B = x["T"].shape[0]
+                rng = np.random.default_rng(200 + i)
+
+                def t(v, dtype=torch.float32):
+                    return torch.as_tensor(np.asarray(v), dtype=dtype,
+                                           device=dev)
+                lam = t(np.array([1e-4, 0.01, 0.3, 1.0])[np.arange(B) % 4])
+                aff = t(rng.normal(0, [0.02, 1.0], (B, 2)))
+                ex = t(rng.uniform(0.8, 1.2, (B, 2) if lanes > 1 else (2,)))
+                ra = t(rng.normal(0, [0.05, 2.0], (B, 2) if lanes > 1
+                                  else (2,)))
+                done = t(rng.random(B) < 0.3, torch.bool)
+                n_it = t(rng.integers(0, 5, B), torch.int64)
+                step_in = (ref["H"], ref["b"], lam, x["T"], aff, ex, ra)
+                s_new = hk.lm_update_step(*step_in)
+                s_old = old.lm_update_step(*step_in)
+                step_same = all(same_bits(a, b)
+                                for a, b in zip(s_new, s_old))
+                r_new = hk.calc_res_gs_plain(args[0], args[1], args[2],
+                                             s_new[0], s_new[2], x["ref_b"],
+                                             x["cutoff"], 9.0, **kw)
+                acc_in = (ref, r_new, x["T"], s_new[0], aff, s_new[1], lam,
+                          done, n_it, s_new[3])
+
+                def k4_new():
+                    return hk.lm_update_accept_step(*acc_in, ex, ra)
+
+                def k4_old():
+                    if hasattr(old, "lm_update_accept_step"):
+                        return old.lm_update_accept_step(*acc_in, ex, ra)
+                    o = old.lm_update_accept(*acc_in)
+                    st = old.lm_update_step(o["r"]["H"], o["r"]["b"],
+                                            o["lam"], o["T"], o["aff"], ex,
+                                            ra)
+                    return dict(o, **dict(zip(hk.STEP_KEYS, st)))
+                a_new, a_old = k4_new(), k4_old()
+                flat_new = [a_new[k] for k in a_new if k != "r"] + \
+                    list(a_new["r"].values())
+                flat_old = [a_old[k] for k in a_new if k != "r"] + \
+                    [a_old["r"][k] for k in a_new["r"]]
+                iter_same = all(same_bits(a, b)
+                                for a, b in zip(flat_new, flat_old))
+                rec = dict(preset=preset, shape=[h, w, n, rows],
+                           lanes=lanes,
+                           k3_outputs=int(u.numel()),
+                           k3_outputs_differing=int((u != 0).sum()),
+                           k3_max_ulps=float(u.max()),
+                           k3_counts_equal=torch.equal(got["n"], ref["n"]),
+                           k4_step_bit_for_bit=step_same,
+                           k4_iteration_bit_for_bit=iter_same)
+                if (single and i < 2) or (not single and i == 0):
+                    for tag, fn in (
+                            ("baseline", lambda: old.track_res_gs(*args,
+                                                                  **kw)),
+                            ("current", lambda: hk.track_res_gs(*args,
+                                                                **kw)),
+                            ("current", lambda: hk.track_res_gs(*args,
+                                                                **kw)),
+                            ("baseline", lambda: old.track_res_gs(*args,
+                                                                  **kw))):
+                        rec.setdefault(f"k3_{tag}_device_ms", []).append(
+                            device_ms(fn))
+                        rec.setdefault(f"k3_{tag}_ms", []).append(
+                            wrapper_ms(fn))
+                    for tag, fn in (("baseline", k4_old),
+                                    ("current", k4_new),
+                                    ("current", k4_new),
+                                    ("baseline", k4_old)):
+                        rec.setdefault(f"k4_{tag}_device_ms", []).append(
+                            device_ms(fn))
+                        rec.setdefault(f"k4_{tag}_ms", []).append(
+                            wrapper_ms(fn))
+                    rec["k3_bound_ms"] = track_res_gs_bound(lanes, B, n)[0]
+                    rec["k4_bound_ms"] = lm_update_bound(B)[0]
+                print(json.dumps(rec), flush=True)
+                rows_out.append(rec)
+    return rows_out
+
+
 def _pyr_equal(a, b):
     return all(torch.equal(x, y) for (ai, aw), (bi, bw) in zip(a, b)
                for x, y in ((ai, bi), (aw, bw)))
@@ -382,6 +541,8 @@ def main():
     ap.add_argument("--baseline", required=True,
                     help="root of the checkout to compare with")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--track", action="store_true",
+                    help="K3 and K4 instead of K1 and K2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -391,9 +552,16 @@ def main():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         torch.cuda.get_device_name(0)
     print(card, flush=True)
-    rows = compare(os.path.abspath(args.baseline), torch.device("cuda:0"))
-    if not all(r["equal"] for r in rows):
-        sys.exit("a kernel disagrees with the baseline")
+    if args.track:
+        rows = compare_track(os.path.abspath(args.baseline),
+                             torch.device("cuda:0"))
+        if not all(r["k3_counts_equal"] for r in rows):
+            sys.exit("K3's counts disagree with the baseline's")
+    else:
+        rows = compare(os.path.abspath(args.baseline),
+                       torch.device("cuda:0"))
+        if not all(r["equal"] for r in rows):
+            sys.exit("a kernel disagrees with the baseline")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

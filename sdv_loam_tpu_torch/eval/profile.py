@@ -186,8 +186,9 @@ def count_dispatches(step, n_steps: int) -> dict:
 
 
 def lm_iteration_ops() -> dict:
-    """Ops one tracking LM iteration (`photometric._lm_body`) and one first
-    evaluation (`photometric._level_res`) dispatch, views excluded, on the
+    """Ops one tracking LM iteration (`photometric._lm_body`: K3 at the
+    carried step, then K4's accept-step) and one first evaluation
+    (`photometric._level_res`) dispatch, views excluded, on the
     CPU on `kernel_timing.track_scene`'s 320x96 inputs (two lanes, three
     rows each, 1024 points): `plain` counts every op of the K3 / K4 plain
     versions (the op-by-op body the card ran before the kernels), `kernels`
@@ -228,12 +229,15 @@ def lm_iteration_ops() -> dict:
         return ph._level_res(loop_x, x["T"], aff, x["cutoff"], 96, 320, 9.0,
                              True)
     r = first()
+    lam = torch.full((B,), 0.01)
+    step = ph.lm_update_step(r["H"], r["b"], lam, x["T"], aff,
+                             loop_x["exposures"], loop_x["ref_aff"])
     st = dict({"r_" + k: v for k, v in r.items()}, T=x["T"], aff=aff,
-              lam=torch.full((B,), 0.01),
-              done=torch.zeros(B, dtype=torch.bool),
-              n_it=torch.zeros(B, dtype=torch.int64))
+              lam=lam, done=torch.zeros(B, dtype=torch.bool),
+              n_it=torch.zeros(B, dtype=torch.int64),
+              **dict(zip(ph.STEP_KEYS, step)))
     out = {}
-    names = ("track_res_gs", "lm_update_step", "lm_update_accept")
+    names = ("track_res_gs", "lm_update_step", "lm_update_accept_step")
     saved = {n: getattr(ph, n) for n in names}
     for mode in ("plain", "kernels"):
         if mode == "kernels":

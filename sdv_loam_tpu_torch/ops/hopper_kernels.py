@@ -16,16 +16,18 @@ which the JAX package leaves to XLA to fuse:
     `photometric.calc_res_gs` (the JAX package's `calc_res_gs`,
     sdv_loam_tpu/ops/photometric.py:162): the residual and the scaled 8x8
     system of B pose rows, each row reading its lane's pool directly;
-  * `lm_update_step` and `lm_update_accept` (K4, two entry points of
-    csrc/track_lm_update.cu) compute the rest of one tracking LM
-    iteration (`photometric._lm_body`; the JAX package's LM body,
+  * `lm_update_step` and `lm_update_accept_step` (K4, two entry points
+    of csrc/track_lm_update.cu) compute the rest of the tracking LM
+    (`photometric._lm_body`; the JAX package's LM body,
     sdv_loam_tpu/ops/photometric.py:310): the damped solve and the pose
-    step before K3, the accept test and the per-row selects after it.
+    step of an LM call's first iteration, then per iteration after K3 the
+    accept test and the per-row selects with the next iteration's step,
+    in one launch.
 
 K1 and K2 take one map (H, W) or a stack of lanes (L, H, W) and compute
 each lane as the single-map call would. K3 and K4 take B rows; a row's
 result does not depend on the other rows (each row's sums run in a fixed
-order, csrc/track_res_gs.cu).
+order, csrc/track_res_gs.cu; K4 solves each row in its own warp).
 
 Dispatch: a CPU tensor goes to the plain version beside each kernel; a CUDA
 tensor goes to the kernel, and a failed build or launch raises. There is no
@@ -64,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -82,14 +85,19 @@ STEP_SCALE = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
 LAMBDA_EXTRAPOLATION_LIMIT = 0.001
 # a residual evaluation's outputs, the LM's `r_*` carries
 RES_KEYS = ("E", "n", "sat_frac", "H", "b", "flow_t", "flow_rt")
+# K4's step outputs, the LM's proposed step (carried into the next
+# iteration)
+STEP_KEYS = ("T_new", "aff_new", "aff_rel", "inc")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("dilate_pyramid.cu", "distance_transform.cu", "graph_cond.cu",
            "track_res_gs.cu", "track_lm_update.cu")
+# -Xptxas=-v: ptxas's report (registers, spills, shared memory per kernel),
+# kept beside the library (`build_report`)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 DILATE_MAX_LEVELS = 8   # levels one K1 launch takes (csrc/dilate_pyramid.cu)
 
 _lib = None
@@ -110,9 +118,9 @@ def reset_launch_counts() -> None:
 
 
 def _device_counts(reset: bool = False):
-    """(K3 launches, K4 step launches, K4 accept launches) summed over the
-    devices that launched them, read from their counters after a device
-    synchronize; zeroed after the read with `reset`."""
+    """(K3 launches, K4 step launches, K4 accept-step launches) summed
+    over the devices that launched them, read from their counters after a
+    device synchronize; zeroed after the read with `reset`."""
     tot = [0, 0, 0]
     if _lib is None:
         return tot
@@ -131,11 +139,12 @@ def _device_counts(reset: bool = False):
 
 def device_launches() -> dict:
     """The launches K3 and K4 counted on the card since the last reset: per
-    kernel (K4's two entry points together), and K4's `lm_step` and
-    `lm_accept` apart (one each per LM iteration). Synchronizes."""
-    k3, step, accept = _device_counts()
-    return {"track_res_gs": k3, "track_lm_update": step + accept,
-            "lm_step": step, "lm_accept": accept}
+    kernel (K4's two entry points together), and K4's `lm_step` (one per
+    LM call) and `lm_accept_step` (one per LM iteration) apart.
+    Synchronizes."""
+    k3, step, accept_step = _device_counts()
+    return {"track_res_gs": k3, "track_lm_update": step + accept_step,
+            "lm_step": step, "lm_accept_step": accept_step}
 
 
 def launch_counts() -> dict:
@@ -447,6 +456,19 @@ def lm_update_accept_plain(r, r_new, T, T_new, aff, aff_new, lam, done,
                 active=(~done).any())
 
 
+def lm_update_accept_step_plain(r, r_new, T, T_new, aff, aff_new, lam, done,
+                                n_it, inc, exposures, ref_aff):
+    """K4's fused entry in tensor operations: `lm_update_accept_plain`,
+    then `lm_update_step_plain` from the carries it selected (every row,
+    done or not). Returns the accept's dict with the next step's T_new,
+    aff_new, aff_rel and inc."""
+    o = lm_update_accept_plain(r, r_new, T, T_new, aff, aff_new, lam, done,
+                               n_it, inc)
+    step = lm_update_step_plain(o["r"]["H"], o["r"]["b"], o["lam"], o["T"],
+                                o["aff"], exposures, ref_aff)
+    return dict(o, **dict(zip(STEP_KEYS, step)))
+
+
 # ---------------------------------------------------------------------------
 # build + bind
 # ---------------------------------------------------------------------------
@@ -475,24 +497,68 @@ def _nvcc() -> str:
 
 
 def build_library(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into build/libsdv_hopper_<hash>.so (no-op when the
-    library for the current sources exists). Returns its path."""
+    """Compile csrc/*.cu into build/libsdv_hopper_<hash>.so, with the
+    compiler's report (`build_report`) beside it (no-op when the library
+    for the current sources exists). With `verbose`, print the report.
+    Returns the library's path."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"libsdv_hopper_{_source_hash()}.so")
-    if os.path.exists(path):
-        return path
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+    if not os.path.exists(path):
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        # the report first: a library that exists has its report
+        with open(f"{tmp}.txt", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(f"{tmp}.txt", _report_path(path))
+        os.replace(tmp, path)
     if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, path)
+        print(build_report(path))
     return path
+
+
+def _report_path(library: str) -> str:
+    return library[:-len(".so")] + ".ptxas.txt"
+
+
+def build_report(library: str | None = None) -> str:
+    """The compiler's output (ptxas -v) of the build of `library` (by
+    default the current sources', built if it is not yet), whether this
+    process built it or found it built."""
+    with open(_report_path(library or build_library())) as f:
+        return f.read()
+
+
+def ptxas_usage(log: str) -> dict:
+    """Per kernel entry of a `ptxas -v` report (`build_report`): registers,
+    spill stores and loads (bytes), stack frame and shared memory (bytes),
+    keyed by the entry's mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def _load():
@@ -524,8 +590,8 @@ def _load():
             lib.sdv_track_res_gs.restype = ci
             lib.sdv_lm_step.argtypes = [vpp, ci, ll, ll, vp]
             lib.sdv_lm_step.restype = ci
-            lib.sdv_lm_accept.argtypes = [vpp, ci, vp]
-            lib.sdv_lm_accept.restype = ci
+            lib.sdv_lm_accept_step.argtypes = [vpp, ci, ll, ll, vp]
+            lib.sdv_lm_accept_step.restype = ci
             for fn in (lib.sdv_track_res_gs_counts,
                        lib.sdv_track_lm_update_counts):
                 fn.argtypes = [ctypes.POINTER(ull), ci]
@@ -737,10 +803,15 @@ def _row_pairs(x, B, name):
     return x, (x.stride(0) if x.dim() == 2 else 0)
 
 
+def _step_outputs(B, dev):
+    """K4's step outputs (STEP_KEYS)."""
+    return tuple(torch.empty(shape, device=dev)
+                 for shape in ((B, 4, 4), (B, 2), (B, 2), (B, 8)))
+
+
 def lm_update_step(H, b, lam, T, aff, exposures, ref_aff):
-    """K4's first entry point: `lm_update_step_plain` (same arguments and
-    results). CPU -> plain version; CUDA -> one launch, a thread per
-    row."""
+    """K4's step entry point: `lm_update_step_plain` (same arguments and
+    results). CPU -> plain version; CUDA -> one launch, a warp per row."""
     if H.device.type == "cpu":
         return lm_update_step_plain(H, b, lam, T, aff, exposures, ref_aff)
     B = H.shape[0]
@@ -754,27 +825,26 @@ def lm_update_step(H, b, lam, T, aff, exposures, ref_aff):
     ref_aff, ra_stride = _row_pairs(ref_aff, B, "ref_aff")
     dev = _on_card("lm_update_step", H, b, lam, T, aff, exposures, ref_aff)
     lib = _load()
-    T_new = torch.empty((B, 4, 4), device=dev)
-    aff_new = torch.empty((B, 2), device=dev)
-    aff_rel = torch.empty((B, 2), device=dev)
-    inc = torch.empty((B, 8), device=dev)
+    out = _step_outputs(B, dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sdv_lm_step(_ptrs(H, b, lam, T, aff, exposures, ref_aff,
-                                   T_new, aff_new, aff_rel, inc),
-                             B, ex_stride, ra_stride, stream)
+                                   *out), B, ex_stride, ra_stride, stream)
     _check_rc(rc, "lm_update_step")
-    return T_new, aff_new, aff_rel, inc
+    return out
 
 
-def lm_update_accept(r, r_new, T, T_new, aff, aff_new, lam, done, n_it,
-                     inc):
-    """K4's second entry point: `lm_update_accept_plain` (same arguments
-    and results). CPU -> plain version; CUDA -> one launch of one block
-    (a thread per row, and the flag reduced over the block)."""
+def lm_update_accept_step(r, r_new, T, T_new, aff, aff_new, lam, done, n_it,
+                          inc, exposures, ref_aff):
+    """K4's fused entry point: `lm_update_accept_step_plain` (same
+    arguments and results): one LM iteration's accept and the next
+    iteration's step. CPU -> plain version; CUDA -> one launch of a
+    cluster of 8 blocks (a warp per row; the loop's flag reduced over each
+    block, then over the cluster)."""
     if T.device.type == "cpu":
-        return lm_update_accept_plain(r, r_new, T, T_new, aff, aff_new, lam,
-                                      done, n_it, inc)
+        return lm_update_accept_step_plain(r, r_new, T, T_new, aff, aff_new,
+                                           lam, done, n_it, inc, exposures,
+                                           ref_aff)
     B = T.shape[0]
     shapes = dict(E=(B,), n=(B,), sat_frac=(B,), H=(B, 8, 8), b=(B, 8),
                   flow_t=(B,), flow_rt=(B,))
@@ -799,10 +869,12 @@ def lm_update_accept(r, r_new, T, T_new, aff, aff_new, lam, done, n_it,
             inc.shape, done.shape, n_it.shape) != (
             (B, 4, 4), (B, 4, 4), (B, 2), (B, 2), (B,), (B, 8), (B,),
             (B,)) or done.dtype != torch.bool or n_it.dtype != torch.int64:
-        raise ValueError("lm_update_accept: row shapes or dtypes differ "
-                         "from lm_update_accept_plain's")
-    dev = _on_card("lm_update_accept", T, T_new, aff, aff_new, lam, done,
-                   n_it, inc, *ins)
+        raise ValueError("lm_update_accept_step: row shapes or dtypes "
+                         "differ from lm_update_accept_step_plain's")
+    exposures, ex_stride = _row_pairs(exposures, B, "exposures")
+    ref_aff, ra_stride = _row_pairs(ref_aff, B, "ref_aff")
+    dev = _on_card("lm_update_accept_step", T, T_new, aff, aff_new, lam,
+                   done, n_it, inc, exposures, ref_aff, *ins)
     lib = _load()
     r_out = {k: torch.empty(shapes[k], device=dev,
                             dtype=torch.int64 if k == "n" else torch.float32)
@@ -813,11 +885,14 @@ def lm_update_accept(r, r_new, T, T_new, aff, aff_new, lam, done, n_it,
                done=torch.empty(B, dtype=torch.bool, device=dev),
                n_it=torch.empty(B, dtype=torch.int64, device=dev),
                active=torch.empty((), dtype=torch.bool, device=dev))
+    step = _step_outputs(B, dev)
     ptrs = _ptrs(*ins, T, T_new, aff, aff_new, lam, done, n_it, inc,
                  *(r_out[k] for k in RES_KEYS), out["T"], out["aff"],
-                 out["lam"], out["done"], out["n_it"], out["active"])
+                 out["lam"], out["done"], out["n_it"], out["active"],
+                 exposures, ref_aff, *step)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.sdv_lm_accept(ptrs, B, stream)
-    _check_rc(rc, "lm_update_accept")
+        rc = lib.sdv_lm_accept_step(ptrs, B, ex_stride, ra_stride, stream)
+    _check_rc(rc, "lm_update_accept_step")
+    out.update(zip(STEP_KEYS, step))
     return out

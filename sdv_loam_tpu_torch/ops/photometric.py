@@ -22,8 +22,8 @@ from __future__ import annotations
 import torch
 
 from sdv_loam_tpu_torch.ops.hopper_kernels import (
-    RES_KEYS, aff_transfer, dilate_pyramid, lm_update_accept, lm_update_step,
-    select_rows, track_res_gs)
+    RES_KEYS, STEP_KEYS, aff_transfer, dilate_pyramid,
+    lm_update_accept_step, lm_update_step, select_rows, track_res_gs)
 from sdv_loam_tpu_torch.ops.warp import pack_bilinear
 from sdv_loam_tpu_torch.utils import device_loop
 
@@ -227,20 +227,23 @@ def _cutoff_body(x, st, h, w, huber_th, lanes):
 
 def _lm_body(x, st, h, w, huber_th, lanes):
     """One LM iteration of every row; rows that have stopped keep their
-    carries. Three launches on CUDA: K4's step, K3 at the stepped pose,
-    K4's accept."""
+    carries. The step proposed by the previous iteration (or, in the
+    first, before the loop) is a carry: K3 evaluates at it, then K4's
+    accept-step takes this iteration's accept and, from the carries it
+    selected, proposes the next step. Two launches on CUDA."""
     r = {k: st["r_" + k] for k in RES_KEYS}
-    T, aff, lam = st["T"], st["aff"], st["lam"]
-    T_new, aff_new, aff_rel, inc = lm_update_step(
-        r["H"], r["b"], lam, T, aff, x["exposures"], x["ref_aff"])
     r_new = calc_res_gs({k: x["pool_" + k] for k in _POOL_FIELDS}, None,
-                        x["K"], T_new, aff_rel, x["ref_aff"][..., 1],
-                        x["cutoff"], huber_th, packed=x["packed"],
+                        x["K"], st["T_new"], st["aff_rel"],
+                        x["ref_aff"][..., 1], x["cutoff"], huber_th,
+                        packed=x["packed"],
                         lane=x["lane"] if lanes else None, hw=(h, w))
-    o = lm_update_accept(r, r_new, T, T_new, aff, aff_new, lam, st["done"],
-                         st["n_it"], inc)
-    out = dict({"r_" + k: v for k, v in o["r"].items()}, T=o["T"],
-               aff=o["aff"], lam=o["lam"], done=o["done"], n_it=o["n_it"])
+    o = lm_update_accept_step(r, r_new, st["T"], st["T_new"], st["aff"],
+                              st["aff_new"], st["lam"], st["done"],
+                              st["n_it"], st["inc"], x["exposures"],
+                              x["ref_aff"])
+    out = dict({"r_" + k: v for k, v in o["r"].items()},
+               **{k: o[k] for k in ("T", "aff", "lam", "done", "n_it")
+                  + STEP_KEYS})
     return out, o["active"]
 
 
@@ -283,10 +286,14 @@ def track_level(pool, dI_new, K, T0, aff0, ref_aff, exposures, cutoff_base,
     cutoff_rep = out["rep"]
     cutoff = cutoff_base * cutoff_rep
 
+    lam = torch.full((B,), 0.01, dtype=torch.float32, device=dev)
+    # the first iteration's step (K4's step entry), then the loop
+    step = lm_update_step(r0["H"], r0["b"], lam, T0, aff0, exposures,
+                          ref_aff)
     st = dict({"r_" + k: v for k, v in r0.items()}, T=T0, aff=aff0,
-              lam=torch.full((B,), 0.01, dtype=torch.float32, device=dev),
-              done=torch.zeros(B, dtype=torch.bool, device=dev),
-              n_it=torch.zeros(B, dtype=torch.int64, device=dev))
+              lam=lam, done=torch.zeros(B, dtype=torch.bool, device=dev),
+              n_it=torch.zeros(B, dtype=torch.int64, device=dev),
+              **dict(zip(STEP_KEYS, step)))
     out = device_loop.run("lm", _lm_body, dict(x, cutoff=cutoff), st,
                           max_iters, static, chunk=chunk)
     r = {k[2:]: v for k, v in out.items() if k.startswith("r_")}

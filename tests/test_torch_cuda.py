@@ -472,7 +472,7 @@ def test_kernel_inside_if_node_is_refused(cuda):
 
 
 # ---------------------------------------------------------------------------
-# K3 (track_res_gs) and K4 (lm_update_step / lm_update_accept)
+# K3 (track_res_gs) and K4 (lm_update_step / lm_update_accept_step)
 # ---------------------------------------------------------------------------
 
 # K3 against its plain version: counts exact, every other output within
@@ -575,10 +575,11 @@ def dl_same_bits(a, b):
 def test_lm_update_kernels_match_plain(cuda, shape, per_row):
     """K4's step against its plain version (the solve within SOLVE_REL of
     the step, a poisoned system's step zeroed in both, the pose and affine
-    update of the kernel's own step within UPDATE_TOL), and its accept bit
-    for bit, on the scene's systems with lambda from 1e-4 to 1, rows done
-    and running; exposures and the reference affine one pair or one per
-    row."""
+    update of the kernel's own step within UPDATE_TOL), and its
+    accept-step against the plain accept then step: the accept and every
+    carry bit for bit, the next step within SOLVE_REL, on the scene's
+    systems with lambda from 1e-4 to 1, rows done and running; exposures
+    and the reference affine one pair or one per row."""
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
     from sdv_loam_tpu_torch.utils import se3
 
@@ -618,15 +619,102 @@ def test_lm_update_kernels_match_plain(cuda, shape, per_row):
                                  a[6], 9.0, **kw)
     done = t(rng.random(B) < 0.3, torch.bool)
     n_it = t(rng.integers(0, 5, B), torch.int64)
-    args = (r, r_new, x["T"], T_new, aff, aff_new, lam, done, n_it, inc)
-    ok = hk.lm_update_accept(*args)
-    op = hk.lm_update_accept_plain(*args)
+    args = (r, r_new, x["T"], T_new, aff, aff_new, lam, done, n_it, inc,
+            exposures, ref_aff)
+    ok = hk.lm_update_accept_step(*args)
+    op = hk.lm_update_accept_step_plain(*args)
     for k in ("T", "aff", "lam", "done", "n_it", "active"):
         assert dl_same_bits(ok[k], op[k]), k
     for k in ok["r"]:
         assert dl_same_bits(ok["r"][k], op["r"][k]), k
+    err = (ok["inc"] - op["inc"]).abs().amax(-1)
+    assert (err <= SOLVE_REL * torch.linalg.vector_norm(op["inc"], dim=-1)
+            + 1e-30).all(), err
     assert hk.device_launches() == {"track_res_gs": 0, "track_lm_update": 2,
-                                    "lm_step": 1, "lm_accept": 1}
+                                    "lm_step": 1, "lm_accept_step": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("systems", ["scene", "tied"])
+def test_lm_step_kernel_is_the_serial_lu(cuda, systems):
+    """K4's warp-parallel solve is the serial float64 LU with each
+    multiply-subtract fused, bit for bit (tests/k4_lu.py's emulation, whose
+    pivot rule is a one-thread serial scan's), in the step entry and in the
+    accept-step's next step: on the scene's damped systems at lambda 1e-4
+    to 1, and on systems of small integers (tied pivots, zeros)."""
+    import k4_lu
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+
+    rng = np.random.default_rng(37)
+    if systems == "scene":
+        sc = kt.track_scene(38, 45, 150, 1024, 4, 8)
+        x = kt.track_inputs(sc, cuda)
+        a, kw = _track_args(x, False)
+        r = hk.calc_res_gs_plain(*a, **kw)
+        H, b, T = r["H"], r["b"], x["T"]
+    else:
+        B = 32
+        A = rng.integers(-3, 4, (B, 8, 8)).astype(np.float32)
+        A = A + 8 * np.eye(8, dtype=np.float32)[None] \
+            * (np.arange(B) % 2)[:, None, None]
+        H = torch.as_tensor(A.astype(np.float32), device=cuda)
+        b = torch.as_tensor(rng.integers(-5, 6, (B, 8)).astype(np.float32),
+                            device=cuda)
+        T = torch.eye(4, device=cuda).expand(B, 4, 4).contiguous()
+    B = H.shape[0]
+    lam = torch.as_tensor(np.array([1e-4, 0.01, 0.3, 1.0],
+                                   np.float32)[np.arange(B) % 4],
+                          device=cuda)
+    aff = torch.zeros((B, 2), device=cuda)
+    ex, ra = torch.ones(2, device=cuda), torch.zeros(2, device=cuda)
+    want = np.stack([k4_lu.step_inc(H[i].cpu().numpy(), b[i].cpu().numpy(),
+                                    float(lam[i])) for i in range(B)])
+    inc = hk.lm_update_step(H, b, lam, T, aff, ex, ra)[3]
+    assert np.array_equal(inc.cpu().numpy().view(np.int32),
+                          want.view(np.int32))
+    # the accept-step of rows that all keep their state: its next step is
+    # the step of the same carries at lambda 4x (at least the limit)
+    res = dict(E=torch.ones(B, device=cuda),
+               n=torch.ones(B, dtype=torch.int64, device=cuda),
+               sat_frac=torch.zeros(B, device=cuda), H=H, b=b,
+               flow_t=torch.zeros(B, device=cuda),
+               flow_rt=torch.zeros(B, device=cuda))
+    o = hk.lm_update_accept_step(
+        res, dict(res, E=torch.full((B,), 2.0, device=cuda)), T, T, aff, aff,
+        lam, torch.zeros(B, dtype=torch.bool, device=cuda),
+        torch.zeros(B, dtype=torch.int64, device=cuda), inc, ex, ra)
+    lam4 = torch.clamp(lam * 4.0, min=1e-3)
+    assert torch.equal(o["lam"], lam4)
+    want = np.stack([k4_lu.step_inc(H[i].cpu().numpy(), b[i].cpu().numpy(),
+                                    float(lam4[i])) for i in range(B)])
+    assert np.array_equal(o["inc"].cpu().numpy().view(np.int32),
+                          want.view(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [TRACK_SHAPES[0], TRACK_SHAPES[1]])
+def test_track_res_gs_kernel_equals_its_emulation(cuda, shape):
+    """K3 on the card against its CPU emulation in the kernel's arithmetic
+    and order (tests/k3_order.py: float32 per-point terms, the cluster's
+    float64 order, each output rounded once): every output bit for bit,
+    two lanes."""
+    import k3_order
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+
+    h, w, n, rows = shape
+    sc = kt.track_scene(39, h, w, n, 2, rows)
+    x = kt.track_inputs(sc, cuda)
+    a, kw = _track_args(x, False)
+    got = hk.track_res_gs(*a, **kw)
+    xc = kt.track_inputs(sc, "cpu")
+    emu = k3_order.emulate(xc["pool"], xc["packed"], xc["K"], xc["T"],
+                           xc["aff_rel"], xc["ref_b"], xc["cutoff"], 9.0,
+                           xc["lane"], h, w)
+    differ = {k: int((~(torch.eq(got[k].cpu(), emu[k])
+                        | (got[k].cpu().isnan() & emu[k].isnan()))).sum())
+              for k in emu if k != "n"}
+    differ["n"] = int((got["n"].cpu() != emu["n"]).sum())
+    assert not any(differ.values()), differ
 
 
 def _track_level_program(x, huber_th, max_iters):
@@ -642,8 +730,9 @@ def _track_level_program(x, huber_th, max_iters):
 def test_track_kernels_count_the_loops_evaluations(cuda):
     """K3 and K4 inside a captured program's WHILE node: their device
     counters equal the evaluations the LM ran (per call: one first
-    evaluation and one per iteration for K3, two launches per iteration
-    for K4; iterations = the rows' largest n_iters, the cutoff loop idle),
+    evaluation and one per iteration for K3; for K4 the step once per
+    call and the accept-step once per iteration; iterations = the rows'
+    largest n_iters, the cutoff loop idle),
     over the process's eager first call and the replays; a replay in a
     profile window is timed on the device."""
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
@@ -670,14 +759,14 @@ def test_track_kernels_count_the_loops_evaluations(cuda):
             outs.append(out)
             it = int(out["n_iters"].max())
             want[0] += 1 + it
-            want[1] += 2 * it
+            want[1] += 1 + it
             assert float(out["rep"].max()) == 1.0
             if i:
                 assert timed["tl_count"]["replays"] == 1 and \
                     timed["tl_count"]["ms"] > 0, timed
     got = hk.device_launches()
     assert [got["track_res_gs"], got["track_lm_update"]] == want, (got, want)
-    assert got["lm_step"] == got["lm_accept"]
+    assert got["lm_step"] == 4 and got["lm_accept_step"] == want[1] - 4
     assert 1 < int(outs[-1]["n_iters"].max()) <= 10
     for k in outs[0]:
         assert dl.same_bits(outs[1][k], outs[-1][k]), k

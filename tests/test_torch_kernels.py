@@ -5,10 +5,13 @@
 bodies of sdv_loam_tpu/ops/pallas_kernels.py run in interpret mode on the
 CPU, and against the JAX package's jnp paths; the lane dimension against
 single calls; and a torch emulation of the K2 kernel's separable sweep and
-tiling against the plain version. The CUDA kernels themselves are compared
-with the plain versions on the card in tests/test_torch_cuda.py.
+tiling against the plain version; the build's ptxas report, kept beside
+the library and read back when the library is found built (with nvcc
+stood in for by a script). The CUDA kernels themselves are compared with
+the plain versions on the card in tests/test_torch_cuda.py.
 """
 
+import os
 from functools import partial
 
 import jax
@@ -275,3 +278,45 @@ def test_wrappers_reject_bad_inputs():
         hk.distance_transform(z, -1)
     with pytest.raises(ValueError):
         hk.distance_transform(torch.zeros((2, 2, 8, 8)), 32)
+
+
+_FAKE_NVCC = r"""#!/bin/sh
+# stands in for nvcc: writes the -o file, prints a ptxas -v report,
+# counts its calls
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo x > "$out"
+echo run >> "$(dirname "$0")/calls"
+cat >&2 <<'REPORT'
+ptxas info    : Compiling entry function '_Z19track_res_gs_kernel' for 'sm_90a'
+ptxas info    : Function properties for _Z19track_res_gs_kernel
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, 48404 bytes smem, 400 bytes cmem[0]
+REPORT
+"""
+
+
+def test_build_keeps_the_ptxas_report_beside_the_library(monkeypatch,
+                                                         tmp_path):
+    """The compiler's report is written beside the library and read back
+    when the library is found built, without compiling again."""
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    (bindir / "nvcc").write_text(_FAKE_NVCC)
+    (bindir / "nvcc").chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(hk, "BUILD_DIR", str(tmp_path / "build"))
+    assert "-Xptxas=-v" in hk.NVCC_FLAGS
+    path = hk.build_library()
+    assert hk.build_library() == path
+    assert (bindir / "calls").read_text().count("run") == 1
+    usage = hk.ptxas_usage(hk.build_report())
+    assert usage == {"_Z19track_res_gs_kernel": {
+        "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 72,
+        "smem": 48404}}
+    assert hk.build_report(path) == hk.build_report()
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        [os.path.basename(path),
+         os.path.basename(path)[:-3] + ".ptxas.txt"])

@@ -1,10 +1,15 @@
 """The tracking LM's kernels on the CPU: K3 (`track_res_gs`, the residual
-and 8x8 system) and K4 (`lm_update_step` / `lm_update_accept`, the rest of
-an LM iteration) through their plain versions, against the JAX package's
-`calc_res_gs` and tracking LM; a torch emulation of K3's arithmetic and
-reduction order (csrc/track_res_gs.cu) and of K4's LU solve against the
-plain versions; and the CPU dispatch, which never loads the kernels'
-library.
+and 8x8 system) and K4 (`lm_update_step` / `lm_update_accept_step`, the
+rest of the LM) through their plain versions, against the JAX package's
+`calc_res_gs` and tracking LM; the LM loop with the step as a carry
+against the three-launch body (step, K3, accept), bit for bit; a torch
+emulation of K3's arithmetic and reduction order (tests/k3_order.py, the
+cluster order of csrc/track_res_gs.cu) against the plain version, and
+against the previous one-block-per-row order (within one float32 ulp,
+with the count of outputs that differ);
+K4's LU (tests/k4_lu.py) against the plain solve, and its warp-parallel
+pivot choice against the serial scan; and the CPU dispatch, which never
+loads the kernels' library.
 
 Inputs: two lanes of a 96x320 scene (pools of 1024 points, three image
 channels), made from a seeded numpy generator and handed to both packages
@@ -23,7 +28,12 @@ Tolerances:
   * the kernel's float64 LU against torch.linalg.solve_ex's float32 one:
     SOLVE_REL = 1e-3 of the step's norm, the card's tolerance (the
     difference is the float32 solve's own error, which grows with the
-    damped system's condition: ~200 here).
+    damped system's condition: ~200 here);
+  * K3's order against the one-block-per-row order: one float32 ulp
+    (both sum exact float64 products; only the order of the float64
+    additions differs);
+  * the LM loop against the three-launch body, the warp pivot against the
+    serial scan: bit for bit.
 """
 
 import jax
@@ -32,6 +42,8 @@ import numpy as np
 import pytest
 import torch
 
+import k3_order
+import k4_lu
 from sdv_loam_tpu.ops import photometric as jph
 from sdv_loam_tpu.utils import se3 as jse3
 from sdv_loam_tpu_torch.eval import kernel_timing as kt
@@ -275,163 +287,140 @@ def test_track_level_matches_jax():
         assert float(rep[b]) == float(jrep), b
 
 
+def _three_launch_lm_body(x, st, h, w, huber_th, lanes):
+    """The three-launch LM body: the step, K3 at the stepped pose, the
+    accept (three launches on the card; here the plain versions)."""
+    r = {k: st["r_" + k] for k in hk.RES_KEYS}
+    T_new, aff_new, aff_rel, inc = hk.lm_update_step_plain(
+        r["H"], r["b"], st["lam"], st["T"], st["aff"], x["exposures"],
+        x["ref_aff"])
+    r_new = hk.calc_res_gs_plain(
+        {k: x["pool_" + k] for k in tph._POOL_FIELDS}, None, x["K"], T_new,
+        aff_rel, x["ref_aff"][..., 1], x["cutoff"], huber_th,
+        packed=x["packed"], lane=x["lane"] if lanes else None, hw=(h, w))
+    o = hk.lm_update_accept_plain(r, r_new, st["T"], T_new, st["aff"],
+                                  aff_new, st["lam"], st["done"], st["n_it"],
+                                  inc)
+    out = dict({"r_" + k: v for k, v in o["r"].items()},
+               **{k: o[k] for k in ("T", "aff", "lam", "done", "n_it")})
+    return out, o["active"]
+
+
+@pytest.mark.parametrize("max_iters", [1, 3, 10])
+def test_lm_loop_matches_three_launch_body(max_iters):
+    """(b) The LM loop with the step as a carry (the step before the loop,
+    then K3 and the accept-step per iteration) against the three-launch
+    body (step, K3, accept per iteration), the early-exit loop of each on
+    the same rows: the same iterations per row and every carry bit for
+    bit."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    sc = _scene(4)
+    exposures, ref_aff, aff0 = _lm_inputs(sc, 4)
+    pool, dI, packed, K = _port_lanes(sc)
+    B = LANES * ROWS
+    x = {"pool_" + k: pool[k] for k in tph._POOL_FIELDS}
+    x.update(K=K, packed=packed, lane=torch.from_numpy(sc["lane"]),
+             exposures=torch.from_numpy(exposures),
+             ref_aff=torch.from_numpy(ref_aff),
+             cutoff=torch.from_numpy(sc["cutoff"]))
+    static = dict(h=H_IMG, w=W_IMG, huber_th=HUBER, lanes=True)
+    T0, a0 = torch.from_numpy(sc["T"]), torch.from_numpy(aff0)
+    r0 = tph._level_res(x, T0, a0, x["cutoff"], **static)
+    lam = torch.full((B,), 0.01)
+    st = dict({"r_" + k: v for k, v in r0.items()}, T=T0, aff=a0, lam=lam,
+              done=torch.zeros(B, dtype=torch.bool),
+              n_it=torch.zeros(B, dtype=torch.int64))
+    ref = dl.eager_loop("lm", _three_launch_lm_body, x, st, max_iters, static)
+    step = hk.lm_update_step(r0["H"], r0["b"], lam, T0, a0, x["exposures"],
+                             x["ref_aff"])
+    got = dl.eager_loop("lm", tph._lm_body, x,
+                        dict(st, **dict(zip(hk.STEP_KEYS, step))),
+                        max_iters, static)
+    for k in ref:
+        assert dl.same_bits(got[k], ref[k]), k
+    assert int(got["n_it"].max()) == min(max_iters, int(ref["n_it"].max()))
+    if max_iters == 10:
+        assert len(set(got["n_it"].tolist())) > 1   # rows stop apart
+
+
 # ---------------------------------------------------------------------------
-# K3's arithmetic and reduction order (csrc/track_res_gs.cu), emulated
+# K3's arithmetic and reduction order (csrc/track_res_gs.cu), emulated in
+# tests/k3_order.py
 # ---------------------------------------------------------------------------
-
-THREADS, WARPS = 256, 8
-STEP_SCALE = torch.tensor(hk.STEP_SCALE)
-
-
-def _emulate_k3(pool, packed, K, T, aff_rel, ref_b, cutoff, huber, lane, h,
-                w):
-    """K3 in tensor operations in the kernel's order: the per-point
-    quantities in float32, each operation rounded on its own, the products
-    of the projection and the bilinear weights summed left to right; a
-    point's H and b terms (exact float64 products) added when it is an
-    inlier or one of its J or r is not finite; every sum in float64: per
-    row, thread t sums points t, t + 256, ... in order, each warp sums its
-    lanes by shuffles down at offsets 16..1, the warps' sums add in warp
-    order; each output rounded to float32 once."""
-    lane = lane.long()
-    B, n = T.shape[0], pool["u"].shape[-1]
-    g = {k: pool[k][lane] for k in ("u", "v", "idepth", "color", "valid")}
-    Kb = K[lane]
-    fx, fy, cx, cy = (Kb[:, i:i + 1] for i in range(4))
-    R, t = T[:, :3, :3], T[:, :3, 3]
-    u0, v0, idp, color, valid = (g[k] for k in ("u", "v", "idepth", "color",
-                                                "valid"))
-    xn, yn = (u0 - cx) / fx, (v0 - cy) / fy
-    pr = [(xn * R[:, k, 0:1] + yn * R[:, k, 1:2]) + R[:, k, 2:3]
-          for k in range(3)]
-    pt = [pr[k] + t[:, k:k + 1] * idp for k in range(3)]
-    u, v = pt[0] / pt[2], pt[1] / pt[2]
-    Ku, Kv = fx * u + cx, fy * v + cy
-    nid = idp / pt[2]
-    inb = valid & (Ku > 2) & (Kv > 2) & (Ku < w - 3) & (Kv < h - 3) & \
-        (nid > 0)
-    x0f, y0f = torch.floor(Ku), torch.floor(Kv)
-    hit_ok = (x0f >= 0) & (x0f <= w - 2) & (y0f >= 0) & (y0f <= h - 2)
-    ax, ay = Ku - x0f, Kv - y0f
-    wc = [(1 - ax) * (1 - ay), ax * (1 - ay), (1 - ax) * ay, ax * ay]
-    idx = lane[:, None] * h * w + torch.where(hit_ok, y0f * w + x0f,
-                                              torch.zeros_like(x0f)).long()
-    q = packed[idx.reshape(-1)].reshape(B, n, 12)
-    hit = []
-    for c in range(3):
-        s = q[..., c] * wc[0]
-        for k in range(1, 4):
-            s = s + q[..., 3 * k + c] * wc[k]
-        hit.append(torch.where(hit_ok, s, torch.zeros_like(s)))
-    inb = inb & hit_ok & torch.isfinite(hit[0])
-    r = hit[0] - (aff_rel[:, 0:1] * color + aff_rel[:, 1:2])
-    absr = torch.abs(r)
-    hw = torch.where(absr < huber, torch.ones_like(absr),
-                     huber / torch.clamp(absr, min=1e-12))
-    sat = inb & (absr > cutoff[:, None])
-    inl = inb & (absr <= cutoff[:, None])
-    max_e = (2.0 * huber) * cutoff[:, None] - huber * huber
-    dxf, dyf, uv = hit[1] * fx, hit[2] * fy, u * v
-    J = [nid * dxf, nid * dyf, -nid * (u * dxf + v * dyf),
-         -(uv * dxf + (1 + v * v) * dyf), uv * dyf + (1 + u * u) * dxf,
-         u * dyf - v * dxf, aff_rel[:, 0:1] * (ref_b[:, None] - color),
-         -torch.ones_like(u)]
-    finite = torch.isfinite(r)
-    for j in J:
-        finite = finite & torch.isfinite(j)
-    add = inl | ~finite
-    wgt = torch.where(inl, hw, torch.zeros_like(hw))
-    Jw = [(j * wgt).double() for j in J]
-    Jd, rd = [j.double() for j in J], r.double()
-    z = torch.zeros_like(rd)
-    terms = [torch.where(add, Jd[p] * Jw[qq], z)
-             for p in range(8) for qq in range(8)]
-    terms += [torch.where(add, Jw[p] * rd, z) for p in range(8)]
-    terms.append(torch.where(inl, (((hw * r) * r) * (2 - hw)).double(), z))
-    terms.append(torch.where(sat, max_e.expand_as(r).double(), z))
-    slot = torch.arange(n)[None, :]
-    m = valid & (slot % 32 == 0)
-    ti = [t[:, k:k + 1] * idp for k in range(3)]
-    p0 = [xn, yn, torch.ones_like(xn)]
-
-    def pix(q0, q1, q2):
-        du = (fx * (q0 / q2) + cx) - u0
-        dv = (fy * (q1 / q2) + cy) - v0
-        return du * du + dv * dv
-    ft = pix(*(p0[k] + ti[k] for k in range(3))) + \
-        pix(*(p0[k] - ti[k] for k in range(3)))
-    frt = pix(*pt) + pix(*(pr[k] - ti[k] for k in range(3)))
-    terms += [torch.where(m, ft.double(), z), torch.where(m, frt.double(), z)]
-    X = torch.stack(terms, -1)                              # (B, n, 76)
-    pad = (-n) % THREADS
-    X = torch.cat([X, torch.zeros(B, pad, X.shape[-1],
-                                  dtype=torch.float64)], 1)
-    X = X.reshape(B, -1, THREADS, X.shape[-1])
-    acc = torch.zeros(B, THREADS, X.shape[-1], dtype=torch.float64)
-    for k in range(X.shape[1]):          # each thread's points in order
-        acc = acc + X[:, k]
-    x = acc.reshape(B, WARPS, 32, -1)
-    off = 16
-    while off:                           # lane 0's shuffle-down tree
-        x = x[:, :, :off] + x[:, :, off:2 * off]
-        off //= 2
-    x = x[:, :, 0]
-    tot = x[:, 0]
-    for k in range(1, WARPS):            # warps in order
-        tot = tot + x[:, k]
-    n_terms, n_sat, n_in = inb.sum(-1), sat.sum(-1), inl.sum(-1)
-    n_in_d = torch.clamp(n_in, min=1).double()
-    S = STEP_SCALE.double()
-    Hm = ((tot[:, :64].reshape(B, 8, 8) / n_in_d[:, None, None])
-          * S[:, None]) * S[None, :]
-    bv = (tot[:, 64:72] / n_in_d[:, None]) * S
-    num = (m.sum(-1).float() * 2.0 + 0.1).double()
-    return dict(E=(tot[:, 72] + tot[:, 73]).float(), n=n_terms,
-                sat_frac=n_sat.float() / torch.clamp(n_terms, min=1).float(),
-                H=Hm.float(), b=bv.float(),
-                flow_t=(tot[:, 74] / num).float(),
-                flow_rt=(tot[:, 75] / num).float())
 
 
 @pytest.mark.parametrize("seed", [0, 1, 5])
 def test_k3_emulation_within_tolerance_of_plain(seed):
-    """(d) K3's arithmetic and order (the emulation above) against the
+    """(d) K3's arithmetic and order (`k3_order.emulate`) against the
     plain version, row by row, at the tolerance the card's checks use
     (REL)."""
     sc = _scene(seed, poison=seed == 5)     # seed 5: poisoned rows too
     pool, dI, packed, K = _port_lanes(sc)
-    emu = _emulate_k3(pool, packed, K, torch.from_numpy(sc["T"]),
-                      torch.from_numpy(sc["aff_rel"]),
-                      torch.from_numpy(sc["ref_b"]),
-                      torch.from_numpy(sc["cutoff"]), HUBER,
-                      torch.from_numpy(sc["lane"]), H_IMG, W_IMG)
+    emu = k3_order.emulate(pool, packed, K, torch.from_numpy(sc["T"]),
+                           torch.from_numpy(sc["aff_rel"]),
+                           torch.from_numpy(sc["ref_b"]),
+                           torch.from_numpy(sc["cutoff"]), HUBER,
+                           torch.from_numpy(sc["lane"]), H_IMG, W_IMG)
     ref = _port_rows(sc)
     for b in range(LANES * ROWS):
         _close_rows({k: v[b].numpy() for k, v in emu.items()},
                     _row(ref, b), f"row {b}")
 
 
-def _lu_solve(A, y):
-    """K4's solve: the float32 system solved in float64 by LU with partial
-    pivoting (the first row of largest magnitude), elimination below the
-    pivot and back substitution; the step rounded to float32."""
-    A, x = A.astype(np.float64), y.astype(np.float64)
-    for k in range(8):
-        p = k + int(np.argmax(np.abs(A[k:, k])))
-        if p != k:
-            A[[k, p]] = A[[p, k]]
-            x[[k, p]] = x[[p, k]]
-        for i in range(k + 1, 8):
-            l = A[i, k] / A[k, k]
-            A[i, k + 1:] = A[i, k + 1:] - l * A[k, k + 1:]
-            x[i] = x[i] - l * x[k]
-    for i in range(7, -1, -1):
-        x[i] = (x[i] - np.dot(A[i, i + 1:], x[i + 1:])) / A[i, i]
-    return x.astype(np.float32)
+# scenes for the two orders: (seed, h, w, points, lanes, rows, poison);
+# the poisoned one has a point at depth 0 and an image patch of inf, and
+# level 0 the refinement's 6144 points at 1200x360
+ORDER_SCENES = {"seed0": (0, H_IMG, W_IMG, N, LANES, ROWS, False),
+                "seed1": (1, H_IMG, W_IMG, N, LANES, ROWS, False),
+                "poisoned": (5, H_IMG, W_IMG, N, LANES, ROWS, True),
+                "level0": (101, 360, 1200, 6144, 2, 3, True)}
+
+
+def _f32_ulps(a, b):
+    """Float32 ulps between a and b, element by element (0 for two NaNs;
+    the sign of a zero ignored)."""
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    d = np.abs(ia - ib)
+    return np.where(np.isnan(a) & np.isnan(b), 0, d)
+
+
+@pytest.mark.parametrize("scene", list(ORDER_SCENES))
+def test_k3_order_against_block_order(scene):
+    """(d) K3's reduction order against the one-block-per-row order
+    (`k3_order.order_block`) on the same per-point terms: every float32
+    output within one float32 ulp of the other order's, NaN where the
+    other is NaN, the counts equal. Prints how many outputs differ at all
+    (0 says the two orders' outputs are the same bits here)."""
+    seed, h, w, n, lanes, rows, poison = ORDER_SCENES[scene]
+    sc = kt.track_scene(seed, h, w, n, lanes, rows, poison=poison)
+    x = kt.track_inputs(sc, "cpu")
+    X, counts = k3_order.terms(x["pool"], x["packed"], x["K"], x["T"],
+                               x["aff_rel"], x["ref_b"], x["cutoff"], HUBER,
+                               x["lane"], h, w)
+    new = k3_order.outputs(k3_order.order_cluster(X), counts)
+    old = k3_order.outputs(k3_order.order_block(X), counts)
+    assert torch.equal(new["n"], old["n"])
+    differ = total = 0
+    for k in ("E", "sat_frac", "H", "b", "flow_t", "flow_rt"):
+        a, b = new[k].numpy(), old[k].numpy()
+        assert np.array_equal(np.isnan(a), np.isnan(b)), (scene, k)
+        u = _f32_ulps(a, b)
+        assert u.max() <= 1, (scene, k, int(u.max()))
+        differ += int((u != 0).sum())
+        total += u.size
+    print(f"K3 order against the one-block order, {scene}: {differ} of "
+          f"{total} float32 outputs differ (each by one ulp)")
+    if scene == "poisoned":
+        assert not torch.isfinite(new["H"]).all()
 
 
 def test_k4_lu_within_tolerance_of_plain_solve():
-    """(d) K4's LU order against the plain version's solve_ex on the
+    """(d) K4's LU (tests/k4_lu.py: the kernel's order, each
+    multiply-subtract fused) against the plain version's solve_ex on the
     damped systems of the scene's rows, at lambda 0.01 and 1e-4, within
     SOLVE_REL of the step's norm."""
     sc = _scene(0)
@@ -441,14 +430,54 @@ def test_k4_lu_within_tolerance_of_plain_solve():
             H = torch.from_numpy(r["H"][b:b + 1])
             bb = torch.from_numpy(r["b"][b:b + 1])
             ref = hk._solve_scaled(H, bb, torch.tensor([lam]))[0].numpy()
-            d = np.diag(r["H"][b])
-            A = r["H"][b] + np.diag(d * np.float32(lam)) + \
-                np.eye(8, dtype=np.float32) * np.float32(1e-12)
-            ext = np.sqrt(np.sqrt(np.float32(1e-3) / np.float32(lam))) \
-                if lam < 1e-3 else np.float32(1.0)
-            got = _lu_solve(A, -r["b"][b]) * np.float32(ext)
+            got = k4_lu.step_inc(r["H"][b], r["b"][b], lam)
             err = np.abs(got - ref).max()
             assert err <= SOLVE_REL * np.linalg.norm(ref), (lam, b, err)
+
+
+def _pivot_systems(case, n=12):
+    """8x8 float64 systems whose columns test the pivot rule: `random`;
+    `tied` (small integers: equal magnitudes of either sign, zeros, and an
+    inf); `nan_diagonal` (a NaN on the diagonal); `nan_below` (NaNs below
+    the diagonal)."""
+    rng = np.random.default_rng({"random": 0, "tied": 1, "nan_diagonal": 2,
+                                 "nan_below": 3}[case])
+    out = []
+    for t in range(n):
+        if case == "random":
+            A = rng.normal(size=(8, 8)) * 10.0 ** rng.integers(-3, 4, (8, 8))
+        else:
+            A = rng.integers(-3, 4, (8, 8)).astype(np.float64)
+        if case == "tied" and t % 3 == 0:
+            A[rng.integers(8), rng.integers(8)] = np.inf
+        if case == "nan_diagonal":
+            k = rng.integers(8)
+            A[k, k] = np.nan
+        if case == "nan_below":
+            for _ in range(3):
+                k = rng.integers(7)
+                A[rng.integers(k + 1, 8), k] = np.nan
+        out.append(A)
+    return out
+
+
+@pytest.mark.parametrize("case", ["random", "tied", "nan_diagonal",
+                                  "nan_below"])
+def test_k4_warp_pivot_equals_serial_scan(case):
+    """(d) K4's pivot, an argmax across a warp's lanes with ties to the
+    lower row and a NaN as the serial scan treats it (`k4_lu.pivot_lanes`),
+    picks the one-thread serial scan's row (`pivot_serial`) in every
+    column of the systems, and the whole solve with either rule gives the
+    same bits."""
+    rng = np.random.default_rng(7)
+    for A in _pivot_systems(case):
+        for k in range(8):
+            assert k4_lu.pivot_lanes(A[:, k], k) == \
+                k4_lu.pivot_serial(A[:, k], k), (case, k, A[:, k])
+        y = rng.normal(size=8)
+        got = k4_lu.lu_solve(A, y, pivot=k4_lu.pivot_lanes)
+        ref = k4_lu.lu_solve(A, y, pivot=k4_lu.pivot_serial)
+        assert np.array_equal(got, ref, equal_nan=True), case
 
 
 def test_cpu_dispatch_never_loads_the_library(monkeypatch):

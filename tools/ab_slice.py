@@ -11,12 +11,13 @@ with `--preset fast` its phase 8 scene at 424x320 and
 this tree, this tree in the stage form (`device_loop.stage_form`),
 baseline, this tree. Each run prints one JSON line: frames/s over the
 frames from `--skip` on (each frame timed on the host clock; a sequential
-frame ends in its stages' stream waits), keyframes, the host ms per frame
-of each telemetry stage over the same frames, and the device ms per frame
-of each stage program's replays over them (a CUDA event pair around each
-replay, put around `device_loop._graph_program`'s graph replay from
-outside, so a checkout without its own program timing is measured
-alike). `--baseline` is an unpacked checkout of another commit
+frame ends in its stages' stream waits), keyframes, a digest of the
+trajectory (two runs with the same digest tracked bit for bit alike), the
+host ms per frame of each telemetry stage over the same frames, and the
+device ms per frame of each stage program's replays over them (a CUDA
+event pair around each replay, put around `device_loop._graph_program`'s
+graph replay from outside, so a checkout without its own program timing
+is measured alike). `--baseline` is an unpacked checkout of another commit
 (`git archive <commit> | tar -x -C DIR`).
 """
 
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import json
 import os
 import subprocess
@@ -124,11 +126,14 @@ def run(root, form, path, n, skip, preset):
     prog = {}
     for stage, a, b in events[1:]:
         prog[stage] = prog.get(stage, 0.0) + a.elapsed_time(b) / (n - skip)
+    traj = np.ascontiguousarray(fs.get_trajectory(), dtype=np.float64)
     print(json.dumps(dict(tree=root, form=form, preset=preset,
                           device=torch.cuda.get_device_name(0),
                           fps=(n - skip) / sum(times[skip:]),
                           n_keyframes=len(fs.kf_shells), stage_ms=ms,
-                          program_device_ms=dict(sorted(prog.items())))),
+                          program_device_ms=dict(sorted(prog.items())),
+                          trajectory_sha256=hashlib.sha256(
+                              traj.tobytes()).hexdigest()[:16])),
           flush=True)
 
 

@@ -42,7 +42,7 @@ def plain_versions():
 
     names = {"track_res_gs": hk.calc_res_gs_plain,
              "lm_update_step": hk.lm_update_step_plain,
-             "lm_update_accept": hk.lm_update_accept_plain}
+             "lm_update_accept_step": hk.lm_update_accept_step_plain}
     saved = {n: getattr(ph, n) for n in names}
     for n, f in names.items():
         setattr(ph, n, f)
