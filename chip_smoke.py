@@ -9,7 +9,7 @@ Phases (any failure exits nonzero; each prints its results):
   2. build: compiles the Hopper kernels (csrc/*.cu, nvcc sm_90a; a
      library already built from the same sources is reused with the
      ptxas report kept beside it) and prints ptxas's registers, spills
-     and shared memory of K3's and K4's kernels (fails on a spill);
+     and shared memory of K3-K6's kernels (fails on a spill);
   3. kernels: K1 (dilate_pyramid, build_track_ref's whole 4-level chain)
      and K2 (distance_transform) against their plain PyTorch versions on
      the card (exact equality required) at the main-path shapes, the fast
@@ -30,17 +30,30 @@ Phases (any failure exits nonzero; each prints its results):
      norm, its accept and carries bit for bit), a row alone bit for bit
      as among the others, and their times at the ladder's and level 0's
      shapes and at the ladder's with L = 4 (K4 per LM iteration: one
-     accept-step launch; its step entry beside it); the
-     CUDA kernels behind the windowed BA's dense solve (one window, and
-     four in one batched call);
+     accept-step launch; its step entry beside it); K5 (align_batch, the
+     matcher's whole alignment loop) and K6 (warp_affine_patches) against
+     their plain versions at the matcher's main-path shapes of both
+     presets (the track step's call, the keyframe's two passes), one lane
+     and L = 4, with a NaN start, a NaN in a patch, a NaN and a singular
+     warp and a host slot past the stack (K5's converged flags agreeing on
+     ALIGN_FLAG_SHARE of the rows but one, px within ALIGN_PX_TOL, its
+     failure counts apart by at most the rows whose flags differ, K6's
+     zero and NaN pattern equal and values within PATCH_TOL, both bit for
+     bit their CPU emulation tests/k5_align.py; the rows and values that
+     differ printed; the plain loop's graphs in a cache of the phase's
+     own, freed before phase 4), and their times at every shape with one
+     lane and at the default pass 1 with L = 4; the CUDA kernels behind the
+     windowed BA's dense solve (one window, and four in one batched
+     call);
   4. slice: the 30-frame default-preset synthetic KITTI scene (1200x360)
      through the port's run_sequence with the default Settings on cuda;
      requires not lost, >= 2 keyframes, ATE <= 0.10 m, one K1 launch per
      keyframe optimization and build_track_ref call outside it, at
-     least one K2 launch, and K3's and K4's device counters equal to the
-     evaluations the tracking loops ran (`check_track_evaluations`: the
-     same frames with the eager loops, where device_loop counts every LM call
-     and iteration);
+     least one K2 launch, and K3-K6's device counters equal to the
+     evaluations the tracking loops ran and the matcher's calls
+     (`check_track_evaluations`: the same frames with the eager loops,
+     where device_loop counts every LM call and iteration and the
+     matcher's calls are counted on the host), and no "align" loop;
   5. fleet: bench.py's two default-preset scenes (16 frames each) alone in
      pipelined mode (scene A also with the deferred keyframe readback),
      then B = 4 sequences (A, B, A, B) on the card as InterleavedFleet
@@ -81,12 +94,12 @@ Phases (any failure exits nonzero; each prints its results):
          stage form, which must take the same iterations and reach the
          same pose bit for bit, and its recorded "mono_lm", "select_map"
          and "pyramid" programs held to the stage form;
-     each part requires at least one launch of each of K1-K4;
+     each part requires at least one launch of each of K1-K6;
   7. long horizon, sequential through run_sequence, each part with its own
      kernel launch counts: (a) tests/test_drift_gate.py's scene and
      Settings (320x96, 100 frames); (b) phase 4's scene A at the default
      preset and full width (1200x360), 100 frames; each requires not lost,
-     ATE under 2 % of the path and at least one launch of each of K1-K4,
+     ATE under 2 % of the path and at least one launch of each of K1-K6,
      and
      prints ATE, the BA step vetoes (`ba_step_veto`, `ba_step_veto_hard`),
      keyframes and frames/s;
@@ -106,9 +119,9 @@ Phases (any failure exits nonzero; each prints its results):
          prints frames/s (whole, frames 10-30), stage ms per frame, each
          program's captures, keys, seconds, pool MiB and graph nodes, peak
          memory, a profile window of frames 10-20, then the same 30
-         frames with the eager loops: K3's and K4's counters equal to
-         the evaluations the loops ran, and each loop's iteration counts
-         over frames 0-14;
+         frames with the eager loops: K3-K6's counters equal to the
+         evaluations the loops ran and the matcher's calls, and each
+         loop's iteration counts over frames 0-14;
      (b) scene A pipelined: (a)'s trajectory to 1e-5;
      (c) B = 4 (A, B, A, B, 16 frames) as the batched lockstep: each lane
          not lost, with its scene's keyframe count; K1 and K2 launches
@@ -153,8 +166,8 @@ Besides:
     device busy share, replays, reads, captures, program replays, each
     stage program's device ms (CUDA events around its replays) and stage
     ms, per frame;
-then one JSON line with the four kernels (K3 and K4 with their launches
-in every phase), and the device JSON as the last line.
+then one JSON line with the six kernels (K3-K6 with their launches in
+every phase), and the device JSON as the last line.
 The script imports nothing of JAX.
 """
 
@@ -204,6 +217,23 @@ FAST_K2 = (160, 212)
 TRACK_REL = 1e-4
 SOLVE_REL = 1e-3
 UPDATE_TOL = 1e-5
+# K5 and K6 (as in tests/test_torch_align_kernels.py): K5's converged flags
+# differ from the plain loop's on at most one row plus 1 - ALIGN_FLAG_SHARE
+# of the rows (a row whose last step sits at the 0.03 px threshold
+# converges on one side only when its float64 sums round otherwise than
+# the plain version's float32 ones; read on an H100: 0 of phase 3's 39,280
+# rows, 1 of eval/kernel_timing.py --align's 720 at the default track
+# call), px within ALIGN_PX_TOL (a third of a converging step; read: <=
+# 0.0038 px) where both converge, the per-lane failure counts apart by at
+# most the rows whose flags differ; K6's patches within PATCH_TOL (0-255
+# intensities: its float64 inverse against inv_ex's float32 LU moves a
+# sample point by ~1e-5 px). Both also bit for bit (NaN payloads aside)
+# against their CPU emulation, tests/k5_align.py: that catches a fault
+# that moves px by less than ALIGN_PX_TOL (an iteration too few, the
+# convergence test before the last update)
+ALIGN_FLAG_SHARE = 0.999
+ALIGN_PX_TOL = 0.01
+PATCH_TOL = 0.02
 HUBER = 9.0
 ATE_LIMIT_M = 0.10
 # bench.py's default operating point (bench.py:122-132): two scenes
@@ -514,6 +544,24 @@ def _rel_dev(a, b):
     return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
 
 
+def kernel_times(name, kernel, plain, bound, where):
+    """A kernel's device time (torch.profiler), its wrapper's and its plain
+    version's CUDA-event times, its bound and share at `where`, printed;
+    no library call computes K3-K6's functions."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+
+    t_dev = kt.device_ms(kernel)
+    t_k = kt.wrapper_ms(kernel)
+    t_p = kt.wrapper_ms(plain)
+    share = bound[0] / t_dev if t_dev else None
+    print(f"{name} time at {where}: device {t_dev} ms, wrapper "
+          f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound[0]:.6f} ms "
+          f"({bound[1]}), share of the bound {share}", flush=True)
+    return dict(ms=t_k, plain_ms=t_p, device_ms=t_dev, bound_ms=bound[0],
+                bound_by=bound[1], share=share, library_ms=None,
+                library="none")
+
+
 def check_track_kernels(device):
     """Phase 3 for K3 (track_res_gs) and K4 (lm_update_step and
     lm_update_accept_step) at the main path's shapes of both presets, one
@@ -543,18 +591,6 @@ def check_track_kernels(device):
               f"max_rel_err={err_rel}", flush=True)
         if not ok:
             _fail(f"{name} differs from its plain version at {what}")
-
-    def times(name, kernel, plain, bound, where):
-        t_dev = kt.device_ms(kernel)
-        t_k = kt.wrapper_ms(kernel)
-        t_p = kt.wrapper_ms(plain)
-        share = bound[0] / t_dev if t_dev else None
-        print(f"{name} time at {where}: device {t_dev} ms, wrapper "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, bound {bound[0]:.6f} ms "
-              f"({bound[1]}), share of the bound {share}", flush=True)
-        return dict(ms=t_k, plain_ms=t_p, device_ms=t_dev, bound_ms=bound[0],
-                    bound_by=bound[1], share=share, library_ms=None,
-                    library="none")
 
     for preset, shapes in kt.TRACK_SHAPES.items():
         for i, (h, w, n, rows) in enumerate(shapes):
@@ -670,12 +706,12 @@ def check_track_kernels(device):
                 def p4():
                     return hk.lm_update_accept_step_plain(*acc_in)
                 where = f"{preset} {(h, w)} n={n} rows={B} lanes={lanes}"
-                t3 = times("track_res_gs", k3, p3,
-                           kt.track_res_gs_bound(lanes, B, n), where)
-                t4 = times("track_lm_update", k4, p4,
-                           kt.lm_update_bound(B), where)
+                t3 = kernel_times("track_res_gs", k3, p3,
+                                  kt.track_res_gs_bound(lanes, B, n), where)
+                t4 = kernel_times("track_lm_update", k4, p4,
+                                  kt.lm_update_bound(B), where)
                 # and the step entry, once per LM call
-                t4["step_entry"] = times(
+                t4["step_entry"] = kernel_times(
                     "track_lm_update (step entry)",
                     lambda: hk.lm_update_step(*step_in),
                     lambda: hk.lm_update_step_plain(*step_in),
@@ -689,6 +725,138 @@ def check_track_kernels(device):
                         rec[name][f"{preset}_{('ladder', 'level0')[i]}"
                                   f"{'' if single else f'_lanes{lanes}'}"] \
                             = tt
+    return rec
+
+
+def check_align_kernels(device):
+    """Phase 3 for K5 (align_batch) and K6 (warp_affine_patches) at every
+    main-path shape of both presets (kernel_timing.ALIGN_SHAPES: the track
+    step's matcher and the keyframe's two passes), one lane and
+    kernel_timing.ALIGN_LANES, on align_scene's and warp_scene's poisoned
+    inputs: K5's converged flags agree with the plain batched loop's on at
+    least ALIGN_FLAG_SHARE of the rows but one, px within ALIGN_PX_TOL
+    where both converge, its per-lane failure counts apart from the plain
+    loop's by at most the rows whose flags differ; K6's
+    patches with the plain version's zero and NaN pattern, values within
+    PATCH_TOL; both bit for bit (NaN payloads aside) against their CPU
+    emulation (tests/k5_align.py); how many rows and values differ
+    printed apart. Device, wrapper and plain times, bound and share at
+    every shape with one lane, and at pass 1 of the default preset with
+    ALIGN_LANES. The plain loop's graphs live in a LoopCache of this
+    phase's own, freed when it ends. Returns per-kernel records (errors
+    over every check, the default preset's pass 1 with one lane timed,
+    the rest beside it)."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    with dl.use(dl.LoopCache()):
+        return _check_align_kernels(device)
+
+
+def _check_align_kernels(device):
+    import torch
+
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import k5_align
+
+    rec = {"align_batch": dict(max_abs_err=0.0, flags_differ=0, rows=0,
+                               emulation_differ=0),
+           "warp_patches": dict(max_abs_err=0.0, values_differ=0,
+                                values=0, emulation_differ=0)}
+
+    for preset, ((h, w), calls) in kt.ALIGN_SHAPES.items():
+        for call, rows in calls.items():
+            for lanes in (1, kt.ALIGN_LANES):
+                where = f"{preset} {call} ({h}, {w}) rows={rows} " \
+                    f"lanes={lanes}"
+                # K5
+                sc = kt.align_scene(300 + rows, h, w, rows, lanes,
+                                    poison=True)
+                args = kt.align_args(sc, device)
+                got = hk.align_batch(*args, n_lanes=lanes)
+                ref = hk.align_batch_plain(*args, n_lanes=lanes)
+                torch.cuda.synchronize()
+                agree = got[1] == ref[1]
+                both = got[1] & ref[1]
+                err = float((got[0] - ref[0]).abs()[both].max())
+                n_diff = int((~agree).sum())
+                emu = k5_align.align_batch(*(a.cpu() for a in args))
+                emu_diff = (k5_align.bits_differ(got[0], emu[0])
+                            + int((got[1].cpu() != emu[1]).sum())
+                            + int((got[2].cpu() != emu[2].reshape(
+                                lanes, -1, 2).sum(1)).sum()))
+                r = rec["align_batch"]
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                r["flags_differ"] += n_diff
+                r["rows"] += agree.numel()
+                r["emulation_differ"] += emu_diff
+                fail_diff = int((got[2] - ref[2]).abs().sum())
+                ok = (n_diff <= 1 + (1 - ALIGN_FLAG_SHARE) * agree.numel()
+                      and err <= ALIGN_PX_TOL and fail_diff <= n_diff
+                      and emu_diff == 0)
+                print(f"align_batch {where}: {n_diff} of {agree.numel()} "
+                      f"converged flags differ ({int(ref[1].sum())} "
+                      f"converged), px largest difference {err} px over "
+                      f"{int(both.sum())} rows, failure counts "
+                      f"{got[2].tolist()} against {ref[2].tolist()}; "
+                      f"{emu_diff} outputs differ from the emulation; "
+                      f"within tolerance={ok}", flush=True)
+                if not ok:
+                    _fail(f"align_batch differs from its plain version at "
+                          f"{where}")
+                # K6
+                ws = kt.warp_scene(400 + rows, h, w, rows, lanes,
+                                   poison=True)
+                wargs, kw = kt.warp_args(ws, device)
+                pg = hk.warp_affine_patches(*wargs, **kw)
+                pr = hk.warp_affine_patches_plain(*wargs, **kw)
+                torch.cuda.synchronize()
+                nan_r = torch.isnan(pr)
+                d = (pg - pr).abs()[~nan_r]
+                perr = float(d.max())
+                emu_diff = k5_align.bits_differ(pg, k5_align.warp_patches(
+                    kw["quad_stack"].cpu(), *(a.cpu() for a in wargs[1:]),
+                    h, w))
+                r = rec["warp_patches"]
+                r["max_abs_err"] = max(r["max_abs_err"], perr)
+                r["values_differ"] += int((d > 0).sum())
+                r["values"] += d.numel()
+                r["emulation_differ"] += emu_diff
+                ok = (torch.equal(torch.isnan(pg), nan_r)
+                      and torch.equal(pg == 0, pr == 0) and perr <= PATCH_TOL
+                      and emu_diff == 0)
+                print(f"warp_patches {where}: {int((d > 0).sum())} of "
+                      f"{d.numel()} values differ, largest {perr}; "
+                      f"{emu_diff} differ from the emulation; zero and NaN "
+                      f"pattern equal, within tolerance={ok}", flush=True)
+                if not ok:
+                    _fail(f"warp_patches differs from its plain version at "
+                          f"{where}")
+                if lanes != 1 and (preset, call) != ("default", "pass1"):
+                    continue
+                t5 = kernel_times("align_batch",
+                           lambda: hk.align_batch(*args, n_lanes=lanes),
+                           lambda: hk.align_batch_plain(*args,
+                                                        n_lanes=lanes),
+                           kt.align_batch_bound(
+                               rows * lanes, *kt.align_iterations(args)),
+                           where)
+                k6_rows = kt.warp_quad_rows(wargs, kw["quad_stack"])
+                t6 = kernel_times("warp_patches",
+                           lambda: hk.warp_affine_patches(*wargs, **kw),
+                           lambda: hk.warp_affine_patches_plain(*wargs,
+                                                                **kw),
+                           kt.warp_patches_bound(rows * lanes, k6_rows),
+                           where)
+                for name, tt in (("align_batch", t5), ("warp_patches", t6)):
+                    tt["shape"] = [h, w, rows, lanes]
+                    if (preset, call, lanes) == ("default", "pass1", 1):
+                        rec[name].update(tt)
+                    else:
+                        rec[name][f"{preset}_{call}"
+                                  f"{'' if lanes == 1 else f'_lanes{lanes}'}"
+                                  ] = tt
     return rec
 
 
@@ -749,18 +917,20 @@ def count_builds():
     return n_build
 
 
-# K3's and K4's kernel entries (a substring of each mangled name)
-TRACK_ENTRIES = {"track_res_gs": ("track_res_gs_kernel",),
-                 "track_lm_update": ("lm_step_kernel",
-                                     "lm_accept_step_kernel")}
+# K3-K6's kernel entries (a substring of each mangled name)
+KERNEL_ENTRIES = {"track_res_gs": ("track_res_gs_kernel",),
+                  "track_lm_update": ("lm_step_kernel",
+                                      "lm_accept_step_kernel"),
+                  "align_batch": ("align_batch_kernel",),
+                  "warp_patches": ("warp_patches_kernel",)}
 
 
-def track_kernel_usage(usage):
+def kernel_usage(usage):
     """Phase 2: the ptxas report (registers, spills, shared memory) of
-    each K3 and K4 kernel entry, printed; fails when one spills or is
-    missing from the report."""
+    each K3-K6 kernel entry, printed; fails when one spills or is missing
+    from the report."""
     out = {}
-    for name, entries in TRACK_ENTRIES.items():
+    for name, entries in KERNEL_ENTRIES.items():
         out[name] = {}
         for entry in entries:
             found = [v for k, v in usage.items() if entry in k]
@@ -775,62 +945,85 @@ def track_kernel_usage(usage):
 
 
 def _track_launches(what, launched):
-    """K3's and K4's device counts of a main-path run (`device_launches`):
-    K3 and both of K4's entry points launched, the accept-step (one per LM
-    iteration) at least as often as the step (one per LM call)."""
+    """K3-K6's device counts of a main-path run (`device_launches`): K3,
+    both of K4's entry points, K5 and K6 launched, K4's accept-step (one
+    per LM iteration) at least as often as its step (one per LM call)."""
     if not (launched["track_res_gs"] > 0 and launched["lm_step"] > 0
-            and launched["lm_accept_step"] >= launched["lm_step"]):
-        _fail(f"{what}: K3 or K4 not launched, or K4's accept-step less "
-              f"often than its step ({launched})")
+            and launched["lm_accept_step"] >= launched["lm_step"]
+            and launched["align_batch"] > 0
+            and launched["warp_patches"] > 0):
+        _fail(f"{what}: K3, K4, K5 or K6 not launched, or K4's accept-step "
+              f"less often than its step ({launched})")
+
+
+# the matcher's kernel wrappers, as models/matcher calls them: K5, K6
+MATCHER_KERNELS = {"align_batch": "align_batch",
+                   "warp_patches": "warp_affine_patches"}
 
 
 def check_track_evaluations(what, launched, drive):
-    """The main path's K3 and K4 launches (`launched`, the device counters
-    of a run with stage programs) against the evaluations its loops ran:
-    `drive()` runs the same frames again with the eager early-exit loops
-    (`device_loop.reference`, the same decisions bit for bit), where
-    device_loop counts every tracking LM call and iteration and the
-    cutoff loop's iterations, and the track step's calls are counted. Per
-    track step K3 runs once per LM call (its first evaluation), once per
-    LM and cutoff iteration and once for the struct-pose veto; K4's step
-    once per LM call and its accept-step once per LM iteration. Both runs'
-    counters must equal that."""
+    """The main path's K3-K6 launches (`launched`, the device counters of a
+    run with stage programs) against the evaluations its loops ran and
+    the matcher calls it made: `drive()` runs the same frames again with
+    the eager early-exit loops (`device_loop.reference`, the same
+    decisions bit for bit; the keyframe program's conds read on the
+    host), where device_loop counts every tracking LM call and iteration
+    and the cutoff loop's iterations, and the track step's calls and the
+    matcher's `align_batch` and `warp_affine_patches` calls (each of at
+    least 8 rows: one launch) are counted on the host. Per track step K3
+    runs once per LM call (its first evaluation), once per LM and cutoff
+    iteration and once for the struct-pose veto; K4's step once per LM
+    call and its accept-step once per LM iteration; K5 and K6 once per
+    matcher call. Both runs' counters must equal that."""
+    from sdv_loam_tpu_torch.models import matcher
     from sdv_loam_tpu_torch.ops import frame_step
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
     _track_launches(what, launched)
-    calls = [0]
-    orig = frame_step._track_program
+    calls = dict(track=0, align_batch=0, warp_patches=0)
+    patched = {(frame_step, "_track_program"): "track",
+               **{(matcher, fn): k for k, fn in MATCHER_KERNELS.items()}}
+    orig = {key: getattr(*key) for key in patched}
 
-    def counted(*a, **k):
-        calls[0] += 1
-        return orig(*a, **k)
+    def counted(key):
+        def fn(*a, **k):
+            calls[patched[key]] += 1
+            return orig[key](*a, **k)
+        return fn
     hk.reset_launch_counts()
     dl.reset_counts()
-    frame_step._track_program = counted
+    for key in patched:
+        setattr(*key, counted(key))
     try:
         with dl.reference():
             drive()
     finally:
-        frame_step._track_program = orig
+        for key, fn in orig.items():
+            setattr(*key, fn)
     ref = hk.device_launches()
     c = dl.counts()
     lm, cut = c.get("lm", {}), c.get("cutoff", {})
     want = {"track_res_gs": lm.get("calls", 0) + lm.get("iters", 0)
-            + cut.get("iters", 0) + calls[0],
+            + cut.get("iters", 0) + calls["track"],
             "track_lm_update": lm.get("calls", 0) + lm.get("iters", 0),
             "lm_step": lm.get("calls", 0),
-            "lm_accept_step": lm.get("iters", 0)}
+            "lm_accept_step": lm.get("iters", 0),
+            "align_batch": calls["align_batch"],
+            "warp_patches": calls["warp_patches"]}
     rec = dict(main_path={k: launched[k] for k in want},
                eager_run={k: ref[k] for k in want}, evaluations=want,
                lm_calls=lm.get("calls", 0), lm_iters=lm.get("iters", 0),
-               cutoff_iters=cut.get("iters", 0), track_steps=calls[0])
-    print(f"K3 / K4 launches against the loops' evaluations, {what}: "
-          + json.dumps(rec), flush=True)
+               cutoff_iters=cut.get("iters", 0), track_steps=calls["track"],
+               matcher_calls=calls["align_batch"],
+               align_loops=c.get("align", {}).get("calls", 0))
+    print(f"K3-K6 launches against the loops' evaluations and the matcher "
+          f"calls, {what}: " + json.dumps(rec), flush=True)
     if not rec["main_path"] == rec["eager_run"] == want:
-        _fail(f"{what}: K3 / K4 launches differ from the evaluations the "
-              "loops ran")
+        _fail(f"{what}: K3-K6 launches differ from the evaluations the "
+              "loops ran or the matcher calls")
+    if rec["align_loops"]:
+        _fail(f"{what}: an \"align\" loop ran on the card")
     return rec
 
 
@@ -1015,14 +1208,16 @@ def compare_programs(records, what, need=PROGRAM_STAGES):
     return stages
 
 
-def compare_stages(records, what, need=("lm", "align", "struct", "ba0",
-                                        "sweep")):
+def compare_stages(records, what, need=("lm", "struct", "ba0", "sweep")):
     """Each recorded loop through graph replays and through the eager
     early-exit loop on the card: bit for bit, or the run fails. The
     graphs of one kind are captured on its first record and replayed on
-    the others."""
+    the others. The alignment is one K5 launch on the card: a recorded
+    "align" loop fails the run."""
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
+    if any(rec["stage"] == "align" for rec in records):
+        _fail(f"{what}: an \"align\" loop ran on the card")
     out = []
     with dl.use(dl.LoopCache()):
         for rec in records:
@@ -2342,11 +2537,12 @@ def main():
     path = hk.build_library(verbose=True)
     hk._load()
     print(f"build: {path} in {time.perf_counter() - t0:.2f} s", flush=True)
-    usage = track_kernel_usage(hk.ptxas_usage(hk.build_report(path)))
+    usage = kernel_usage(hk.ptxas_usage(hk.build_report(path)))
 
     # 3. kernels against their plain versions
     rec = check_kernels(device)
     rec.update(check_track_kernels(device))
+    rec.update(check_align_kernels(device))
     for name, entries in usage.items():
         rec[name]["ptxas"] = entries
 
@@ -2472,11 +2668,14 @@ def main():
                               for k, v in by_phase8.items()},
              **rec["distance_transform"]),
     ]
-    # K3 and K4: no Pallas kernel of the JAX package; they stand for its
-    # XLA-fused calc_res_gs and LM body
+    # K3-K6: no Pallas kernel of the JAX package; they stand for its
+    # XLA-fused calc_res_gs and LM body, and its matcher's align_batch (a
+    # while_loop) and warp_affine_patches
     for name, replaces in (
             ("track_res_gs", "sdv_loam_tpu/ops/photometric.py:162"),
-            ("track_lm_update", "sdv_loam_tpu/ops/photometric.py:310")):
+            ("track_lm_update", "sdv_loam_tpu/ops/photometric.py:310"),
+            ("align_batch", "sdv_loam_tpu/ops/align.py:319"),
+            ("warp_patches", "sdv_loam_tpu/ops/align.py:147")):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"sdv_loam_tpu_torch/csrc/{name}.cu", replaces=replaces,

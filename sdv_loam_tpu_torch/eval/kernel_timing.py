@@ -16,8 +16,13 @@ sum-pool between, as its `build_track_ref` did) and the single-map K2
 instead (`compare_track`, against the baseline's `track_res_gs`,
 `lm_update_step` and one LM iteration's K4 launches: its
 `lm_update_accept_step`, or, in a checkout without it, its
-`lm_update_accept` then `lm_update_step`). Each measurement runs in the
-order baseline, current, current, baseline.
+`lm_update_accept` then `lm_update_step`). With `--align`, K5 and K6
+(`compare_align`, against the baseline's own K5 and K6 where it has them,
+else its `align_batch` loop and `warp_affine_patches` from its
+`ops/align.py`, each run as a stage program), then the baseline's eager
+`align_batch` calls over chip_smoke.py phase 4's frames, with the loop's
+iterations where it has the loop (`baseline_align_counts`). Each
+measurement runs in the order baseline, current, current, baseline.
 
 Times:
   * device_ms: the sum of the device time of every kernel and copy that
@@ -120,6 +125,49 @@ def lm_update_bound(rows, launch="accept_step"):
                   rows * (LM_ACCEPT[1] + LM_STEP[1]))
 
 
+# K5 (align_batch) per row: its inputs (the 10x10 border patch 400 bytes,
+# the start pixel, direction and affine transfer 24, the level and its
+# three table entries 32, the two flags 2) and outputs (px 8, three flags
+# 3); ~1,300 operations of setup for a valid row (the gradients, J, H's
+# six 64-term sums, the 3x3 inverse); per sampled iteration (a running row
+# in bounds) ~2,300 operations (per pixel the sample point, floor, weights
+# and bilinear sum, the residual and its three products and sums; the 3x3
+# product). The quad pack's rows (16 bytes each) are counted apart: each
+# distinct row that the launch samples, once
+ALIGN_ROW_BYTES = 400 + 24 + 32 + 2 + 8 + 3
+ALIGN_SETUP_OPS = 1300
+ALIGN_ITER_OPS = 2300
+QUAD_ROW_BYTES = 16
+# K6 (warp_affine_patches) per row: the warp, pixel, host slot and level
+# (40 bytes) read, the 10x10 patch written (the quad rows counted apart,
+# as for K5); ~30 operations a pixel (the point through the inverse, the
+# tests and clamps, floor, the weights and the bilinear sum) and ~20 for
+# the inverse
+WARP_ROW = (40 + 400, 100 * 30 + 20)
+
+
+def align_batch_bound(rows, valid_rows, sampled_iters, quad_rows):
+    """(bound_ms, bound_by) of one K5 launch over `rows` rows, of which
+    `valid_rows` run the setup, with `sampled_iters` iterations sampled in
+    all and `quad_rows` distinct quad rows read (`align_iterations`: the
+    run's data decides both). Bytes: each row's inputs and outputs once
+    (ALIGN_ROW_BYTES) and each quad row that some sampled iteration reads
+    once for the whole launch. A running row moves less than a pixel a
+    step, so its later iterations re-read nearly the rows of its first,
+    and neighbouring candidates' patches overlap: those re-reads come from
+    cache and are not counted."""
+    return _bound(rows * ALIGN_ROW_BYTES + QUAD_ROW_BYTES * quad_rows,
+                  ALIGN_SETUP_OPS * valid_rows
+                  + ALIGN_ITER_OPS * sampled_iters)
+
+
+def warp_patches_bound(rows, quad_rows):
+    """(bound_ms, bound_by) of one K6 launch over `rows` rows that read
+    `quad_rows` distinct quad rows (`warp_quad_rows`), each once."""
+    return _bound(rows * WARP_ROW[0] + QUAD_ROW_BYTES * quad_rows,
+                  rows * WARP_ROW[1])
+
+
 def _bound(nbytes, ops):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     t_ops = 1e3 * ops / FP32_OPS_PER_S
@@ -172,13 +220,19 @@ def device_ms(fn, n=50):
 # current against a baseline checkout
 # ---------------------------------------------------------------------------
 
-def load_baseline(root):
-    path = os.path.join(root, "sdv_loam_tpu_torch", "ops",
-                        "hopper_kernels.py")
-    spec = importlib.util.spec_from_file_location("baseline_hopper_kernels",
-                                                  path)
+def _load_ops(root, name):
+    """A checkout's `sdv_loam_tpu_torch/ops/<name>.py` under the module name
+    `baseline_<name>` (what it imports of the package is this tree's)."""
+    path = os.path.join(root, "sdv_loam_tpu_torch", "ops", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"baseline_{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod
+
+
+def load_baseline(root):
+    """A checkout's `hopper_kernels`, its library built."""
+    mod = _load_ops(root, "hopper_kernels")
     mod.build_library()
     return mod
 
@@ -264,6 +318,219 @@ def track_inputs(sc, device):
                 lane=t(sc["lane"]).long(), T=t(sc["T"]),
                 aff_rel=t(sc["aff_rel"]), ref_b=t(sc["ref_b"]),
                 cutoff=t(sc["cutoff"]))
+
+
+# K5's and K6's main-path shapes per preset: (h, w) of level 0, and the
+# rows per lane of the track step's matcher (one per 25-px cell, rounded up
+# to 8), of the keyframe's first matcher pass (0.625 of the active pool)
+# and of its second pass (0.5 of it); chip_smoke.py phase 3 checks and
+# times both kernels at each, with one lane and ALIGN_LANES
+ALIGN_SHAPES = {"default": ((360, 1200), dict(track=720, pass1=2560,
+                                               pass2=2048)),
+                "fast": ((320, 424), dict(track=224, pass1=1280,
+                                          pass2=1024))}
+ALIGN_LANES = 4
+ALIGN_LEVELS = 4
+
+
+def _texture(rng, h, w, k):
+    """A smooth intensity pattern (0-255 scale) with noise."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    return (128 + 50 * np.sin(xx / (6.0 + k)) * np.cos(yy / 5.0)
+            + 30 * np.sin((xx + yy) / 11.0) + 4 * rng.standard_normal((h, w))
+            ).astype(np.float32)
+
+
+def _quad_np(img):
+    """numpy `quad_from_image`: (H*W, 4) rows of each pixel's 2x2 support,
+    edge rows and columns replicated."""
+    p = np.pad(img, ((0, 1), (0, 1)), mode="edge")
+    h, w = img.shape
+    return np.stack([p[:h, :w], p[:h, 1:], p[1:, :w], p[1:, 1:]],
+                    -1).reshape(h * w, 4)
+
+
+def _bilinear_np(img, x, y):
+    x0, y0 = np.floor(x).astype(np.int64), np.floor(y).astype(np.int64)
+    ax, ay = x - x0, y - y0
+    h, w = img.shape
+    x0c, y0c = np.clip(x0, 0, w - 2), np.clip(y0, 0, h - 2)
+    return ((1 - ax) * (1 - ay) * img[y0c, x0c] + ax * (1 - ay)
+            * img[y0c, x0c + 1] + (1 - ax) * ay * img[y0c + 1, x0c]
+            + ax * ay * img[y0c + 1, x0c + 1])
+
+
+def align_scene(seed, h, w, rows, lanes=1, levels=ALIGN_LEVELS,
+                poison=False):
+    """Seeded numpy inputs of K5 (`align_batch`) over `lanes` lanes of
+    `rows` candidate rows each, laid out as the matcher lays out its lanes:
+    each lane's target pyramid (a textured image and its 2x2-mean levels)
+    quad-packed level after level, lane after lane; the level tables per
+    lane and each row's `search_level` indexing its lane's entries. A row's
+    border patch is its level's image around a true point (in the
+    reference's brightness, with noise), its start that point moved by
+    ~0.8 px; a quarter are edgelets; some rows are invalid and some start
+    at the level's edge (they walk out). With `poison`, row 0 starts at
+    NaN and row 1's patch holds a NaN. Returns a dict of arrays (the
+    arguments of `align_batch`, in order, under their names)."""
+    rng = np.random.default_rng(seed)
+    quads, offs, wids, heis, levs = [], [], [], [], []
+    base = 0
+    for ln in range(lanes):
+        lev = [_texture(rng, h, w, ln)]
+        for _ in range(levels - 1):
+            p = lev[-1]
+            lev.append((0.25 * (p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2]
+                                + p[1::2, 1::2])).astype(np.float32))
+        levs.append(lev)
+        o = base
+        for p in lev:
+            quads.append(_quad_np(p))
+            offs.append(o)
+            wids.append(p.shape[1])
+            heis.append(p.shape[0])
+            o += p.size
+        base = o
+    M = lanes * rows
+    share = np.array([0.55, 0.25, 0.12, 0.08][:levels])
+    lvl = rng.choice(levels, M, p=share / share.sum())
+    border = np.zeros((M, 10, 10), np.float32)
+    px0 = np.zeros((M, 2), np.float32)
+    aff_a = rng.uniform(0.9, 1.1, M).astype(np.float32)
+    aff_b = rng.normal(0, 3, M).astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi, M)
+    direction = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
+    by, bx = np.mgrid[0:10, 0:10].astype(np.float64) - 5
+    for r in range(M):
+        ln, lv = r // rows, int(lvl[r])
+        img = levs[ln][lv]
+        hl, wl = img.shape
+        edge = rng.random() < 0.03
+        x = rng.uniform(0, 6) if edge else rng.uniform(7, wl - 8)
+        y = rng.uniform(7, hl - 8)
+        patch = _bilinear_np(img, np.clip(x + bx, 0, wl - 1.001),
+                             np.clip(y + by, 0, hl - 1.001))
+        border[r] = ((patch - aff_b[r]) / aff_a[r]
+                     + 0.5 * rng.standard_normal((10, 10)))
+        px0[r] = (x + rng.normal(0, 0.8), y + rng.normal(0, 0.8))
+    sc = dict(quad_pyr=np.concatenate(quads).astype(np.float32),
+              offsets=np.array(offs, np.int64),
+              widths=np.array(wids, np.int64),
+              heights=np.array(heis, np.int64),
+              search_level=(np.repeat(np.arange(lanes), rows) * levels
+                            + lvl).astype(np.int64),
+              border_patch=border, px_init_scaled=px0, direction=direction,
+              is_edge=rng.random(M) < 0.25, aff_a=aff_a, aff_b=aff_b,
+              valid=rng.random(M) < 0.92)
+    if poison:
+        sc["px_init_scaled"][0] = np.nan
+        sc["valid"][:2] = True
+        sc["border_patch"][1, 4, 5] = np.nan
+    return sc
+
+
+ALIGN_ARGS = ("quad_pyr", "offsets", "widths", "heights", "search_level",
+              "border_patch", "px_init_scaled", "direction", "is_edge",
+              "aff_a", "aff_b", "valid")
+
+
+def align_args(sc, device):
+    """`align_scene`'s arrays as `align_batch`'s positional arguments on
+    `device`."""
+    return tuple(torch.as_tensor(sc[k], device=device) for k in ALIGN_ARGS)
+
+
+def warp_scene(seed, h, w, rows, lanes=1, slots=3, poison=False):
+    """Seeded numpy inputs of K6 (`warp_affine_patches`) over `lanes` lanes
+    of `rows` rows each, as the matcher passes them: a stack of
+    `lanes * slots` host frames (h, w, 3) (a texture and its central
+    differences), each row's host slot in its lane's frames, reference
+    pixel, affine warp (a scaled rotation with shear; some scaled 2-6x) and
+    the search level `best_search_level` gives it. With `poison`, row 0's
+    warp is NaN, row 1's singular and row 2's host slot lies past the
+    stack. Returns dict(stack, host_idx, px_ref, A_cur_ref, search_level)."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for k in range(lanes * slots):
+        i0 = _texture(rng, h, w, k)
+        gy, gx = np.gradient(i0)
+        frames.append(np.stack([i0, gx, gy], -1).astype(np.float32))
+    M = lanes * rows
+    host = (np.repeat(np.arange(lanes), rows) * slots
+            + rng.integers(0, slots, M)).astype(np.int64)
+    px = np.stack([rng.uniform(6, w - 7, M), rng.uniform(6, h - 7, M)],
+                  -1).astype(np.float32)
+    th = rng.normal(0, 0.1, M)
+    s = rng.uniform(0.8, 1.25, M) * np.where(rng.random(M) < 0.2,
+                                             rng.uniform(2, 6, M), 1.0)
+    shear = rng.normal(0, 0.05, M)
+    A = np.stack([np.stack([s * np.cos(th), -s * np.sin(th) + shear], -1),
+                  np.stack([s * np.sin(th), s * np.cos(th)], -1)],
+                 1).astype(np.float32)
+    det = np.abs(np.linalg.det(A.astype(np.float64)))
+    lvl = np.zeros(M, np.int64)
+    for _ in range(ALIGN_LEVELS - 1):
+        step = det > 3.0
+        lvl += step
+        det = np.where(step, det * 0.25, det)
+    if poison:
+        A[0] = np.nan
+        A[1] = [[1.0, 2.0], [2.0, 4.0]]
+        host[2] = lanes * slots
+    return dict(stack=np.stack(frames), host_idx=host, px_ref=px,
+                A_cur_ref=A, search_level=lvl)
+
+
+def warp_args(sc, device, quad=True):
+    """`warp_scene`'s arrays as `warp_affine_patches`'s arguments on
+    `device`, with the stack's quad pack (`quad_stack`) unless `quad` is
+    false."""
+    t = {k: torch.as_tensor(v, device=device) for k, v in sc.items()}
+    kw = {}
+    if quad:
+        from sdv_loam_tpu_torch.ops.hopper_kernels import _stack_quads
+        kw["quad_stack"] = _stack_quads(t["stack"])
+    return (t["stack"], t["host_idx"], t["px_ref"], t["A_cur_ref"],
+            t["search_level"]), kw
+
+
+def align_iterations(args, n_iter=10):
+    """(valid rows, sampled iterations, distinct quad rows) of K5 on `args`
+    (`align_batch`'s positional arguments), from the plain loop: the
+    iterations in which a row ran and was in bounds, summed over rows, and
+    how many distinct rows of the quad pack those iterations sample (a
+    row outside the pack reads no memory)."""
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    x, st = hk.align_setup(*args)
+    n, idx = 0, []
+    for _ in range(n_iter):
+        running = st["alive"] & x["valid"] & ~st["conv"]
+        if not bool(running.any()):
+            break
+        inb, xx, yy = hk.align_samples(x, st["u"], st["v"])
+        act = running & inb
+        q = (x["base"] + torch.floor(yy).to(torch.int64) * x["wv"]
+             + torch.floor(xx).to(torch.int64))[act]
+        idx.append(q[(q >= 0) & (q < x["quad_pyr"].shape[0])])
+        st, _ = hk.align_body(x, st)
+        n += int(act.sum())
+    quad_rows = int(torch.unique(torch.cat(idx)).numel()) if idx else 0
+    return int(x["valid"].sum()), n, quad_rows
+
+
+def warp_quad_rows(wargs, quad_stack):
+    """How many distinct rows of the quad pack K6 reads on `wargs`
+    (`warp_affine_patches`'s positional arguments): those of the patch
+    pixels inside the image, as `warp_affine_patches_plain` computes them,
+    inside the pack."""
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    stack, host_idx, px_ref, A, level = wargs
+    h, w = stack.shape[1:3]
+    ok, xc, yc = hk.warp_samples(h, w, px_ref, A, level)
+    q = (host_idx.to(torch.int64)[:, None] * (h * w)
+         + torch.floor(yc).to(torch.int64) * w
+         + torch.floor(xc).to(torch.int64))[ok]
+    return int(torch.unique(q[(q >= 0) & (q < quad_stack.shape[0])]).numel())
 
 
 def _splat(lanes, h, w, rng, frac=0.04):
@@ -531,6 +798,191 @@ def compare_track(baseline_root, dev):
     return rows_out
 
 
+def _replay_ms(stage, fn, inputs, static, n=20):
+    """Mean device ms of one replay of `fn(inputs, **static)` as a stage
+    program (a CUDA event pair around each graph replay,
+    `device_loop.program_timing`), after its warm-up and capture; and its
+    outputs."""
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+    for _ in range(3):
+        out = dl.program(stage, fn, inputs, static)
+    with dl.program_timing() as timed:
+        for _ in range(n):
+            out = dl.program(stage, fn, inputs, static)
+    t = timed[stage]
+    return t["ms"] / t["replays"], out
+
+
+def _align_old(x, n_lanes, mod):
+    return mod.align_batch(*x, n_lanes=n_lanes)
+
+
+def _align_new(x, n_lanes):
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    return hk.align_batch(*x, n_lanes=n_lanes)
+
+
+def _warp_old(x, mod):
+    return mod.warp_affine_patches(*x["a"], quad_stack=x["quad"])
+
+
+def _warp_new(x):
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    return hk.warp_affine_patches(*x["a"], quad_stack=x["quad"])
+
+
+def _baseline_align(root):
+    """The baseline's `align_batch` and `warp_affine_patches`: its own
+    kernels' wrappers (its `hopper_kernels`, its library built) where it
+    has K5, else its `ops/align.py` (the batched loop and tensor
+    operations, run through this tree's device_loop). Returns (module,
+    kind): kind "kernels" or "loop"."""
+    old = load_baseline(root)
+    if "align_batch" in getattr(old, "DEVICE_COUNTED", ()):
+        return old, "kernels"
+    return _load_ops(root, "align"), "loop"
+
+
+def compare_align(baseline_root, dev):
+    """K5 and K6 against a baseline checkout's `align_batch` and
+    `warp_affine_patches` (`_baseline_align`: its own K5 and K6 where it
+    has them, else its batched loop and tensor operations) at
+    ALIGN_SHAPES (one lane; the default preset's pass 1 also with
+    ALIGN_LANES), on align_scene's and warp_scene's inputs: converged
+    flags that differ, px's largest difference where both converge,
+    patches' largest difference; then each as a stage program
+    (`device_loop.program`, as the track and keyframe programs run them:
+    a baseline loop is a first iteration and a WHILE node of one), the
+    replay's device ms in the order baseline, current, current, baseline,
+    and K5's and K6's device time alone (`device_ms`) with their
+    bounds."""
+    from functools import partial
+
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+    old, kind = _baseline_align(baseline_root)
+    print(f"baseline align_batch / warp_affine_patches: {kind}", flush=True)
+    hk.build_library()
+    out = []
+    with dl.use(dl.LoopCache()):
+        for preset, ((h, w), calls) in ALIGN_SHAPES.items():
+            for call, rows in calls.items():
+                for lanes in (1, ALIGN_LANES):
+                    if lanes != 1 and (preset, call) != ("default", "pass1"):
+                        continue
+                    sc = align_scene(500 + rows, h, w, rows, lanes)
+                    args = align_args(sc, dev)
+                    ws = warp_scene(600 + rows, h, w, rows, lanes)
+                    wargs, kw = warp_args(ws, dev)
+                    a_old, a_new = old.align_batch(*args, n_lanes=lanes), \
+                        hk.align_batch(*args, n_lanes=lanes)
+                    both = a_old[1] & a_new[1]
+                    p_old = old.warp_affine_patches(*wargs, **kw)
+                    p_new = hk.warp_affine_patches(*wargs, **kw)
+                    rec = dict(
+                        preset=preset, call=call, rows=rows, lanes=lanes,
+                        baseline=kind,
+                        k5_flags_differ=int((a_old[1] != a_new[1]).sum()),
+                        k5_converged=int(a_old[1].sum()),
+                        k5_px_max_diff=float((a_old[0] - a_new[0]).abs()
+                                             [both].max()),
+                        k5_fails=[a_old[2].tolist(), a_new[2].tolist()],
+                        k6_max_diff=float((p_old - p_new).abs().max()))
+                    valid_rows, iters, quad_rows = align_iterations(args)
+                    k6_quad_rows = warp_quad_rows(wargs, kw["quad_stack"])
+                    rec.update(k5_sampled_iterations=iters,
+                               k5_quad_rows=quad_rows,
+                               k6_quad_rows=k6_quad_rows,
+                               k5_bound_ms=align_batch_bound(
+                                   rows * lanes, valid_rows, iters,
+                                   quad_rows)[0],
+                               k6_bound_ms=warp_patches_bound(
+                                   rows * lanes, k6_quad_rows)[0])
+                    tag = f"{preset}_{call}_{lanes}"
+                    fa_old = partial(_align_old, mod=old)
+                    wx = dict(a=wargs, quad=kw["quad_stack"])
+                    fw_old = partial(_warp_old, mod=old)
+                    for side, fa, fw in (("baseline", fa_old, fw_old),
+                                         ("current", _align_new, _warp_new),
+                                         ("current", _align_new, _warp_new),
+                                         ("baseline", fa_old, fw_old)):
+                        rec.setdefault(f"k5_{side}_replay_ms", []).append(
+                            _replay_ms(f"a5_{side}_{tag}", fa, args,
+                                       dict(n_lanes=lanes))[0])
+                        rec.setdefault(f"k6_{side}_replay_ms", []).append(
+                            _replay_ms(f"a6_{side}_{tag}", fw, wx, {})[0])
+                    rec["k5_device_ms"] = device_ms(
+                        lambda: hk.align_batch(*args, n_lanes=lanes))
+                    rec["k6_device_ms"] = device_ms(
+                        lambda: hk.warp_affine_patches(*wargs, **kw))
+                    print(json.dumps(rec), flush=True)
+                    out.append(rec)
+    return out
+
+
+# The baseline's eager slice: chip_smoke.py phase 4's 30 frames of scene A
+# (1200x360, the default Settings) under `device_loop.reference()`, run in
+# the baseline checkout's own process (its package on the path), which
+# prints its "align" loop's calls and iterations and how many calls ran
+# each count of iterations; in a checkout whose card runs K5 (no loop),
+# K5's launches as the calls and no iterations
+_ALIGN_COUNTS = """
+import json, sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+from sdv_loam_tpu_torch.config import Settings
+from sdv_loam_tpu_torch.data.synthetic import make_sequence
+from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+from sdv_loam_tpu_torch.system.full_system import FullSystem
+from sdv_loam_tpu_torch.utils import device_loop as dl
+n = {frames}
+k5 = "align_batch" in getattr(hk, "DEVICE_COUNTED", ())
+seq = make_sequence(n_frames=n, **chip_smoke.SCENE,
+                    **chip_smoke.FLEET_SCENES["A"])
+frames = chip_smoke.render(seq, n)
+fs = FullSystem(seq.calib, seq.sensor, Settings(), device="cuda")
+dl.reset_counts()
+if k5:
+    hk.reset_launch_counts()
+with dl.reference():
+    for fr in frames:
+        fs.add_active_frame(*fr)
+c = dl.counts().get("align", {{}})
+if k5:
+    calls = hk.device_launches()["align_batch"]
+    out = dict(frames=n, loop=False, calls=calls, iterations=None,
+               calls_per_frame=calls / n, iterations_per_frame=None,
+               align_loop_calls=c.get("calls", 0))
+else:
+    out = dict(frames=n, loop=True, calls=c.get("calls", 0),
+               iterations=c.get("iters", 0),
+               calls_per_frame=c.get("calls", 0) / n,
+               iterations_per_frame=c.get("iters", 0) / n,
+               iterations_hist=dict(sorted(dl.HIST.get("align", {{}})
+                                           .items())))
+print("ALIGN_COUNTS " + json.dumps(out))
+"""
+
+
+def baseline_align_counts(root, frames=30):
+    """The baseline checkout's eager `align_batch` over phase 4's frames:
+    with its "align" loop (`loop` true), calls and iterations in all and
+    per frame and the calls per count of iterations; where its card runs
+    K5 (`loop` false), K5's launches as the calls, iterations None, and
+    the loop calls it recorded (`align_loop_calls`, 0 unless it still ran
+    a loop on the card). A child process in `root`."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _ALIGN_COUNTS.format(root=root,
+                                                    frames=frames)],
+        cwd=root, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the baseline's eager slice failed:\n"
+                           f"{proc.stderr[-4000:]}")
+    line = [x for x in proc.stdout.splitlines()
+            if x.startswith("ALIGN_COUNTS ")][-1]
+    return json.loads(line[len("ALIGN_COUNTS "):])
+
+
 def _pyr_equal(a, b):
     return all(torch.equal(x, y) for (ai, aw), (bi, bw) in zip(a, b)
                for x, y in ((ai, bi), (aw, bw)))
@@ -543,6 +995,9 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--track", action="store_true",
                     help="K3 and K4 instead of K1 and K2")
+    ap.add_argument("--align", action="store_true",
+                    help="K5 and K6 instead of K1 and K2, and the "
+                    "baseline's align loop counts over phase 4's frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -552,7 +1007,14 @@ def main():
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
         torch.cuda.get_device_name(0)
     print(card, flush=True)
-    if args.track:
+    if args.align:
+        rows = compare_align(os.path.abspath(args.baseline),
+                             torch.device("cuda:0"))
+        counts = baseline_align_counts(os.path.abspath(args.baseline))
+        print("baseline align loop, phase 4's frames: " + json.dumps(counts),
+              flush=True)
+        rows.append(dict(name="baseline_align_counts", **counts))
+    elif args.track:
         rows = compare_track(os.path.abspath(args.baseline),
                              torch.device("cuda:0"))
         if not all(r["k3_counts_equal"] for r in rows):

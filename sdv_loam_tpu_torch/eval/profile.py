@@ -41,7 +41,9 @@ default; `--device cpu` for the eager counts):
         [--w 1200 --h 360]
 
 `lm_iteration_ops()` (`--lm-ops`) counts the ops of one tracking LM
-iteration, with the K3 / K4 plain versions and with their kernels.
+iteration, with the K3 / K4 plain versions and with their kernels;
+`align_ops()` (`--align-ops`, with `--device cpu` the plain versions')
+the ops of one matcher alignment and patch warp.
 """
 
 from __future__ import annotations
@@ -259,11 +261,62 @@ def lm_iteration_ops() -> dict:
     return out
 
 
+def align_ops(device="cpu") -> dict:
+    """Ops one matcher `align_batch` call and one `warp_affine_patches`
+    call dispatch, views excluded, at M = 256 candidate rows
+    (`kernel_timing.align_scene` / `warp_scene` at 96x320, one lane,
+    n_iter 10): on the CPU the plain versions' (the batched loop op by op,
+    what the card ran before K5 and K6), with the loop's iterations and
+    the ops of one iteration (`align_body`); on CUDA the wrappers', each
+    kernel launch counted as one op beside the ops it dispatches (the
+    allocations of its outputs among them, listed by name)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.ops import align
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+
+    names = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in _VIEW_OPS:
+                names.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+
+    def count(fn):
+        names.clear()
+        with Count():
+            fn()
+        if device != "cpu":
+            names.append("kernel launch")
+        return dict(ops=len(names), by_name={n: names.count(n)
+                                             for n in sorted(set(names))})
+    args = kt.align_args(kt.align_scene(0, 96, 320, 256, levels=3), device)
+    wargs, kw = kt.warp_args(kt.warp_scene(1, 96, 320, 256), device)
+    device_loop.reset_counts()
+    out = dict(device=str(device),
+               align_batch=count(lambda: align.align_batch(*args)),
+               warp_affine_patches=count(
+                   lambda: align.warp_affine_patches(*wargs, **kw)))
+    if device == "cpu":
+        out["align_batch"]["iterations"] = \
+            device_loop.counts()["align"]["iters"]
+        x, st = hk.align_setup(*args)
+        names.clear()
+        with Count():
+            hk.align_body(x, st)
+        out["align_batch"]["ops_per_iteration"] = len(names)
+    return out
+
+
 def main():
     """Dispatch counts of a frame window of phase 4's scene
     (chip_smoke.py's SCENE, seed 7, default Settings), on the card unless
     `--device cpu` is given; with `--lm-ops`, the ops of one tracking LM
-    iteration instead (`lm_iteration_ops`, on the CPU)."""
+    iteration instead (`lm_iteration_ops`, on the CPU); with
+    `--align-ops`, those of one matcher alignment and patch warp
+    (`align_ops`)."""
     import argparse
     import json
 
@@ -277,9 +330,13 @@ def main():
     ap.add_argument("--h", type=int, default=360)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--lm-ops", action="store_true")
+    ap.add_argument("--align-ops", action="store_true")
     args = ap.parse_args()
     if args.lm_ops:
         print(json.dumps(lm_iteration_ops()))
+        return
+    if args.align_ops:
+        print(json.dumps(align_ops(args.device)))
         return
     a, b = args.window
     seq = make_sequence(n_frames=b, w=args.w, h=args.h, fx=718.856,

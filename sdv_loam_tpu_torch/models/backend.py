@@ -18,8 +18,8 @@ from __future__ import annotations
 import torch
 
 from sdv_loam_tpu_torch.config import CPARS, PATTERN_P
-from sdv_loam_tpu_torch.ops.align import _quad_bilinear
 from sdv_loam_tpu_torch.ops.trace import stack_quad12
+from sdv_loam_tpu_torch.ops.warp import quad_bilinear
 from sdv_loam_tpu_torch.utils import device_loop, se3
 
 RES_IN = 0
@@ -169,7 +169,7 @@ def photometric_gate_lanes(pt_u, pt_v, pt_idepth, pt_host, pt_color,
     base = slot.expand(L, N, F).reshape(L * N * F, 1)
     Ku2c = torch.clamp(Ku2, 0.0, Ww - 1.01).reshape(L * N * F, 8)
     Kv2c = torch.clamp(Kv2, 0.0, Hh - 1.01).reshape(L * N * F, 8)
-    hit = _quad_bilinear(quad12, base, Ww, Ku2c, Kv2c).reshape(L, N, F, 8, 3)
+    hit = quad_bilinear(quad12, base, Ww, Ku2c, Kv2c).reshape(L, N, F, 8, 3)
 
     resp = hit[..., 0] - (a_rel[..., None] * pt_color[:, :, None, :]
                           + b_rel[..., None])

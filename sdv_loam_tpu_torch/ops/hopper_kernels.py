@@ -22,12 +22,23 @@ which the JAX package leaves to XLA to fuse:
     sdv_loam_tpu/ops/photometric.py:310): the damped solve and the pose
     step of an LM call's first iteration, then per iteration after K3 the
     accept test and the per-row selects with the next iteration's step,
-    in one launch.
+    in one launch;
+  * `warp_affine_patches` (K6, csrc/warp_patches.cu) computes the
+    matcher's patch warp (the JAX package's `warp_affine_patches`,
+    sdv_loam_tpu/ops/align.py:147): each candidate's 10x10 border patch
+    sampled from its host image through the inverse affine warp;
+  * `align_batch` (K5, csrc/align_batch.cu) computes the matcher's
+    inverse-compositional alignment (the JAX package's `align_batch`,
+    sdv_loam_tpu/ops/align.py:319, a `lax.while_loop`): every candidate's
+    whole Gauss-Newton loop in one launch, a warp per candidate.
 
 K1 and K2 take one map (H, W) or a stack of lanes (L, H, W) and compute
 each lane as the single-map call would. K3 and K4 take B rows; a row's
 result does not depend on the other rows (each row's sums run in a fixed
-order, csrc/track_res_gs.cu; K4 solves each row in its own warp).
+order, csrc/track_res_gs.cu; K4 solves each row in its own warp). K5 and
+K6 take M candidate rows, each computed on its own (K5 runs each row's
+loop to that row's own stop, which is what the plain version's batched
+loop gives the row: a row that has stopped keeps its carries).
 
 Dispatch: a CPU tensor goes to the plain version beside each kernel; a CUDA
 tensor goes to the kernel, and a failed build or launch raises. There is no
@@ -47,9 +58,10 @@ launches nothing then: the capture records the launch, and every replay of
 the program counts it. K3 and K4 run inside the programs' IF and WHILE
 nodes, where a replay decides on the card how often they run, so they
 count themselves on the card: one thread of each launch adds one to the
-kernel's device counter. `device_launches()` reads those counters (a
-device synchronize: only for a caller that asks, never on the frame path),
-`launch_counts()` gives all four kernels' counts, and
+kernel's device counter; so do K5 and K6, which run inside the keyframe
+program's IF nodes (the second matcher pass). `device_launches()` reads
+those counters (a device synchronize: only for a caller that asks, never
+on the frame path), `launch_counts()` gives all six kernels' counts, and
 `reset_launch_counts()` zeroes both kinds.
 
 The same library holds csrc/graph_cond.cu, the conditional (IF and WHILE)
@@ -73,13 +85,16 @@ import threading
 
 import torch
 
-from sdv_loam_tpu_torch.ops.warp import bilinear_sample_packed, pack_bilinear
+from sdv_loam_tpu_torch.ops.warp import (bilinear_sample_packed,
+                                         pack_bilinear, quad_bilinear,
+                                         quad_from_image)
 from sdv_loam_tpu_torch.utils import device_loop, se3
 
 LAUNCHES = {"dilate_pyramid": 0, "distance_transform": 0}
 LANES = {"dilate_pyramid": 0, "distance_transform": 0}
 # the kernels that count their launches on the card
-DEVICE_COUNTED = ("track_res_gs", "track_lm_update")
+DEVICE_COUNTED = ("track_res_gs", "track_lm_update", "align_batch",
+                  "warp_patches")
 
 STEP_SCALE = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
 LAMBDA_EXTRAPOLATION_LIMIT = 0.001
@@ -93,23 +108,34 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("dilate_pyramid.cu", "distance_transform.cu", "graph_cond.cu",
-           "track_res_gs.cu", "track_lm_update.cu")
+           "track_res_gs.cu", "track_lm_update.cu", "align_batch.cu",
+           "warp_patches.cu")
 # -Xptxas=-v: ptxas's report (registers, spills, shared memory per kernel),
 # kept beside the library (`build_report`)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 DILATE_MAX_LEVELS = 8   # levels one K1 launch takes (csrc/dilate_pyramid.cu)
+# the matcher's patches (Reprojector.cpp align2D): the 8x8 patch, its
+# 10x10 border patch, and the alignment's convergence threshold (px^2)
+HALF_PATCH = 4
+PATCH = 8
+BORDER_PATCH = PATCH + 2
+MIN_UPDATE_SQ = 0.03 * 0.03
 
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
-# the CUDA devices K3 or K4 launched on (whose counters a read visits)
+# the CUDA devices K3-K6 launched on (whose counters a read visits)
 _counted_devices: set = set()
+# the device counters: (the library's reader, how many counters it reads)
+_COUNTERS = (("sdv_track_res_gs_counts", 1),
+             ("sdv_track_lm_update_counts", 2),
+             ("sdv_align_batch_counts", 1), ("sdv_warp_patches_counts", 1))
 
 
 def reset_launch_counts() -> None:
-    """Zero `LAUNCHES`, `LANES` and the device counters of K3 and K4 (after
-    a device synchronize)."""
+    """Zero `LAUNCHES`, `LANES` and the device counters of K3-K6 (after a
+    device synchronize)."""
     with _count_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
@@ -118,38 +144,39 @@ def reset_launch_counts() -> None:
 
 
 def _device_counts(reset: bool = False):
-    """(K3 launches, K4 step launches, K4 accept-step launches) summed
-    over the devices that launched them, read from their counters after a
-    device synchronize; zeroed after the read with `reset`."""
-    tot = [0, 0, 0]
+    """(K3 launches, K4 step launches, K4 accept-step launches, K5
+    launches, K6 launches) summed over the devices that launched them,
+    read from their counters after a device synchronize; zeroed after the
+    read with `reset`."""
+    tot = [0] * sum(n for _, n in _COUNTERS)
     if _lib is None:
         return tot
     for d in sorted(_counted_devices):
         with torch.cuda.device(d):
             torch.cuda.synchronize()
-            k3 = (ctypes.c_ulonglong * 1)()
-            k4 = (ctypes.c_ulonglong * 2)()
-            _check_rc(_lib.sdv_track_res_gs_counts(k3, int(reset)),
-                      "reading track_res_gs's counter")
-            _check_rc(_lib.sdv_track_lm_update_counts(k4, int(reset)),
-                      "reading track_lm_update's counters")
-        tot = [tot[0] + k3[0], tot[1] + k4[0], tot[2] + k4[1]]
+            got = []
+            for fn, n in _COUNTERS:
+                c = (ctypes.c_ulonglong * n)()
+                _check_rc(getattr(_lib, fn)(c, int(reset)), f"reading {fn}")
+                got.extend(c)
+        tot = [a + b for a, b in zip(tot, got)]
     return tot
 
 
 def device_launches() -> dict:
-    """The launches K3 and K4 counted on the card since the last reset: per
+    """The launches K3-K6 counted on the card since the last reset: per
     kernel (K4's two entry points together), and K4's `lm_step` (one per
     LM call) and `lm_accept_step` (one per LM iteration) apart.
     Synchronizes."""
-    k3, step, accept_step = _device_counts()
+    k3, step, accept_step, k5, k6 = _device_counts()
     return {"track_res_gs": k3, "track_lm_update": step + accept_step,
-            "lm_step": step, "lm_accept_step": accept_step}
+            "lm_step": step, "lm_accept_step": accept_step,
+            "align_batch": k5, "warp_patches": k6}
 
 
 def launch_counts() -> dict:
-    """All four kernels' launches: `LAUNCHES` (K1, K2) and the device
-    counters (K3, K4). Synchronizes."""
+    """All six kernels' launches: `LAUNCHES` (K1, K2) and the device
+    counters (K3-K6). Synchronizes."""
     dev = device_launches()
     with _count_lock:
         out = dict(LAUNCHES)
@@ -469,6 +496,161 @@ def lm_update_accept_step_plain(r, r_new, T, T_new, aff, aff_new, lam, done,
     return dict(o, **dict(zip(STEP_KEYS, step)))
 
 
+def _patch_offsets(n, device, dtype=torch.float32):
+    ar = torch.arange(n, device=device)
+    ys = ar[:, None].expand(n, n).reshape(-1)
+    xs = ar[None, :].expand(n, n).reshape(-1)
+    return xs.to(dtype), ys.to(dtype)
+
+
+def warp_samples(h, w, px_ref, A_cur_ref, search_level):
+    """The 10x10 border patch's points in an (h, w) host image: inside
+    the image (M, 100), and the clamped sample points xc, yc (M, 100)."""
+    Ainv = torch.linalg.inv_ex(A_cur_ref)[0]
+    Ainv = torch.where(torch.isfinite(Ainv), Ainv, torch.zeros_like(Ainv))
+    xs, ys = _patch_offsets(BORDER_PATCH, px_ref.device)
+    offs = torch.stack([xs, ys], dim=-1) - (HALF_PATCH + 1)
+    scale = torch.pow(2.0, search_level.to(torch.float32))
+    px_patch = offs[None, :, :] * scale[:, None, None]
+    src = torch.einsum("mij,mpj->mpi", Ainv, px_patch) + px_ref[:, None, :]
+    x = src[..., 0]
+    y = src[..., 1]
+    ok = (x >= 0) & (y >= 0) & (x < w - 1) & (y < h - 1)
+    return ok, torch.clamp(x, 0.0, w - 1.001), torch.clamp(y, 0.0, h - 1.001)
+
+
+def warp_affine_patches_plain(dI_ref0_stack, host_idx, px_ref, A_cur_ref,
+                              search_level, quad_stack=None):
+    """K6's plain version: `align.warp_affine_patches` in tensor
+    operations (see there for the arguments)."""
+    h, w = dI_ref0_stack.shape[1:3]
+    ok, xc, yc = warp_samples(h, w, px_ref, A_cur_ref, search_level)
+    if quad_stack is None:
+        quad_stack = _stack_quads(dI_ref0_stack)
+    base = (host_idx.to(torch.int64) * (h * w))[:, None]
+    inten = quad_bilinear(quad_stack, base, w, xc, yc)
+    inten = torch.where(ok, inten, torch.zeros_like(inten))
+    return inten.reshape(-1, BORDER_PATCH, BORDER_PATCH)
+
+
+def _stack_quads(dI_ref0_stack):
+    """The (F*H*W, 4) quad pack of an (F, H, W, 3) stack's intensities."""
+    return torch.cat([quad_from_image(im[..., 0]) for im in dI_ref0_stack],
+                     dim=0)
+
+
+def _patch_grads(border_patch):
+    """Reference-patch gradients from the 10x10 border patch (align2D)."""
+    inner = border_patch[:, 1:-1, 1:-1]
+    dx = 0.5 * (border_patch[:, 1:-1, 2:] - border_patch[:, 1:-1, :-2])
+    dy = 0.5 * (border_patch[:, 2:, 1:-1] - border_patch[:, :-2, 1:-1])
+    m = border_patch.shape[0]
+    return inner.reshape(m, -1), dx.reshape(m, -1), dy.reshape(m, -1)
+
+
+def align_samples(x, u, v):
+    """Each row's in-bounds test of floor(u), floor(v) against its level
+    (M,) and its 8x8 patch's sample points xx, yy (M, 64)."""
+    wv, hv = x["wv"], x["hv"]
+    po_x, po_y = _patch_offsets(PATCH, u.device)
+    po_x = po_x - HALF_PATCH
+    po_y = po_y - HALF_PATCH
+    ur = torch.floor(u)
+    vr = torch.floor(v)
+    inb = ((ur >= HALF_PATCH) & (vr >= HALF_PATCH)
+           & (ur < wv[:, 0] - HALF_PATCH) & (vr < hv - HALF_PATCH))
+    xx = torch.minimum(torch.clamp(u[:, None], min=HALF_PATCH),
+                       (wv - HALF_PATCH).to(u.dtype)) + po_x[None, :]
+    yy = torch.minimum(torch.clamp(v[:, None], min=HALF_PATCH),
+                       (hv[:, None] - HALF_PATCH).to(v.dtype)) + po_y[None, :]
+    return inb, xx, yy
+
+
+def align_body(x, st):
+    """One Gauss-Newton step of every candidate still running (alive,
+    valid, not converged); the others keep every carry."""
+    u, v, conv, alive = st["u"], st["v"], st["conv"], st["alive"]
+    valid, is_edge, direction = x["valid"], x["is_edge"], x["direction"]
+    running = alive & valid & (~conv)
+    inb, xx, yy = align_samples(x, u, v)
+    act = running & inb
+    cur = quad_bilinear(x["quad_pyr"], x["base"], x["wv"], xx, yy)
+    res = cur - x["target"] + st["mean_diff"][:, None]
+    Jres = -torch.einsum("mp,mpi->mi", res, x["J"])
+    upd = torch.einsum("mij,mj->mi", x["Hinv"], Jres)
+    upd = torch.where(act[:, None], upd, torch.zeros_like(upd))
+    du = torch.where(is_edge, upd[:, 0] * direction[:, 0], upd[:, 0])
+    dv = torch.where(is_edge, upd[:, 0] * direction[:, 1], upd[:, 1])
+    dmd = torch.where(is_edge, upd[:, 1], upd[:, 2])
+    step_sq = upd[:, 0] ** 2 + upd[:, 1] ** 2
+    conv = conv | (act & (step_sq < MIN_UPDATE_SQ))
+    # a candidate leaves when it walks out of bounds; one that has stopped
+    # keeps its state (the reference's per-candidate loop has ended)
+    alive = torch.where(running, inb, alive)
+    st = dict(u=u + du, v=v + dv, mean_diff=st["mean_diff"] + dmd,
+              conv=conv, alive=alive)
+    return st, (alive & valid & (~conv)).any()
+
+
+def align_setup(quad_pyr, offsets, widths, heights, search_level,
+                border_patch, px_init_scaled, direction, is_edge, aff_a,
+                aff_b, valid):
+    """The plain alignment's loop inputs and first carries (x, st) for
+    `align_body`: the reference patch, its Jacobian J (M, 64, 3), the
+    inverse of H = J^T J + 1e-9 I, each row's level table entries."""
+    border_patch = border_patch.to(torch.float32)
+    px_init_scaled = px_init_scaled.to(torch.float32)
+    aff_a = aff_a.to(torch.float32)
+    aff_b = aff_b.to(torch.float32)
+    direction = direction.to(torch.float32)
+    ref, dx, dy = _patch_grads(border_patch)
+    dgrad = direction[:, 0:1] * dx + direction[:, 1:2] * dy
+    e = is_edge[:, None]
+    one = torch.ones_like(dx)
+    J = torch.stack([torch.where(e, dgrad, dx), torch.where(e, one, dy),
+                     torch.where(e, torch.zeros_like(dx), one)], dim=-1)
+    H = torch.einsum("mpi,mpj->mij", J, J)
+    eye = torch.eye(3, dtype=H.dtype, device=H.device)
+    Hinv = torch.linalg.inv_ex(H + eye * 1e-9)[0]
+    Hinv = torch.where(torch.isfinite(Hinv), Hinv, torch.zeros_like(Hinv))
+
+    x = dict(quad_pyr=quad_pyr, base=offsets[search_level][:, None],
+             wv=widths[search_level][:, None], hv=heights[search_level],
+             target=aff_a[:, None] * ref + aff_b[:, None], J=J, Hinv=Hinv,
+             is_edge=is_edge, direction=direction, valid=valid)
+    u = px_init_scaled[:, 0]
+    st = dict(u=u, v=px_init_scaled[:, 1], mean_diff=torch.zeros_like(u),
+              conv=torch.zeros_like(valid), alive=valid.clone())
+    return x, st
+
+
+def _lane_fails(masks, n_lanes):
+    """(M, 2) failure masks -> (2,) counts, or (n_lanes, 2) per lane."""
+    if n_lanes:
+        return masks.reshape(n_lanes, -1, 2).sum(1)
+    return masks.sum(0)
+
+
+def align_batch_plain(quad_pyr, offsets, widths, heights, search_level,
+                      border_patch, px_init_scaled, direction, is_edge,
+                      aff_a, aff_b, valid, n_iter: int = 10,
+                      n_lanes: int = 0):
+    """K5's plain version: `align.align_batch` as one batched loop
+    (`device_loop.run`, "align") of `align_body`, which stops once no
+    candidate is still running (see `align.align_batch` for the
+    arguments)."""
+    x, st = align_setup(quad_pyr, offsets, widths, heights, search_level,
+                        border_patch, px_init_scaled, direction, is_edge,
+                        aff_a, aff_b, valid)
+    st = device_loop.run("align", align_body, x, st, n_iter)
+    u, v, conv, alive = st["u"], st["v"], st["conv"], st["alive"]
+    fail_oob = valid & ~conv & ~alive
+    fail_iters = valid & ~conv & alive
+    return (torch.stack([u, v], dim=-1), conv & valid,
+            _lane_fails(torch.stack([fail_oob, fail_iters], -1), n_lanes))
+
+
+
 # ---------------------------------------------------------------------------
 # build + bind
 # ---------------------------------------------------------------------------
@@ -592,8 +774,12 @@ def _load():
             lib.sdv_lm_step.restype = ci
             lib.sdv_lm_accept_step.argtypes = [vpp, ci, ll, ll, vp]
             lib.sdv_lm_accept_step.restype = ci
-            for fn in (lib.sdv_track_res_gs_counts,
-                       lib.sdv_track_lm_update_counts):
+            lib.sdv_align_batch.argtypes = [vpp, ll, ll, ci, vp]
+            lib.sdv_align_batch.restype = ci
+            lib.sdv_warp_patches.argtypes = [vpp, ll, ll, ci, ci, vp]
+            lib.sdv_warp_patches.restype = ci
+            for name, _ in _COUNTERS:
+                fn = getattr(lib, name)
                 fn.argtypes = [ctypes.POINTER(ull), ci]
                 fn.restype = ci
             _lib = lib
@@ -896,3 +1082,110 @@ def lm_update_accept_step(r, r_new, T, T_new, aff, aff_new, lam, done, n_it,
     _check_rc(rc, "lm_update_accept_step")
     out.update(zip(STEP_KEYS, step))
     return out
+
+
+def _quad_rows(quad, name):
+    """A quad pack (T, 4) float32 as the kernels read it: contiguous, each
+    row one 16-byte load."""
+    quad = _f32(quad, name)
+    if quad.dim() != 2 or quad.shape[1] != 4 or quad.data_ptr() % 16:
+        raise ValueError(f"{name}: (T, 4), 16-byte aligned, required")
+    return quad
+
+
+def _rows(x, shape, dtype, name):
+    """`x` converted to `dtype` (as the plain version converts it),
+    contiguous, of `shape`."""
+    x = x.to(dtype).contiguous()
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name}: {shape} required, got {tuple(x.shape)}")
+    return x
+
+
+def warp_affine_patches(dI_ref0_stack, host_idx, px_ref, A_cur_ref,
+                        search_level, quad_stack=None):
+    """K6: `align.warp_affine_patches` (same arguments and results). CPU ->
+    plain version; CUDA -> one launch, a thread per patch pixel."""
+    if px_ref.device.type == "cpu":
+        return warp_affine_patches_plain(dI_ref0_stack, host_idx, px_ref,
+                                         A_cur_ref, search_level,
+                                         quad_stack=quad_stack)
+    h, w = dI_ref0_stack.shape[1:3]
+    M = px_ref.shape[0]
+    if quad_stack is None:
+        quad_stack = _stack_quads(dI_ref0_stack)
+    quad = _quad_rows(quad_stack, "quad_stack")
+    if search_level.dtype != torch.int64:
+        raise TypeError("search_level: int64 required")
+    host = _rows(host_idx, (M,), torch.int64, "host_idx")
+    level = _rows(search_level, (M,), torch.int64, "search_level")
+    px, A = _f32(px_ref, "px_ref"), _f32(A_cur_ref, "A_cur_ref")
+    if A.shape != (M, 2, 2):
+        raise ValueError("A_cur_ref: (M, 2, 2) required")
+    dev = _on_card("warp_affine_patches", quad, host, level, px, A)
+    out = torch.empty((M, BORDER_PATCH, BORDER_PATCH), device=dev)
+    if M:
+        lib = _load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.sdv_warp_patches(_ptrs(quad, host, px, A, level, out),
+                                      quad.shape[0], M, int(h), int(w),
+                                      stream)
+        _check_rc(rc, "warp_affine_patches")
+    return out
+
+
+def align_batch(quad_pyr, offsets, widths, heights, search_level,
+                border_patch, px_init_scaled, direction, is_edge, aff_a,
+                aff_b, valid, n_iter: int = 10, n_lanes: int = 0):
+    """K5: `align.align_batch` (same arguments and results). CPU -> plain
+    version; CUDA -> one launch, a warp per candidate row running the
+    row's whole loop, then one sum of its failure masks (per lane with
+    `n_lanes`)."""
+    if quad_pyr.device.type == "cpu":
+        return align_batch_plain(quad_pyr, offsets, widths, heights,
+                                 search_level, border_patch, px_init_scaled,
+                                 direction, is_edge, aff_a, aff_b, valid,
+                                 n_iter=n_iter, n_lanes=n_lanes)
+    M = valid.shape[0]
+    quad = _quad_rows(quad_pyr, "quad_pyr")
+    tables = [_level_table(t, n) for t, n in ((offsets, "offsets"),
+                                              (widths, "widths"),
+                                              (heights, "heights"))]
+    if search_level.dtype != torch.int64 or is_edge.dtype != torch.bool \
+            or valid.dtype != torch.bool:
+        raise TypeError("search_level int64, is_edge and valid bool "
+                        "required")
+    level = _rows(search_level, (M,), torch.int64, "search_level")
+    patch = _rows(border_patch, (M, BORDER_PATCH, BORDER_PATCH),
+                  torch.float32, "border_patch")
+    px0 = _rows(px_init_scaled, (M, 2), torch.float32, "px_init_scaled")
+    direction = _rows(direction, (M, 2), torch.float32, "direction")
+    is_edge = _rows(is_edge, (M,), torch.bool, "is_edge")
+    valid = _rows(valid, (M,), torch.bool, "valid")
+    aff_a = _rows(aff_a, (M,), torch.float32, "aff_a")
+    aff_b = _rows(aff_b, (M,), torch.float32, "aff_b")
+    if n_lanes and M % n_lanes:
+        raise ValueError(f"{M} rows do not split into {n_lanes} lanes")
+    dev = _on_card("align_batch", quad, *tables, level, patch, px0,
+                   direction, is_edge, valid, aff_a, aff_b)
+    px = torch.empty((M, 2), device=dev)
+    conv = torch.empty(M, dtype=torch.bool, device=dev)
+    masks = torch.empty((M, 2), dtype=torch.bool, device=dev)
+    if M:
+        lib = _load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.sdv_align_batch(
+                _ptrs(quad, *tables, level, patch, px0, direction, is_edge,
+                      valid, aff_a, aff_b, px, conv, masks),
+                quad.shape[0], M, max(int(n_iter), 0), stream)
+        _check_rc(rc, "align_batch")
+    return px, conv, _lane_fails(masks, n_lanes)
+
+
+def _level_table(t, name):
+    """A level table (offsets, widths or heights) as int64, contiguous."""
+    if t.dtype != torch.int64 or t.dim() != 1:
+        raise TypeError(f"{name}: an int64 (levels,) table required")
+    return t.contiguous()

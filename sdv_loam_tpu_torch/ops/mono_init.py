@@ -27,7 +27,7 @@ carry, and an iteration after the stop changes no carry; the accept /
 reject state is selected on the device by `torch.where`, float32
 throughout. The 8x8 Schur solve is one `torch.linalg.solve_ex` call. The pattern
 samples come from `ops/trace.pattern_colors` and the quad-packed sampler
-(`ops/warp.pack_bilinear`, `ops/align._quad_bilinear`). Between-level
+(`ops/warp.pack_bilinear`, `ops/warp.quad_bilinear`). Between-level
 propagation runs on host numpy, as in the JAX package.
 
 Deviations (as in the JAX package):
@@ -45,11 +45,10 @@ import numpy as np
 import torch
 
 from sdv_loam_tpu_torch.config import PATTERN_P, Settings
-from sdv_loam_tpu_torch.ops.align import _quad_bilinear
 from sdv_loam_tpu_torch.ops.knn import knn, nearest_cross
 from sdv_loam_tpu_torch.ops.select import cascade_direction_draws, make_maps
 from sdv_loam_tpu_torch.ops.trace import pattern_colors
-from sdv_loam_tpu_torch.ops.warp import pack_bilinear
+from sdv_loam_tpu_torch.ops.warp import pack_bilinear, quad_bilinear
 from sdv_loam_tpu_torch.utils import device_loop, se3
 
 # trackFrame constants (CoarseInitializer.cpp:58-62)
@@ -126,7 +125,7 @@ def _calc_res_gs(x, T, aff, idepth, is_good, energy, energy_a, w, h,
     inb = (Ku > 1) & (Kv > 1) & (Ku < w - 2) & (Kv < h - 2) & (new_id > 0)
     Kuc = torch.clamp(Ku, 0.0, w - 1.01)
     Kvc = torch.clamp(Kv, 0.0, h - 1.01)
-    hit = _quad_bilinear(x["quad_new"], x["base0"], x["wv"], Kuc,
+    hit = quad_bilinear(x["quad_new"], x["base0"], x["wv"], Kuc,
                          Kvc)                                   # (N, 8, 3)
     a_exp = torch.exp(aff[0])
     res = hit[..., 0] - a_exp * ref_color - aff[1]

@@ -12,8 +12,8 @@ from __future__ import annotations
 import torch
 
 from sdv_loam_tpu_torch.config import PATTERN_P
-from sdv_loam_tpu_torch.ops.align import _quad_bilinear
-from sdv_loam_tpu_torch.ops.warp import bilinear_sample_packed, pack_bilinear
+from sdv_loam_tpu_torch.ops.warp import (bilinear_sample_packed,
+                                         pack_bilinear, quad_bilinear)
 from sdv_loam_tpu_torch.utils import device_loop
 
 # ImmaturePointStatus (ImmaturePoint.h:20-30)
@@ -359,7 +359,7 @@ def _point_residual_system(u, v, idepth, color, weights, host_idx,
     base = ((ar * F + target_idx) * (w * h))[..., None]
     Kuc = torch.clamp(Ku, 0.0, w - 1.01)
     Kvc = torch.clamp(Kv, 0.0, h - 1.01)
-    hit = _quad_bilinear(quad12, base, w, Kuc, Kvc)
+    hit = quad_bilinear(quad12, base, w, Kuc, Kvc)
 
     res = hit[..., 0] - (aff[..., 0:1] * color + aff[..., 1:2])
     hw = _huber_w(torch.abs(res), 6.0)

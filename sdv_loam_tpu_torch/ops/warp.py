@@ -64,3 +64,36 @@ def bilinear_sample_packed(packed: torch.Tensor, h: int, w: int,
     if c == 1:
         out = out[..., 0]
     return out, valid
+
+
+def quad_from_image(img):
+    """(H, W) image -> (H*W, 4) rows [I(x,y), I(x+1,y), I(x,y+1),
+    I(x+1,y+1)], edge rows/columns replicated."""
+    h, w = img.shape
+    p = tnf.pad(img[None, None], (0, 1, 0, 1), mode="replicate")[0, 0]
+    q = torch.stack([p[:h, :w], p[:h, 1:], p[1:, :w], p[1:, 1:]], dim=-1)
+    return q.reshape(h * w, 4)
+
+
+def quad_bilinear(quad, base, w, x, y):
+    """Bilinear sample from a quad-packed buffer, one row per sample.
+    Caller guarantees in-bounds. quad (T, 4) or (T, 4*C); base, w
+    broadcastable to x; returns x.shape (4-wide) or x.shape + (C,)."""
+    c = quad.shape[-1] // 4
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    ax = (x - x0).to(quad.dtype)
+    ay = (y - y0).to(quad.dtype)
+    idx = base + y0.to(torch.int64) * w + x0.to(torch.int64)
+    # non-finite coordinates give out-of-range rows: they read NaN, like
+    # the "fill" mode of the reference's gather
+    ok = (idx >= 0) & (idx < quad.shape[0])
+    g = quad.index_select(0, torch.where(ok, idx, torch.zeros_like(idx))
+                          .reshape(-1)).reshape(x.shape + (4 * c,))
+    w4 = torch.stack([(1 - ax) * (1 - ay), ax * (1 - ay),
+                      (1 - ax) * ay, ax * ay], dim=-1)
+    nan = torch.full((), float("nan"), dtype=quad.dtype, device=quad.device)
+    if c == 1:
+        return torch.where(ok, (g * w4).sum(dim=-1), nan)
+    g = g.reshape(x.shape + (4, c))
+    return torch.where(ok[..., None], (g * w4[..., None]).sum(dim=-2), nan)

@@ -114,7 +114,8 @@ import torch
 #            a host read says whether any row needs it;
 #   align    the matcher's alignment: some candidate runs to the cap of 10
 #            on 23 of 38 calls; an iteration is a few small kernels, so one
-#            replay runs all 10 and no flag is read;
+#            replay runs all 10 and no flag is read (the CPU's loop: on
+#            the card the whole alignment is one K5 launch, no loop);
 #   struct   the struct-pose LM (cap 10): 8-10 iterations on 7 of 11 calls:
 #            one replay of 10;
 #   ba0/ba   the windowed BA (cap 6): the first two iterations (no

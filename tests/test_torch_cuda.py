@@ -156,7 +156,9 @@ def test_loop_graphs_match_eager_loops(cuda, lanes):
     seen = {}
     for rec in log:
         seen.setdefault(rec["stage"], []).append(rec)
-    assert {"lm", "align", "struct", "ba0", "sweep"} <= set(seen), seen.keys()
+    assert {"lm", "struct", "ba0", "sweep"} <= set(seen), seen.keys()
+    # the alignment is one K5 launch on the card, no loop
+    assert "align" not in seen, seen.keys()
     for stage, recs in seen.items():
         for rec in recs[:2]:
             res = dl.compare(rec)
@@ -631,7 +633,8 @@ def test_lm_update_kernels_match_plain(cuda, shape, per_row):
     assert (err <= SOLVE_REL * torch.linalg.vector_norm(op["inc"], dim=-1)
             + 1e-30).all(), err
     assert hk.device_launches() == {"track_res_gs": 0, "track_lm_update": 2,
-                                    "lm_step": 1, "lm_accept_step": 1}
+                                    "lm_step": 1, "lm_accept_step": 1,
+                                    "align_batch": 0, "warp_patches": 0}
 
 
 @pytest.mark.cuda
@@ -770,3 +773,129 @@ def test_track_kernels_count_the_loops_evaluations(cuda):
     assert 1 < int(outs[-1]["n_iters"].max()) <= 10
     for k in outs[0]:
         assert dl.same_bits(outs[1][k], outs[-1][k]), k
+
+
+# ---------------------------------------------------------------------------
+# K5 (align_batch) and K6 (warp_affine_patches)
+# ---------------------------------------------------------------------------
+
+# the tolerances of tests/test_torch_align_kernels.py: converged flags
+# agree on at least ALIGN_FLAG_SHARE of the rows but one, px within
+# ALIGN_PX_TOL where both converge, the failure masks equal where the
+# flags agree;
+# patches with the plain version's zero and NaN pattern, values within
+# PATCH_TOL
+ALIGN_FLAG_SHARE = 0.999
+ALIGN_PX_TOL = 0.01
+PATCH_TOL = 0.02
+# (preset, matcher call): kernel_timing.ALIGN_SHAPES's main-path rows
+ALIGN_CALLS = [(p, c) for p in ("default", "fast")
+               for c in ("track", "pass1", "pass2")]
+
+
+def _align_masks(x, out):
+    return torch.stack([x["valid"] & ~out["conv"] & ~out["alive"],
+                        x["valid"] & ~out["conv"] & out["alive"]], -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("preset,call", ALIGN_CALLS)
+def test_align_kernel_matches_plain_and_emulation(cuda, preset, call,
+                                                  lanes):
+    """K5 at the main path's shapes: against the plain batched loop under
+    the CPU tests' tolerances, and bit for bit (NaN payloads aside) against
+    its CPU emulation (tests/k5_align.py: the kernel's float64 sums and
+    order); one device launch, per-lane failure counts equal to the masks'
+    sums."""
+    import k5_align
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    (h, w), rows = kt.ALIGN_SHAPES[preset]
+    sc = kt.align_scene(50 + lanes, h, w, rows[call], lanes, poison=True)
+    args = kt.align_args(sc, cuda)
+    hk.reset_launch_counts()
+    px, conv, fails = hk.align_batch(*args, n_lanes=lanes)
+    assert hk.device_launches()["align_batch"] == 1
+    x, st = hk.align_setup(*args)
+    out = dl.run("align", hk.align_body, x, st, 10)
+    ref_px, ref_conv = torch.stack([out["u"], out["v"]], -1), out["conv"]
+    agree = conv == (ref_conv & x["valid"])
+    both = conv & ref_conv
+    assert int((~agree).sum()) <= 1 + (1 - ALIGN_FLAG_SHARE) * agree.numel()
+    assert float((px - ref_px).abs()[both].max()) <= ALIGN_PX_TOL
+    emu = k5_align.align_batch(*(a.cpu() for a in args))
+    # bit for bit but for NaN payloads (the card's arithmetic makes its own)
+    n = k5_align.bits_differ(px, emu[0])
+    assert n == 0, f"{n} of {px.numel()} differ"
+    assert torch.equal(conv.cpu(), emu[1])
+    assert torch.equal(fails.cpu(), emu[2].reshape(lanes, -1, 2).sum(1))
+    assert torch.equal(_align_masks(x, out)[agree].cpu(),
+                       emu[2][agree.cpu()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("preset,call", ALIGN_CALLS)
+def test_warp_kernel_matches_plain_and_emulation(cuda, preset, call,
+                                                 lanes):
+    """K6 at the main path's shapes: against the plain version (the same
+    zero and NaN pattern, values within PATCH_TOL) and bit for bit against
+    its CPU emulation; one device launch."""
+    import k5_align
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+
+    (h, w), rows = kt.ALIGN_SHAPES[preset]
+    sc = kt.warp_scene(60 + lanes, h, w, rows[call], lanes, poison=True)
+    args, kw = kt.warp_args(sc, cuda)
+    hk.reset_launch_counts()
+    got = hk.warp_affine_patches(*args, **kw)
+    assert hk.device_launches()["warp_patches"] == 1
+    ref = hk.warp_affine_patches_plain(*args, **kw)
+    nan_g, nan_r = torch.isnan(got), torch.isnan(ref)
+    assert torch.equal(nan_g, nan_r) and torch.equal(got == 0, ref == 0)
+    assert float((got - ref).abs()[~nan_r].max()) <= PATCH_TOL
+    emu = k5_align.warp_patches(kw["quad_stack"].cpu(), *(a.cpu() for a in
+                                                          args[1:]), h, w)
+    assert dl_same_bits(got.cpu(), emu)
+
+
+def _match_program(x):
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    def both(c):
+        patches = hk.warp_affine_patches(*x["warp"], quad_stack=x["quad"])
+        px, conv, fails = hk.align_batch(*x["align"])
+        return dict(p=c["p"] + patches.sum(), px=px, fails=fails)
+    return dl.cond("t", x["go"], both, dict(
+        p=torch.zeros((), device=x["go"].device),
+        px=torch.zeros_like(x["align"][6]),
+        fails=torch.zeros(2, dtype=torch.int64, device=x["go"].device)))
+
+
+@pytest.mark.cuda
+def test_align_kernels_count_inside_an_if_node(cuda):
+    """K5 and K6 inside a captured program's IF node (the keyframe
+    program's second matcher pass): their device counters count the
+    replays whose predicate holds, and the replays' outputs equal the
+    eager calls'."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    asc = kt.align_scene(70, 96, 320, 64, 1, levels=3)
+    wsc = kt.warp_scene(71, 96, 320, 64)
+    wargs, kw = kt.warp_args(wsc, cuda)
+    x = dict(align=kt.align_args(asc, cuda), warp=wargs,
+             quad=kw["quad_stack"], go=torch.tensor(True, device=cuda))
+    hk.reset_launch_counts()
+    runs = 0
+    with dl.use(dl.LoopCache()):
+        for go in (True, True, False, True, False, True):
+            x["go"] = torch.tensor(go, device=cuda)
+            out = dl.program("k5if", _match_program, x)
+            runs += go
+    want = hk.align_batch(*x["align"])[0]
+    got = hk.device_launches()
+    assert got["align_batch"] == runs + 1 and got["warp_patches"] == runs
+    assert dl_same_bits(out["px"], want)

@@ -47,6 +47,7 @@ import k4_lu
 from sdv_loam_tpu.ops import photometric as jph
 from sdv_loam_tpu.utils import se3 as jse3
 from sdv_loam_tpu_torch.eval import kernel_timing as kt
+from sdv_loam_tpu_torch.ops import align as talign
 from sdv_loam_tpu_torch.ops import hopper_kernels as hk
 from sdv_loam_tpu_torch.ops import photometric as tph
 
@@ -482,7 +483,8 @@ def test_k4_warp_pivot_equals_serial_scan(case):
 
 def test_cpu_dispatch_never_loads_the_library(monkeypatch):
     """(e) On the CPU every wrapper takes its plain version: K3 through
-    calc_res_gs, K4 through the tracking LM (track_level), with the
+    calc_res_gs, K4 through the tracking LM (track_level), K6 and K5
+    through the matcher's `warp_affine_patches` and `align_batch`, with the
     library's loader made to raise; no launch is counted."""
     def refuse():
         raise AssertionError("the kernels' library was loaded on the CPU")
@@ -505,6 +507,15 @@ def test_cpu_dispatch_never_loads_the_library(monkeypatch):
         torch.from_numpy(ref_aff), torch.from_numpy(exposures), 20.0, HUBER,
         5, packed=packed, lane=lane)
     assert torch.isfinite(T).all() and int(r["n_iters"].max()) >= 1
+    wsc = kt.warp_scene(1, H_IMG, W_IMG, 16, LANES)
+    args, kw = kt.warp_args(wsc, "cpu")
+    assert torch.equal(talign.warp_affine_patches(*args, **kw),
+                       hk.warp_affine_patches_plain(*args, **kw))
+    asc = kt.align_scene(2, H_IMG, W_IMG, 16, LANES, levels=3)
+    got = talign.align_batch(*kt.align_args(asc, "cpu"), n_lanes=LANES)
+    ref = hk.align_batch_plain(*kt.align_args(asc, "cpu"), n_lanes=LANES)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert hk.launch_counts() == {"dilate_pyramid": 0,
                                   "distance_transform": 0,
-                                  "track_res_gs": 0, "track_lm_update": 0}
+                                  "track_res_gs": 0, "track_lm_update": 0,
+                                  "align_batch": 0, "warp_patches": 0}
