@@ -9,7 +9,9 @@ Phases (any failure exits nonzero; each prints its results):
   2. build: compiles the Hopper kernels (csrc/*.cu, nvcc sm_90a; a
      library already built from the same sources is reused with the
      ptxas report kept beside it) and prints ptxas's registers, spills
-     and shared memory of K3-K6's kernels (fails on a spill);
+     and shared memory of K3-K6's kernels (K5 and K6 are one kernel;
+     fails on a spill, or when that kernel takes more than
+     ALIGN_MAX_REGISTERS registers);
   3. kernels: K1 (dilate_pyramid, build_track_ref's whole 4-level chain)
      and K2 (distance_transform) against their plain PyTorch versions on
      the card (exact equality required) at the main-path shapes, the fast
@@ -30,19 +32,24 @@ Phases (any failure exits nonzero; each prints its results):
      norm, its accept and carries bit for bit), a row alone bit for bit
      as among the others, and their times at the ladder's and level 0's
      shapes and at the ladder's with L = 4 (K4 per LM iteration: one
-     accept-step launch; its step entry beside it); K5 (align_batch, the
-     matcher's whole alignment loop) and K6 (warp_affine_patches) against
-     their plain versions at the matcher's main-path shapes of both
-     presets (the track step's call, the keyframe's two passes), one lane
-     and L = 4, with a NaN start, a NaN in a patch, a NaN and a singular
-     warp and a host slot past the stack (K5's converged flags agreeing on
+     accept-step launch; its step entry beside it); the matcher's kernel,
+     K5 (align_batch, the whole alignment loop) with K6
+     (warp_affine_patches) as its prologue, in one launch (warp_align),
+     against its plain version (the two plain versions in turn) at the
+     matcher's main-path shapes of both presets (the track step's call,
+     the keyframe's two passes), one lane and L = 4, with a NaN start, a
+     NaN patch, a NaN and a singular warp, rows that walk far from their
+     start, rows at a level's edge and rows on a level the pack cuts
+     short; and K5 alone (given patches) and K6 alone (the
+     patches written) against theirs (K5's converged flags agreeing on
      ALIGN_FLAG_SHARE of the rows but one, px within ALIGN_PX_TOL, its
      failure counts apart by at most the rows whose flags differ, K6's
-     zero and NaN pattern equal and values within PATCH_TOL, both bit for
+     zero and NaN pattern equal and values within PATCH_TOL, all bit for
      bit their CPU emulation tests/k5_align.py; the rows and values that
      differ printed; the plain loop's graphs in a cache of the phase's
-     own, freed before phase 4), and their times at every shape with one
-     lane and at the default pass 1 with L = 4; the CUDA kernels behind the
+     own, freed before phase 4), the fused call's times at every shape
+     with one lane and at the default pass 1
+     with L = 4, K5's and K6's alone at that pass; the CUDA kernels behind the
      windowed BA's dense solve (one window, and four in one batched
      call);
   4. slice: the 30-frame default-preset synthetic KITTI scene (1200x360)
@@ -50,7 +57,8 @@ Phases (any failure exits nonzero; each prints its results):
      requires not lost, >= 2 keyframes, ATE <= 0.10 m, one K1 launch per
      keyframe optimization and build_track_ref call outside it, at
      least one K2 launch, and K3-K6's device counters equal to the
-     evaluations the tracking loops ran and the matcher's calls
+     evaluations the tracking loops ran and the matcher's calls (one
+     fused K5 / K6 launch each, no K5 or K6 launch of its own)
      (`check_track_evaluations`: the same frames with the eager loops,
      where device_loop counts every LM call and iteration and the
      matcher's calls are counted on the host), and no "align" loop;
@@ -234,6 +242,12 @@ UPDATE_TOL = 1e-5
 ALIGN_FLAG_SHARE = 0.999
 ALIGN_PX_TOL = 0.01
 PATCH_TOL = 0.02
+# the fused call's px gate (as in tests/test_torch_cuda.py): a row that
+# converges in both but one iteration later on one side differs by that
+# last step, less than the threshold of 0.03 px; such rows share the
+# flags' budget (read on an H100 80GB HBM3 at 700 W: 1 of 10,240 rows,
+# 0.016 px, in the card tests' four-lane pass 1)
+ALIGN_STEP_TOL = 0.03
 HUBER = 9.0
 ATE_LIMIT_M = 0.10
 # bench.py's default operating point (bench.py:122-132): two scenes
@@ -729,27 +743,85 @@ def check_track_kernels(device):
 
 
 def check_align_kernels(device):
-    """Phase 3 for K5 (align_batch) and K6 (warp_affine_patches) at every
+    """Phase 3 for the fused K5 / K6 kernel (csrc/align_batch.cu) at every
     main-path shape of both presets (kernel_timing.ALIGN_SHAPES: the track
     step's matcher and the keyframe's two passes), one lane and
-    kernel_timing.ALIGN_LANES, on align_scene's and warp_scene's poisoned
-    inputs: K5's converged flags agree with the plain batched loop's on at
-    least ALIGN_FLAG_SHARE of the rows but one, px within ALIGN_PX_TOL
-    where both converge, its per-lane failure counts apart from the plain
-    loop's by at most the rows whose flags differ; K6's
-    patches with the plain version's zero and NaN pattern, values within
-    PATCH_TOL; both bit for bit (NaN payloads aside) against their CPU
-    emulation (tests/k5_align.py); how many rows and values differ
-    printed apart. Device, wrapper and plain times, bound and share at
-    every shape with one lane, and at pass 1 of the default preset with
-    ALIGN_LANES. The plain loop's graphs live in a LoopCache of this
-    phase's own, freed when it ends. Returns per-kernel records (errors
-    over every check, the default preset's pass 1 with one lane timed,
-    the rest beside it)."""
+    kernel_timing.ALIGN_LANES, in each of its modes:
+      * the matcher's call (`warp_align`, K6's patch warp then K5's
+        alignment in one launch) on warp_align_scene's poisoned inputs:
+        converged flags agree with the plain loop's on the kernel's own
+        patches (the patches-only mode's, held to their plain version's
+        zero and NaN pattern and within PATCH_TOL) on at least
+        ALIGN_FLAG_SHARE of the rows but one, px within ALIGN_PX_TOL where
+        both converge (within ALIGN_STEP_TOL on rows that count in the
+        flags' budget), per-lane failure counts apart by at most the rows
+        whose flags differ; there and with kernel_timing.edge_cases'
+        rows (rows that walk far from their start, at a level's edge, on
+        a level the pack cuts short) bit for bit (NaN payloads aside) its
+        CPU emulation (tests/k5_align.py);
+      * K5 alone (`align_batch`, given patches) on align_scene's poisoned
+        inputs, under the same tolerances against `align_batch_plain` and
+        bit for bit its emulation;
+      * K6 alone (`warp_affine_patches`, the patches written) on
+        warp_scene's poisoned inputs: the plain version's zero and NaN
+        pattern, values within PATCH_TOL, bit for bit its emulation.
+    The rows and values that differ printed apart. Device, wrapper and
+    plain times, bound and share of the fused call (on warp_align_scene's
+    inputs without the edge cases), at every shape with one lane and at
+    pass 1 of the default preset with ALIGN_LANES; K5's and K6's alone at
+    that pass with one lane. The plain loop's
+    graphs live in a LoopCache of this phase's own, freed when it ends.
+    Returns per-kernel records: "align_batch" the fused kernel's (its
+    errors over every check, the default preset's pass 1 with one lane
+    timed, the rest beside it, K5 alone under "alone"), "warp_patches"
+    K6 alone's."""
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
     with dl.use(dl.LoopCache()):
         return _check_align_kernels(device)
+
+
+def _hold_align(what, got, ref, emu, lanes, late=False):
+    """Flags, px and failure counts of a K5 launch against its plain
+    version's (tolerances; none when `ref` is None; with `late`, rows
+    whose px differ by more than ALIGN_PX_TOL but at most ALIGN_STEP_TOL
+    count in the flags' budget) and emulation's (bits); printed. Returns
+    (ok, flags that differ, px error, outputs that differ from the
+    emulation)."""
+    import torch
+
+    import k5_align
+    torch.cuda.synchronize()
+    if ref is None:
+        emu_diff = (k5_align.bits_differ(got[0], emu[0])
+                    + int((got[1].cpu() != emu[1]).sum())
+                    + int((got[2].cpu() != emu[2].reshape(lanes, -1, 2)
+                           .sum(1)).sum()))
+        print(f"{what}: {emu_diff} outputs differ from the emulation "
+              f"({int(got[1].sum())} of {got[1].numel()} rows converged)",
+              flush=True)
+        return emu_diff == 0, 0, 0.0, emu_diff
+    agree = got[1] == ref[1]
+    both = got[1] & ref[1]
+    d = (got[0] - ref[0]).abs().amax(-1)
+    err = float(d[both].max())
+    n_diff = int((~agree).sum())
+    n_late = int((both & (d > ALIGN_PX_TOL)).sum()) if late else 0
+    emu_diff = (k5_align.bits_differ(got[0], emu[0])
+                + int((got[1].cpu() != emu[1]).sum())
+                + int((got[2].cpu() != emu[2].reshape(lanes, -1, 2)
+                       .sum(1)).sum()))
+    fail_diff = int((got[2] - ref[2]).abs().sum())
+    ok = (n_diff + n_late <= 1 + (1 - ALIGN_FLAG_SHARE) * agree.numel()
+          and err <= (ALIGN_STEP_TOL if late else ALIGN_PX_TOL)
+          and fail_diff <= n_diff and emu_diff == 0)
+    print(f"{what}: {n_diff} of {agree.numel()} converged flags differ "
+          f"({int(ref[1].sum())} converged), px largest difference {err} px "
+          f"over {int(both.sum())} rows ({n_late} beyond {ALIGN_PX_TOL}), "
+          f"failure counts {got[2].tolist()} "
+          f"against {ref[2].tolist()}; {emu_diff} outputs differ from the "
+          f"emulation; within tolerance={ok}", flush=True)
+    return ok, n_diff, err, emu_diff
 
 
 def _check_align_kernels(device):
@@ -761,51 +833,76 @@ def _check_align_kernels(device):
     import k5_align
 
     rec = {"align_batch": dict(max_abs_err=0.0, flags_differ=0, rows=0,
-                               emulation_differ=0),
+                               emulation_differ=0,
+                               alone=dict(max_abs_err=0.0, flags_differ=0,
+                                          rows=0, emulation_differ=0)),
            "warp_patches": dict(max_abs_err=0.0, values_differ=0,
-                                values=0, emulation_differ=0)}
+                                values=0, emulation_differ=0,
+                                fused_into="align_batch")}
+
+    def tally(r, rows, n_diff, err, emu_diff):
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["flags_differ"] += n_diff
+        r["rows"] += rows
+        r["emulation_differ"] += emu_diff
 
     for preset, ((h, w), calls) in kt.ALIGN_SHAPES.items():
         for call, rows in calls.items():
             for lanes in (1, kt.ALIGN_LANES):
                 where = f"{preset} {call} ({h}, {w}) rows={rows} " \
                     f"lanes={lanes}"
-                # K5
+                # the fused call: against the plain loop on the kernel's
+                # own patches (the patches-only mode's: the same device
+                # code; the K6 check below holds those to their plain
+                # version) and against its emulation, then with the edge
+                # cases against its emulation
+                for cases in (False, True):
+                    fs = kt.warp_align_scene(500 + rows, h, w, rows, lanes,
+                                             poison=True)
+                    if cases:
+                        fs = kt.edge_cases(fs, 500 + rows)
+                    fargs, fkw = kt.warp_align_args(fs, device)
+                    got = hk.warp_align(*fargs, n_lanes=lanes, **fkw)
+                    ref = None
+                    if not cases:
+                        (fwa, fwk), falign = kt.split_warp_align(fargs, fkw)
+                        pg = hk.warp_affine_patches(*fwa, **fwk)
+                        pr = hk.warp_affine_patches_plain(*fwa, **fwk)
+                        nan_r = torch.isnan(pr)
+                        if not (torch.equal(torch.isnan(pg), nan_r)
+                                and float((pg - pr).abs()[~nan_r].max())
+                                <= PATCH_TOL):
+                            _fail(f"warp_align's patches differ from their "
+                                  f"plain version at {where}")
+                        ref = hk.align_batch_plain(*falign(pg), n_lanes=lanes)
+                    cpu = [a.cpu() for a in fargs]
+                    emu = k5_align.warp_align(fkw["quad_stack"].cpu(),
+                                              *cpu[1:5], h, w, *cpu[5:])
+                    what = f"warp_align {where}" + \
+                        (" edge cases" if cases else "")
+                    ok, n_diff, err, emu_diff = _hold_align(
+                        what, got, ref, emu, lanes, late=True)
+                    tally(rec["align_batch"],
+                          got[1].numel() if not cases else 0, n_diff, err,
+                          emu_diff)
+                    if not ok:
+                        _fail(f"warp_align differs from its plain version or "
+                              f"its emulation at {where}")
+                # K5 alone, given patches
                 sc = kt.align_scene(300 + rows, h, w, rows, lanes,
                                     poison=True)
                 args = kt.align_args(sc, device)
                 got = hk.align_batch(*args, n_lanes=lanes)
                 ref = hk.align_batch_plain(*args, n_lanes=lanes)
-                torch.cuda.synchronize()
-                agree = got[1] == ref[1]
-                both = got[1] & ref[1]
-                err = float((got[0] - ref[0]).abs()[both].max())
-                n_diff = int((~agree).sum())
                 emu = k5_align.align_batch(*(a.cpu() for a in args))
-                emu_diff = (k5_align.bits_differ(got[0], emu[0])
-                            + int((got[1].cpu() != emu[1]).sum())
-                            + int((got[2].cpu() != emu[2].reshape(
-                                lanes, -1, 2).sum(1)).sum()))
-                r = rec["align_batch"]
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                r["flags_differ"] += n_diff
-                r["rows"] += agree.numel()
-                r["emulation_differ"] += emu_diff
-                fail_diff = int((got[2] - ref[2]).abs().sum())
-                ok = (n_diff <= 1 + (1 - ALIGN_FLAG_SHARE) * agree.numel()
-                      and err <= ALIGN_PX_TOL and fail_diff <= n_diff
-                      and emu_diff == 0)
-                print(f"align_batch {where}: {n_diff} of {agree.numel()} "
-                      f"converged flags differ ({int(ref[1].sum())} "
-                      f"converged), px largest difference {err} px over "
-                      f"{int(both.sum())} rows, failure counts "
-                      f"{got[2].tolist()} against {ref[2].tolist()}; "
-                      f"{emu_diff} outputs differ from the emulation; "
-                      f"within tolerance={ok}", flush=True)
+                ok, n_diff, err, emu_diff = _hold_align(
+                    f"align_batch {where}", got, ref, emu, lanes)
+                tally(rec["align_batch"]["alone"], got[1].numel(), n_diff,
+                      err, emu_diff)
                 if not ok:
                     _fail(f"align_batch differs from its plain version at "
                           f"{where}")
-                # K6
+                # K6 alone, the patches written
                 ws = kt.warp_scene(400 + rows, h, w, rows, lanes,
                                    poison=True)
                 wargs, kw = kt.warp_args(ws, device)
@@ -835,12 +932,38 @@ def _check_align_kernels(device):
                           f"{where}")
                 if lanes != 1 and (preset, call) != ("default", "pass1"):
                     continue
+                main = (preset, call, lanes) == ("default", "pass1", 1)
+                targs, tkw = kt.warp_align_args(kt.warp_align_scene(
+                    500 + rows, h, w, rows, lanes, poison=True), device)
+                (twa, twk), talign = kt.split_warp_align(targs, tkw)
+                it = kt.align_iterations(talign(
+                    hk.warp_affine_patches_plain(*twa, **twk)))
+                tt = kernel_times(
+                    "warp_align",
+                    lambda: hk.warp_align(*targs, n_lanes=lanes, **tkw),
+                    lambda: hk.warp_align_plain(*targs, n_lanes=lanes,
+                                                **tkw),
+                    kt.warp_align_bound(
+                        rows * lanes, it["valid_rows"],
+                        it["sampled_iterations"], it["quad_rows"],
+                        kt.warp_quad_rows(twa, twk["quad_stack"])),
+                    where)
+                tt.update(shape=[h, w, rows, lanes])
+                if main:
+                    rec["align_batch"].update(tt)
+                else:
+                    rec["align_batch"][f"{preset}_{call}"
+                                       f"{'' if lanes == 1 else f'_lanes{lanes}'}"
+                                       ] = tt
+                    continue
                 t5 = kernel_times("align_batch",
                            lambda: hk.align_batch(*args, n_lanes=lanes),
                            lambda: hk.align_batch_plain(*args,
                                                         n_lanes=lanes),
-                           kt.align_batch_bound(
-                               rows * lanes, *kt.align_iterations(args)),
+                           kt.align_batch_bound(rows * lanes, *(
+                               kt.align_iterations(args)[k] for k in (
+                                   "valid_rows", "sampled_iterations",
+                                   "quad_rows"))),
                            where)
                 k6_rows = kt.warp_quad_rows(wargs, kw["quad_stack"])
                 t6 = kernel_times("warp_patches",
@@ -849,14 +972,9 @@ def _check_align_kernels(device):
                                                                 **kw),
                            kt.warp_patches_bound(rows * lanes, k6_rows),
                            where)
-                for name, tt in (("align_batch", t5), ("warp_patches", t6)):
-                    tt["shape"] = [h, w, rows, lanes]
-                    if (preset, call, lanes) == ("default", "pass1", 1):
-                        rec[name].update(tt)
-                    else:
-                        rec[name][f"{preset}_{call}"
-                                  f"{'' if lanes == 1 else f'_lanes{lanes}'}"
-                                  ] = tt
+                rec["align_batch"]["alone"].update(t5, shape=[h, w, rows,
+                                                              lanes])
+                rec["warp_patches"].update(t6, shape=[h, w, rows, lanes])
     return rec
 
 
@@ -917,18 +1035,22 @@ def count_builds():
     return n_build
 
 
-# K3-K6's kernel entries (a substring of each mangled name)
+# K3-K6's kernel entries (a substring of each mangled name); K5 and K6
+# are one kernel
 KERNEL_ENTRIES = {"track_res_gs": ("track_res_gs_kernel",),
                   "track_lm_update": ("lm_step_kernel",
                                       "lm_accept_step_kernel"),
-                  "align_batch": ("align_batch_kernel",),
-                  "warp_patches": ("warp_patches_kernel",)}
+                  "align_batch": ("warp_align_kernel",),
+                  "warp_patches": ("warp_align_kernel",)}
+# the fused K5 / K6 kernel's registers a thread (K5 alone used 80)
+ALIGN_MAX_REGISTERS = 80
 
 
 def kernel_usage(usage):
     """Phase 2: the ptxas report (registers, spills, shared memory) of
     each K3-K6 kernel entry, printed; fails when one spills or is missing
-    from the report."""
+    from the report, or when the fused K5 / K6 kernel takes more than
+    ALIGN_MAX_REGISTERS registers."""
     out = {}
     for name, entries in KERNEL_ENTRIES.items():
         out[name] = {}
@@ -937,31 +1059,50 @@ def kernel_usage(usage):
             if len(found) != 1 or "registers" not in found[0]:
                 _fail(f"ptxas reported no usage for {entry}")
             out[name][entry] = found[0]
-            print(f"ptxas {entry}: {json.dumps(found[0])}", flush=True)
+            print(f"ptxas {name} ({entry}): {json.dumps(found[0])}",
+                  flush=True)
             if found[0].get("spill_stores", 1) or \
                     found[0].get("spill_loads", 1):
                 _fail(f"{entry} spills registers")
+            if entry == "warp_align_kernel" and \
+                    found[0]["registers"] > ALIGN_MAX_REGISTERS:
+                _fail(f"{entry} takes {found[0]['registers']} registers")
     return out
 
 
 def _track_launches(what, launched):
     """K3-K6's device counts of a main-path run (`device_launches`): K3,
-    both of K4's entry points, K5 and K6 launched, K4's accept-step (one
-    per LM iteration) at least as often as its step (one per LM call)."""
+    both of K4's entry points and the fused K5 / K6 kernel launched, K4's
+    accept-step (one per LM iteration) at least as often as its step (one
+    per LM call), and every K5 and K6 launch a fused one (no standalone
+    patch warp or alignment on the main path)."""
     if not (launched["track_res_gs"] > 0 and launched["lm_step"] > 0
             and launched["lm_accept_step"] >= launched["lm_step"]
-            and launched["align_batch"] > 0
-            and launched["warp_patches"] > 0):
-        _fail(f"{what}: K3, K4, K5 or K6 not launched, or K4's accept-step "
-              f"less often than its step ({launched})")
+            and launched["warp_align"] > 0
+            and launched["align_batch"] == launched["warp_align"]
+            and launched["warp_patches"] == launched["warp_align"]):
+        _fail(f"{what}: K3, K4 or the fused K5 / K6 not launched, K4's "
+              f"accept-step less often than its step, or a K5 or K6 launch "
+              f"not fused ({launched})")
 
 
-# the matcher's kernel wrappers, as models/matcher calls them: K5, K6
-MATCHER_KERNELS = {"align_batch": "align_batch",
-                   "warp_patches": "warp_affine_patches"}
+# the matcher's kernel wrapper, as models/matcher calls it: the fused K5 /
+# K6 call
+MATCHER_KERNELS = {"warp_align": "warp_align"}
 
 
-def check_track_evaluations(what, launched, drive):
+def match_diags(systems):
+    """Each system's last keyframe optimization's matcher diagnostics
+    (`last_match_diag`: pass 1's in-bounds, candidate and matched counts
+    and the fused kernel's two failure counts; `last_match_diag_p2`, pass
+    2's summed over its targets) as int lists, None before a keyframe."""
+    return [[None if d is None else np.asarray(d).tolist()
+             for d in (getattr(fs, "last_match_diag", None),
+                       getattr(fs, "last_match_diag_p2", None))]
+            for fs in systems]
+
+
+def check_track_evaluations(what, launched, drive, main_diags):
     """The main path's K3-K6 launches (`launched`, the device counters of a
     run with stage programs) against the evaluations its loops ran and
     the matcher calls it made: `drive()` runs the same frames again with
@@ -969,19 +1110,24 @@ def check_track_evaluations(what, launched, drive):
     decisions bit for bit; the keyframe program's conds read on the
     host), where device_loop counts every tracking LM call and iteration
     and the cutoff loop's iterations, and the track step's calls and the
-    matcher's `align_batch` and `warp_affine_patches` calls (each of at
-    least 8 rows: one launch) are counted on the host. Per track step K3
-    runs once per LM call (its first evaluation), once per LM and cutoff
-    iteration and once for the struct-pose veto; K4's step once per LM
-    call and its accept-step once per LM iteration; K5 and K6 once per
-    matcher call. Both runs' counters must equal that."""
+    matcher's `warp_align` calls (each of at least 8 rows: one launch)
+    are counted on the host. Per track step K3 runs once per LM call (its
+    first evaluation), once per LM and cutoff iteration and once for the
+    struct-pose veto; K4's step once per LM call and its accept-step once
+    per LM iteration; the fused K5 / K6 kernel once per matcher call (so
+    K5's and K6's counts are that too). Both runs' counters must equal
+    that. `drive()` returns its systems, whose last keyframe's matcher
+    diagnostics (`match_diags`: the failure counts the fused kernel adds
+    up after its zeroing kernel, in the main run from a replay of the
+    keyframe program, pass 2's inside its IF nodes) must equal the main
+    run's `main_diags` bit for bit."""
     from sdv_loam_tpu_torch.models import matcher
     from sdv_loam_tpu_torch.ops import frame_step
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
     _track_launches(what, launched)
-    calls = dict(track=0, align_batch=0, warp_patches=0)
+    calls = dict(track=0, warp_align=0)
     patched = {(frame_step, "_track_program"): "track",
                **{(matcher, fn): k for k, fn in MATCHER_KERNELS.items()}}
     orig = {key: getattr(*key) for key in patched}
@@ -997,7 +1143,7 @@ def check_track_evaluations(what, launched, drive):
         setattr(*key, counted(key))
     try:
         with dl.reference():
-            drive()
+            eager_diags = match_diags(drive())
     finally:
         for key, fn in orig.items():
             setattr(*key, fn)
@@ -1009,14 +1155,16 @@ def check_track_evaluations(what, launched, drive):
             "track_lm_update": lm.get("calls", 0) + lm.get("iters", 0),
             "lm_step": lm.get("calls", 0),
             "lm_accept_step": lm.get("iters", 0),
-            "align_batch": calls["align_batch"],
-            "warp_patches": calls["warp_patches"]}
+            "align_batch": calls["warp_align"],
+            "warp_patches": calls["warp_align"],
+            "warp_align": calls["warp_align"]}
     rec = dict(main_path={k: launched[k] for k in want},
                eager_run={k: ref[k] for k in want}, evaluations=want,
                lm_calls=lm.get("calls", 0), lm_iters=lm.get("iters", 0),
                cutoff_iters=cut.get("iters", 0), track_steps=calls["track"],
-               matcher_calls=calls["align_batch"],
-               align_loops=c.get("align", {}).get("calls", 0))
+               matcher_calls=calls["warp_align"],
+               align_loops=c.get("align", {}).get("calls", 0),
+               match_diags=dict(main_path=main_diags, eager_run=eager_diags))
     print(f"K3-K6 launches against the loops' evaluations and the matcher "
           f"calls, {what}: " + json.dumps(rec), flush=True)
     if not rec["main_path"] == rec["eager_run"] == want:
@@ -1024,6 +1172,10 @@ def check_track_evaluations(what, launched, drive):
               "loops ran or the matcher calls")
     if rec["align_loops"]:
         _fail(f"{what}: an \"align\" loop ran on the card")
+    if main_diags != eager_diags or any(None in d for d in main_diags):
+        _fail(f"{what}: the last keyframe's matcher diagnostics differ "
+              f"between the programs and the eager run, or are missing "
+              f"({main_diags} against {eager_diags})")
     return rec
 
 
@@ -1410,8 +1562,10 @@ def run_slice(device):
         for fr in scene.frames:
             eager.add_active_frame(*fr)
         eager_traj.append(eager.get_trajectory())
+        return [eager]
     summary["track_check"] = dict(
-        check_track_evaluations("slice", track_launched, eager_slice),
+        check_track_evaluations("slice", track_launched, eager_slice,
+                                match_diags([fs])),
         trajectory_equal=bool(np.array_equal(eager_traj[0], est)))
     print("slice: " + json.dumps(summary), flush=True)
     if fs.is_lost:
@@ -1634,7 +1788,8 @@ def run_fleet(device):
                    launches=launches, kernel_lanes=kernel_lanes,
                    track_launches=track_launched,
                    stage_ms_per_frame=stage_ms, lm_iters=lm, loops=loops,
-                   kf_program=kf_prog, lanes=[])
+                   kf_program=kf_prog, match_diags=match_diags(fleet.systems),
+                   lanes=[])
         for x, fs, traj in zip(lanes, fleet.systems, trajs):
             dt = dr = 0.0
             for a, b in zip(traj, refs[x]["traj"]):
@@ -1676,9 +1831,10 @@ def run_fleet(device):
         eager = MultiSystem([system(x) for x in lanes], batch_track=True)
         for i in range(n):
             eager.add_frames([scenes[x][1][i] for x in lanes])
+        return eager.systems
     track_check = check_track_evaluations(
         "batched lockstep", results["lockstep_batched"]["track_launches"],
-        eager_lockstep)
+        eager_lockstep, results["lockstep_batched"]["match_diags"])
 
     # the batched lockstep once more, apart from the timed compositions
     # (whose peak memory the records' clones would raise), in the stage
@@ -2295,8 +2451,9 @@ def fast_child(device, frames_path):
                 hist.update({k: dict(sorted(v.items()))
                              for k, v in sorted(dl.HIST.items())})
             it_fs.add_active_frame(*fr)
+        return [it_fs]
     rec["track_check"] = check_track_evaluations(
-        "fast preset", track_launched, eager_fast)
+        "fast preset", track_launched, eager_fast, match_diags([fs]))
     rec["loop_iterations"] = hist
     print(f"phase 8 (a): loop iterations over frames 0-"
           f"{FAST_ITER_FRAMES - 1} (calls per count), CHUNK {dl.CHUNK}: "
@@ -2670,15 +2827,20 @@ def main():
     ]
     # K3-K6: no Pallas kernel of the JAX package; they stand for its
     # XLA-fused calc_res_gs and LM body, and its matcher's align_batch (a
-    # while_loop) and warp_affine_patches
-    for name, replaces in (
-            ("track_res_gs", "sdv_loam_tpu/ops/photometric.py:162"),
-            ("track_lm_update", "sdv_loam_tpu/ops/photometric.py:310"),
-            ("align_batch", "sdv_loam_tpu/ops/align.py:319"),
-            ("warp_patches", "sdv_loam_tpu/ops/align.py:147")):
+    # while_loop) and warp_affine_patches, which are one kernel here (K6
+    # the prologue of K5's launch: each main-path launch runs both, and
+    # K6's numbers are its patches-only mode's)
+    for name, source, replaces in (
+            ("track_res_gs", "track_res_gs",
+             "sdv_loam_tpu/ops/photometric.py:162"),
+            ("track_lm_update", "track_lm_update",
+             "sdv_loam_tpu/ops/photometric.py:310"),
+            ("align_batch", "align_batch", "sdv_loam_tpu/ops/align.py:319"),
+            ("warp_patches", "align_batch",
+             "sdv_loam_tpu/ops/align.py:147")):
         kernels.append(dict(
             name=name, route="cuda",
-            source=f"sdv_loam_tpu_torch/csrc/{name}.cu", replaces=replaces,
+            source=f"sdv_loam_tpu_torch/csrc/{source}.cu", replaces=replaces,
             launches=summary["launches"][name],
             launches_phase5={k: r["track_launches"][name]
                              for k, r in fleet["compositions"].items()},

@@ -16,9 +16,10 @@ sum-pool between, as its `build_track_ref` did) and the single-map K2
 instead (`compare_track`, against the baseline's `track_res_gs`,
 `lm_update_step` and one LM iteration's K4 launches: its
 `lm_update_accept_step`, or, in a checkout without it, its
-`lm_update_accept` then `lm_update_step`). With `--align`, K5 and K6
-(`compare_align`, against the baseline's own K5 and K6 where it has them,
-else its `align_batch` loop and `warp_affine_patches` from its
+`lm_update_accept` then `lm_update_step`). With `--align`, the fused
+K5 / K6 call (`compare_align`, against the baseline's
+`warp_affine_patches` then `align_batch`: its own K6 and K5 where it has
+them, else its tensor operations and batched loop from its
 `ops/align.py`, each run as a stage program), then the baseline's eager
 `align_batch` calls over chip_smoke.py phase 4's frames, with the loop's
 iterations where it has the loop (`baseline_align_counts`). Each
@@ -159,6 +160,20 @@ def align_batch_bound(rows, valid_rows, sampled_iters, quad_rows):
     return _bound(rows * ALIGN_ROW_BYTES + QUAD_ROW_BYTES * quad_rows,
                   ALIGN_SETUP_OPS * valid_rows
                   + ALIGN_ITER_OPS * sampled_iters)
+
+
+def warp_align_bound(rows, valid_rows, sampled_iters, quad_rows,
+                     warp_quad_rows):
+    """(bound_ms, bound_by) of one fused K5 / K6 launch (`warp_align`):
+    K5's and K6's work on the same rows (`align_batch_bound`,
+    `warp_patches_bound`: each distinct quad row of the target pyramids
+    and of the host frames once) without the border patch's 400 bytes a
+    row, which the fused kernel keeps on chip (K6 wrote them, K5 read
+    them)."""
+    return _bound(rows * (ALIGN_ROW_BYTES + WARP_ROW[0] - 2 * 400)
+                  + QUAD_ROW_BYTES * (quad_rows + warp_quad_rows),
+                  ALIGN_SETUP_OPS * valid_rows
+                  + ALIGN_ITER_OPS * sampled_iters + rows * WARP_ROW[1])
 
 
 def warp_patches_bound(rows, quad_rows):
@@ -372,7 +387,8 @@ def align_scene(seed, h, w, rows, lanes=1, levels=ALIGN_LEVELS,
     ~0.8 px; a quarter are edgelets; some rows are invalid and some start
     at the level's edge (they walk out). With `poison`, row 0 starts at
     NaN and row 1's patch holds a NaN. Returns a dict of arrays (the
-    arguments of `align_batch`, in order, under their names)."""
+    arguments of `align_batch`, in order, under their names, and each
+    row's true point on its level, `px_true`)."""
     rng = np.random.default_rng(seed)
     quads, offs, wids, heis, levs = [], [], [], [], []
     base = 0
@@ -401,6 +417,7 @@ def align_scene(seed, h, w, rows, lanes=1, levels=ALIGN_LEVELS,
     ang = rng.uniform(0, 2 * np.pi, M)
     direction = np.stack([np.cos(ang), np.sin(ang)], -1).astype(np.float32)
     by, bx = np.mgrid[0:10, 0:10].astype(np.float64) - 5
+    true = np.zeros((M, 2))
     for r in range(M):
         ln, lv = r // rows, int(lvl[r])
         img = levs[ln][lv]
@@ -413,6 +430,7 @@ def align_scene(seed, h, w, rows, lanes=1, levels=ALIGN_LEVELS,
         border[r] = ((patch - aff_b[r]) / aff_a[r]
                      + 0.5 * rng.standard_normal((10, 10)))
         px0[r] = (x + rng.normal(0, 0.8), y + rng.normal(0, 0.8))
+        true[r] = (x, y)
     sc = dict(quad_pyr=np.concatenate(quads).astype(np.float32),
               offsets=np.array(offs, np.int64),
               widths=np.array(wids, np.int64),
@@ -421,7 +439,7 @@ def align_scene(seed, h, w, rows, lanes=1, levels=ALIGN_LEVELS,
                             + lvl).astype(np.int64),
               border_patch=border, px_init_scaled=px0, direction=direction,
               is_edge=rng.random(M) < 0.25, aff_a=aff_a, aff_b=aff_b,
-              valid=rng.random(M) < 0.92)
+              valid=rng.random(M) < 0.92, px_true=true)
     if poison:
         sc["px_init_scaled"][0] = np.nan
         sc["valid"][:2] = True
@@ -494,14 +512,122 @@ def warp_args(sc, device, quad=True):
             t["search_level"]), kw
 
 
+def warp_align_scene(seed, h, w, rows, lanes=1, levels=ALIGN_LEVELS,
+                     slots=3, poison=False):
+    """Seeded numpy inputs of the fused call (`warp_align`): `align_scene`
+    (the target pyramids, level tables and alignment inputs; its border
+    patches are not read) and, for the patch warp, a stack of
+    `lanes * slots` host frames (h, w, 3), each its lane's level-0 image
+    with noise and its central differences; each row's host slot in its
+    lane's frames, its true point mapped to level 0 as `px_ref` (the
+    matcher's level scaling undone), a warp near the identity (a small
+    rotation with shear) and its search level as the warp's level, so
+    that the warped patch resembles the target around the true point.
+    With `poison`, row 0 starts at NaN, row 1's host slot lies past the
+    stack (a NaN patch), row 2's warp is NaN and row 3's singular, all
+    four valid. Returns align_scene's dict with `stack`, `host_idx`,
+    `px_ref`, `A_cur_ref` and `warp_level` added."""
+    sc = align_scene(seed, h, w, rows, lanes, levels=levels)
+    rng = np.random.default_rng(seed + 1)
+    quad = sc["quad_pyr"]
+    frames = []
+    for ln in range(lanes):
+        o = int(sc["offsets"][ln * levels])
+        i0 = quad[o:o + h * w, 0].reshape(h, w)
+        for _ in range(slots):
+            im = (i0 + 2 * rng.standard_normal((h, w))).astype(np.float32)
+            gy, gx = np.gradient(im)
+            frames.append(np.stack([im, gx, gy], -1).astype(np.float32))
+    M = lanes * rows
+    lvl = sc["search_level"] - np.repeat(np.arange(lanes), rows) * levels
+    scale = 2.0 ** lvl
+    px_ref = (sc["px_true"] * scale[:, None]
+              + 0.5 * (scale[:, None] - 1)).astype(np.float32)
+    th = rng.normal(0, 0.05, M)
+    shear = rng.normal(0, 0.03, M)
+    A = np.stack([np.stack([np.cos(th), -np.sin(th) + shear], -1),
+                  np.stack([np.sin(th), np.cos(th)], -1)],
+                 1).astype(np.float32)
+    host = (np.repeat(np.arange(lanes), rows) * slots
+            + rng.integers(0, slots, M)).astype(np.int64)
+    if poison:
+        sc["px_init_scaled"][0] = np.nan
+        host[1] = lanes * slots
+        A[2] = np.nan
+        A[3] = [[1.0, 2.0], [2.0, 4.0]]
+        sc["valid"][:4] = True
+    sc.update(stack=np.stack(frames), host_idx=host, px_ref=px_ref,
+              A_cur_ref=A, warp_level=lvl.astype(np.int64))
+    return sc
+
+
+def edge_cases(sc, seed, levels=ALIGN_LEVELS):
+    """Rows at the edges of K5's sampling, set in an `align_scene` or
+    `warp_align_scene` dict (in place; at least 30 rows a lane): lane 0's
+    rows 10-19 start 5.5-6.5 px from their level's right and bottom edges
+    (their samples clamp there or they walk out of the level), rows 20-29
+    start 5-7 px from their true point (they walk far from their start),
+    the last lane's last six rows start 4.5-6 px above the bottom of its
+    last level, and the pack ends three pixel rows before that level does
+    (samples there read NaN). Returns the dict."""
+    rng = np.random.default_rng(seed)
+    lvl, px0 = sc["search_level"], sc["px_init_scaled"]
+    wid, hei = sc["widths"], sc["heights"]
+    rows = sc["valid"].size // (sc["offsets"].size // levels)
+    for r in range(10, 20):
+        px0[r] = (wid[lvl[r]] - 6.5 + rng.uniform(0, 1),
+                  hei[lvl[r]] - 6.5 + rng.uniform(0, 1))
+    ang = rng.uniform(0, 2 * np.pi, 10)
+    dist = rng.uniform(5, 7, 10)
+    px0[20:30] = sc["px_true"][20:30] + np.stack(
+        [dist * np.cos(ang), dist * np.sin(ang)], -1)
+    last = sc["offsets"].size - 1
+    wl, hl = int(wid[last]), int(hei[last])
+    for r in range(sc["valid"].size - 6, sc["valid"].size):
+        lvl[r] = last
+        px0[r] = (rng.uniform(10, wl - 10), hl - 6 + rng.uniform(0, 1.5))
+    sc["valid"][10:30] = True
+    sc["valid"][-6:] = True
+    assert rows >= 30
+    sc["quad_pyr"] = sc["quad_pyr"][:int(sc["offsets"][last]) + (hl - 3) * wl]
+    if "warp_level" in sc:
+        sc["warp_level"][-6:] = last % levels
+    return sc
+
+
+WARP_ALIGN_ARGS = ("stack", "host_idx", "px_ref", "A_cur_ref", "warp_level",
+                   "quad_pyr", "offsets", "widths", "heights",
+                   "search_level", "px_init_scaled", "direction", "is_edge",
+                   "aff_a", "aff_b", "valid")
+
+
+def warp_align_args(sc, device):
+    """`warp_align_scene`'s arrays as `warp_align`'s positional arguments
+    on `device`, and its keywords (`quad_stack`, the stack's quad
+    pack)."""
+    from sdv_loam_tpu_torch.ops.hopper_kernels import _stack_quads
+    args = tuple(torch.as_tensor(sc[k], device=device)
+                 for k in WARP_ALIGN_ARGS)
+    return args, dict(quad_stack=_stack_quads(args[0]))
+
+
+def split_warp_align(args, kw):
+    """`warp_align`'s arguments as (`warp_affine_patches`'s arguments and
+    keywords, a function of the patches giving `align_batch`'s positional
+    arguments)."""
+    return (args[:5], kw), lambda patches: (*args[5:10], patches,
+                                            *args[10:])
+
+
 def align_iterations(args, n_iter=10):
-    """(valid rows, sampled iterations, distinct quad rows) of K5 on `args`
-    (`align_batch`'s positional arguments), from the plain loop: the
-    iterations in which a row ran and was in bounds, summed over rows, and
-    how many distinct rows of the quad pack those iterations sample (a
-    row outside the pack reads no memory)."""
+    """K5's work on `args` (`align_batch`'s positional arguments), from the
+    plain loop, as a dict: `valid_rows`; `sampled_iterations`, the
+    iterations in which a row ran and was in bounds, summed over rows;
+    `quad_rows`, how many distinct rows of the quad pack those iterations
+    sample (a row outside the pack reads no memory)."""
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     x, st = hk.align_setup(*args)
+    T = x["quad_pyr"].shape[0]
     n, idx = 0, []
     for _ in range(n_iter):
         running = st["alive"] & x["valid"] & ~st["conv"]
@@ -511,11 +637,12 @@ def align_iterations(args, n_iter=10):
         act = running & inb
         q = (x["base"] + torch.floor(yy).to(torch.int64) * x["wv"]
              + torch.floor(xx).to(torch.int64))[act]
-        idx.append(q[(q >= 0) & (q < x["quad_pyr"].shape[0])])
+        idx.append(q[(q >= 0) & (q < T)])
         st, _ = hk.align_body(x, st)
         n += int(act.sum())
     quad_rows = int(torch.unique(torch.cat(idx)).numel()) if idx else 0
-    return int(x["valid"].sum()), n, quad_rows
+    return dict(valid_rows=int(x["valid"].sum()), sampled_iterations=n,
+                quad_rows=quad_rows)
 
 
 def warp_quad_rows(wargs, quad_stack):
@@ -813,22 +940,19 @@ def _replay_ms(stage, fn, inputs, static, n=20):
     return t["ms"] / t["replays"], out
 
 
-def _align_old(x, n_lanes, mod):
-    return mod.align_batch(*x, n_lanes=n_lanes)
+def _fused_old(x, n_lanes, mod):
+    """The baseline's matcher call: its fused call where it has one, else
+    its patch warp, then its alignment."""
+    if hasattr(mod, "warp_align"):
+        return mod.warp_align(*x["a"], n_lanes=n_lanes, quad_stack=x["quad"])
+    (wargs, wkw), align = split_warp_align(x["a"], dict(quad_stack=x["quad"]))
+    patches = mod.warp_affine_patches(*wargs, **wkw)
+    return mod.align_batch(*align(patches), n_lanes=n_lanes)
 
 
-def _align_new(x, n_lanes):
+def _fused_new(x, n_lanes):
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
-    return hk.align_batch(*x, n_lanes=n_lanes)
-
-
-def _warp_old(x, mod):
-    return mod.warp_affine_patches(*x["a"], quad_stack=x["quad"])
-
-
-def _warp_new(x):
-    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
-    return hk.warp_affine_patches(*x["a"], quad_stack=x["quad"])
+    return hk.warp_align(*x["a"], n_lanes=n_lanes, quad_stack=x["quad"])
 
 
 def _baseline_align(root):
@@ -843,25 +967,40 @@ def _baseline_align(root):
     return _load_ops(root, "align"), "loop"
 
 
+def _bits_differ(a, b):
+    """Elements of two float32 tensors whose bits differ, NaN against NaN
+    counted equal (the card makes NaN payloads of its own)."""
+    same = (a.view(torch.int32) == b.view(torch.int32)) | \
+        (torch.isnan(a) & torch.isnan(b))
+    return int((~same).sum())
+
+
+# the iteration caps of `compare_align`'s sweep at the default preset's
+# pass 1: device time against n_iter gives an iteration's cost and the
+# setup's
+ALIGN_ITER_SWEEP = (0, 1, 2, 5, 10)
+
+
 def compare_align(baseline_root, dev):
-    """K5 and K6 against a baseline checkout's `align_batch` and
-    `warp_affine_patches` (`_baseline_align`: its own K5 and K6 where it
-    has them, else its batched loop and tensor operations) at
-    ALIGN_SHAPES (one lane; the default preset's pass 1 also with
-    ALIGN_LANES), on align_scene's and warp_scene's inputs: converged
-    flags that differ, px's largest difference where both converge,
-    patches' largest difference; then each as a stage program
-    (`device_loop.program`, as the track and keyframe programs run them:
-    a baseline loop is a first iteration and a WHILE node of one), the
-    replay's device ms in the order baseline, current, current, baseline,
-    and K5's and K6's device time alone (`device_ms`) with their
-    bounds."""
+    """The fused K5 / K6 call (`warp_align`) against a baseline
+    checkout's `warp_affine_patches` then `align_batch` (`_baseline_align`:
+    its own K6 and K5 where it has them, else its tensor operations and
+    batched loop) at ALIGN_SHAPES (one lane; the default preset's pass 1
+    also with ALIGN_LANES), on warp_align_scene's inputs: outputs whose
+    bits differ (px, NaN against NaN equal; flags; failure counts),
+    converged rows; then each as a stage program (`device_loop.program`,
+    as the track and keyframe programs run them), the replay's device ms,
+    and each call's device time (`device_ms`: the baseline's two kernels
+    together), in the order baseline, current, current, baseline; the
+    fused call's bound; at the default preset's pass
+    1 with one lane both calls' device time at each iteration cap of
+    ALIGN_ITER_SWEEP."""
     from functools import partial
 
     from sdv_loam_tpu_torch.ops import hopper_kernels as hk
     from sdv_loam_tpu_torch.utils import device_loop as dl
     old, kind = _baseline_align(baseline_root)
-    print(f"baseline align_batch / warp_affine_patches: {kind}", flush=True)
+    print(f"baseline warp_affine_patches + align_batch: {kind}", flush=True)
     hk.build_library()
     out = []
     with dl.use(dl.LoopCache()):
@@ -870,51 +1009,54 @@ def compare_align(baseline_root, dev):
                 for lanes in (1, ALIGN_LANES):
                     if lanes != 1 and (preset, call) != ("default", "pass1"):
                         continue
-                    sc = align_scene(500 + rows, h, w, rows, lanes)
-                    args = align_args(sc, dev)
-                    ws = warp_scene(600 + rows, h, w, rows, lanes)
-                    wargs, kw = warp_args(ws, dev)
-                    a_old, a_new = old.align_batch(*args, n_lanes=lanes), \
-                        hk.align_batch(*args, n_lanes=lanes)
-                    both = a_old[1] & a_new[1]
-                    p_old = old.warp_affine_patches(*wargs, **kw)
-                    p_new = hk.warp_affine_patches(*wargs, **kw)
+                    args, kw = warp_align_args(warp_align_scene(
+                        500 + rows, h, w, rows, lanes), dev)
+                    x = dict(a=args, quad=kw["quad_stack"])
+                    f_old = partial(_fused_old, mod=old)
+                    a_old = f_old(x, lanes)
+                    a_new = _fused_new(x, lanes)
+                    (wargs, wkw), align = split_warp_align(args, kw)
+                    it = align_iterations(align(
+                        hk.warp_affine_patches_plain(*wargs, **wkw)))
                     rec = dict(
                         preset=preset, call=call, rows=rows, lanes=lanes,
                         baseline=kind,
-                        k5_flags_differ=int((a_old[1] != a_new[1]).sum()),
-                        k5_converged=int(a_old[1].sum()),
-                        k5_px_max_diff=float((a_old[0] - a_new[0]).abs()
-                                             [both].max()),
-                        k5_fails=[a_old[2].tolist(), a_new[2].tolist()],
-                        k6_max_diff=float((p_old - p_new).abs().max()))
-                    valid_rows, iters, quad_rows = align_iterations(args)
-                    k6_quad_rows = warp_quad_rows(wargs, kw["quad_stack"])
-                    rec.update(k5_sampled_iterations=iters,
-                               k5_quad_rows=quad_rows,
-                               k6_quad_rows=k6_quad_rows,
-                               k5_bound_ms=align_batch_bound(
-                                   rows * lanes, valid_rows, iters,
-                                   quad_rows)[0],
-                               k6_bound_ms=warp_patches_bound(
-                                   rows * lanes, k6_quad_rows)[0])
+                        px_differ=_bits_differ(a_old[0], a_new[0]),
+                        flags_differ=int((a_old[1] != a_new[1]).sum()),
+                        fails_differ=int((a_old[2] != a_new[2]).sum()),
+                        converged=int(a_new[1].sum()),
+                        fails=[a_old[2].tolist(), a_new[2].tolist()],
+                        sampled_iterations=it["sampled_iterations"],
+                        bound_ms=warp_align_bound(
+                            rows * lanes, it["valid_rows"],
+                            it["sampled_iterations"], it["quad_rows"],
+                            warp_quad_rows(wargs, kw["quad_stack"]))[0])
                     tag = f"{preset}_{call}_{lanes}"
-                    fa_old = partial(_align_old, mod=old)
-                    wx = dict(a=wargs, quad=kw["quad_stack"])
-                    fw_old = partial(_warp_old, mod=old)
-                    for side, fa, fw in (("baseline", fa_old, fw_old),
-                                         ("current", _align_new, _warp_new),
-                                         ("current", _align_new, _warp_new),
-                                         ("baseline", fa_old, fw_old)):
-                        rec.setdefault(f"k5_{side}_replay_ms", []).append(
-                            _replay_ms(f"a5_{side}_{tag}", fa, args,
+                    for side, fn in (("baseline", f_old),
+                                     ("current", _fused_new),
+                                     ("current", _fused_new),
+                                     ("baseline", f_old)):
+                        rec.setdefault(f"{side}_replay_ms", []).append(
+                            _replay_ms(f"wa_{side}_{tag}", fn, x,
                                        dict(n_lanes=lanes))[0])
-                        rec.setdefault(f"k6_{side}_replay_ms", []).append(
-                            _replay_ms(f"a6_{side}_{tag}", fw, wx, {})[0])
-                    rec["k5_device_ms"] = device_ms(
-                        lambda: hk.align_batch(*args, n_lanes=lanes))
-                    rec["k6_device_ms"] = device_ms(
-                        lambda: hk.warp_affine_patches(*wargs, **kw))
+                        rec.setdefault(f"{side}_device_ms", []).append(
+                            device_ms(lambda: fn(x, lanes)))
+                    if (preset, call, lanes) == ("default", "pass1", 1):
+                        sweep = {}
+                        for n in ALIGN_ITER_SWEEP:
+                            for side, fn in (("baseline", f_old),
+                                             ("current", _fused_new)):
+                                def run(fn=fn, n=n):
+                                    if fn is _fused_new:
+                                        return hk.warp_align(
+                                            *args, n_iter=n, **kw)
+                                    patches = old.warp_affine_patches(
+                                        *wargs, **wkw)
+                                    return old.align_batch(
+                                        *align(patches), n_iter=n)
+                                sweep.setdefault(str(n), {})[side] = \
+                                    device_ms(run)
+                        rec["n_iter_device_ms"] = sweep
                     print(json.dumps(rec), flush=True)
                     out.append(rec)
     return out
@@ -990,7 +1132,7 @@ def _pyr_equal(a, b):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--baseline", required=True,
+    ap.add_argument("--baseline",
                     help="root of the checkout to compare with")
     ap.add_argument("--out", default=None)
     ap.add_argument("--track", action="store_true",
@@ -999,6 +1141,8 @@ def main():
                     help="K5 and K6 instead of K1 and K2, and the "
                     "baseline's align loop counts over phase 4's frames")
     args = ap.parse_args()
+    if args.baseline is None:
+        ap.error("--baseline is required")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -262,14 +262,16 @@ def lm_iteration_ops() -> dict:
 
 
 def align_ops(device="cpu") -> dict:
-    """Ops one matcher `align_batch` call and one `warp_affine_patches`
+    """Ops one matcher call (`warp_align`: the patch warp and the
+    alignment), one `align_batch` call and one `warp_affine_patches`
     call dispatch, views excluded, at M = 256 candidate rows
-    (`kernel_timing.align_scene` / `warp_scene` at 96x320, one lane,
-    n_iter 10): on the CPU the plain versions' (the batched loop op by op,
-    what the card ran before K5 and K6), with the loop's iterations and
-    the ops of one iteration (`align_body`); on CUDA the wrappers', each
-    kernel launch counted as one op beside the ops it dispatches (the
-    allocations of its outputs among them, listed by name)."""
+    (`kernel_timing.warp_align_scene`, `align_scene`, `warp_scene` at
+    96x320, one lane, n_iter 10): on the CPU the plain versions' (the
+    batched loop op by op, what the card ran before K5 and K6), with the
+    loop's iterations and the ops of one iteration (`align_body`); on CUDA
+    the wrappers', each kernel launch counted as one op beside the ops it
+    dispatches (the allocations of its outputs among them, listed by
+    name)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
@@ -294,9 +296,12 @@ def align_ops(device="cpu") -> dict:
                                              for n in sorted(set(names))})
     args = kt.align_args(kt.align_scene(0, 96, 320, 256, levels=3), device)
     wargs, kw = kt.warp_args(kt.warp_scene(1, 96, 320, 256), device)
-    device_loop.reset_counts()
+    fargs, fkw = kt.warp_align_args(kt.warp_align_scene(2, 96, 320, 256,
+                                                        levels=3), device)
     out = dict(device=str(device),
-               align_batch=count(lambda: align.align_batch(*args)),
+               warp_align=count(lambda: align.warp_align(*fargs, **fkw)))
+    device_loop.reset_counts()
+    out.update(align_batch=count(lambda: align.align_batch(*args)),
                warp_affine_patches=count(
                    lambda: align.warp_affine_patches(*wargs, **kw)))
     if device == "cpu":

@@ -13,9 +13,8 @@ from __future__ import annotations
 
 import torch
 
-from sdv_loam_tpu_torch.ops.align import (align_batch, best_search_level,
-                                          quad_from_flat, quad_from_image,
-                                          warp_affine_patches,
+from sdv_loam_tpu_torch.ops.align import (best_search_level, quad_from_flat,
+                                          quad_from_image, warp_align,
                                           warp_matrix_affine)
 from sdv_loam_tpu_torch.ops.photometric import nonzero_fixed
 from sdv_loam_tpu_torch.utils import device_loop, se3
@@ -249,9 +248,6 @@ def reproject_and_match_lanes(pts_u, pts_v, pts_idepth, pts_host, pts_type,
     if quad_stack is None:
         quad_stack = stack_quads(dI0_stack)
     slot_g = (rl * F + ref_idx).reshape(-1)          # row of the lane stack
-    patches = warp_affine_patches(
-        dI0_stack.reshape((L * F,) + dI0_stack.shape[-3:]), slot_g,
-        px_r.reshape(-1, 2), A, lvl, quad_stack=quad_stack)
 
     exp_r = exposure_stack[rl, ref_idx]
     exp_t = exposure_target[:, None]
@@ -282,11 +278,15 @@ def reproject_and_match_lanes(pts_u, pts_v, pts_idepth, pts_host, pts_type,
     T_flat = flat_pyr.shape[1]
     # lane l's levels are rows l*levels .. l*levels+levels-1 of the tables
     offs_g = (offsets[None, :] + (ar * T_flat)[:, None]).reshape(-1)
-    px_a, m_c, afail = align_batch(
-        quad_pyr, offs_g, widths.repeat(L), heights.repeat(L),
-        (rl * levels + lvl).reshape(-1), patches, px_scaled.reshape(-1, 2),
-        dir_cur, is_edge.reshape(-1), a_rel.reshape(-1), b_rel.reshape(-1),
-        cand.reshape(-1), n_iter=n_iter, n_lanes=L)
+    # the patch warp and the alignment in one call (on the card one fused
+    # kernel, after a one-block kernel zeroing its failure counts)
+    px_a, m_c, afail = warp_align(
+        dI0_stack.reshape((L * F,) + dI0_stack.shape[-3:]), slot_g,
+        px_r.reshape(-1, 2), A, lvl.reshape(-1), quad_pyr, offs_g,
+        widths.repeat(L), heights.repeat(L), (rl * levels + lvl).reshape(-1),
+        px_scaled.reshape(-1, 2), dir_cur, is_edge.reshape(-1),
+        a_rel.reshape(-1), b_rel.reshape(-1), cand.reshape(-1),
+        n_iter=n_iter, n_lanes=L, quad_stack=quad_stack)
     px_a = px_a.reshape(L, M, 2)
     m_c = m_c.reshape(L, M)
     px_c = px_a * scale[..., None] + center_off[..., None]

@@ -7,8 +7,10 @@ flattened target pyramid; each candidate reads through its level's
 offset and width. The GN loop keeps the reference's 10-iteration cap
 (`align_max_iters`), which also acts as a match-quality filter.
 
-The patch warp and the alignment are the hand-written kernels K6 and K5
-on CUDA, with their plain versions on the CPU (`ops/hopper_kernels`).
+The patch warp and the alignment are one hand-written kernel on CUDA
+(K5, with K6's patch warp as its prologue: `warp_align`, as the matcher
+calls them), which `warp_affine_patches` and `align_batch` also reach
+alone, with their plain versions on the CPU (`ops/hopper_kernels`).
 """
 
 from __future__ import annotations
@@ -51,9 +53,9 @@ def warp_affine_patches(dI_ref0_stack, host_idx, px_ref, A_cur_ref,
     (warpAffine). dI_ref0_stack (F, H, W, 3); host_idx (M,); px_ref (M, 2);
     A_cur_ref (M, 2, 2); search_level (M,) int64. `quad_stack` is the
     (F*H*W, 4) quad pack of the stack's intensities when the caller has it.
-    Returns (M, 10, 10) patches (0 outside the image). The K6 kernel on
-    CUDA (`hopper_kernels.warp_affine_patches`), its plain version on the
-    CPU."""
+    Returns (M, 10, 10) patches (0 outside the image). On CUDA the fused
+    kernel's patches-only mode (`hopper_kernels.warp_affine_patches`), its
+    plain version on the CPU."""
     return hopper_kernels.warp_affine_patches(
         dI_ref0_stack, host_idx, px_ref, A_cur_ref, search_level,
         quad_stack=quad_stack)
@@ -69,13 +71,33 @@ def align_batch(quad_pyr, offsets, widths, heights, search_level,
     `direction`. Returns (px (M, 2) on the search level, converged (M,),
     [n walked out of bounds, n out of iterations]); with `n_lanes` the M
     rows are that many sequences' candidates, lane after lane, and the
-    counts come per sequence, (n_lanes, 2). The K5 kernel on CUDA (the
-    whole loop in one launch, `hopper_kernels.align_batch`), its plain
-    version (the batched loop) on the CPU."""
+    counts come per sequence, (n_lanes, 2). On CUDA the fused kernel
+    reading the given patches (the whole loop in one kernel, after a
+    one-block kernel zeroing the counts: `hopper_kernels.align_batch`),
+    its plain version (the batched loop) on the CPU."""
     return hopper_kernels.align_batch(
         quad_pyr, offsets, widths, heights, search_level, border_patch,
         px_init_scaled, direction, is_edge, aff_a, aff_b, valid,
         n_iter=n_iter, n_lanes=n_lanes)
+
+
+def warp_align(dI_ref0_stack, host_idx, px_ref, A_cur_ref, warp_level,
+               quad_pyr, offsets, widths, heights, search_level,
+               px_init_scaled, direction, is_edge, aff_a, aff_b, valid,
+               n_iter: int = 10, n_lanes: int = 0, quad_stack=None):
+    """`warp_affine_patches` (the first five arguments and `quad_stack`,
+    `warp_level` being its `search_level`), then `align_batch` on the
+    patches it warps (the rest; `search_level` indexes the level tables).
+    Returns `align_batch`'s results. On CUDA the fused kernel (after a
+    one-block kernel zeroing the failure counts), which keeps each patch
+    on chip
+    (`hopper_kernels.warp_align`); on the CPU the two plain versions in
+    turn."""
+    return hopper_kernels.warp_align(
+        dI_ref0_stack, host_idx, px_ref, A_cur_ref, warp_level, quad_pyr,
+        offsets, widths, heights, search_level, px_init_scaled, direction,
+        is_edge, aff_a, aff_b, valid, n_iter=n_iter, n_lanes=n_lanes,
+        quad_stack=quad_stack)
 
 
 def warp_matrix_affine(px_ref, z_ref, K, T_cur_ref):

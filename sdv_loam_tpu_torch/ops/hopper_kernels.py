@@ -23,14 +23,17 @@ which the JAX package leaves to XLA to fuse:
     step of an LM call's first iteration, then per iteration after K3 the
     accept test and the per-row selects with the next iteration's step,
     in one launch;
-  * `warp_affine_patches` (K6, csrc/warp_patches.cu) computes the
-    matcher's patch warp (the JAX package's `warp_affine_patches`,
-    sdv_loam_tpu/ops/align.py:147): each candidate's 10x10 border patch
-    sampled from its host image through the inverse affine warp;
-  * `align_batch` (K5, csrc/align_batch.cu) computes the matcher's
-    inverse-compositional alignment (the JAX package's `align_batch`,
-    sdv_loam_tpu/ops/align.py:319, a `lax.while_loop`): every candidate's
-    whole Gauss-Newton loop in one launch, a warp per candidate.
+  * `warp_align` (K5 with K6 as its prologue, csrc/align_batch.cu)
+    computes the matcher's patch warp and patch alignment in one kernel,
+    a warp per candidate (a call is two launches: a one-block kernel
+    zeroing the failure counts, then the fused kernel): K6, the JAX
+    package's `warp_affine_patches` (sdv_loam_tpu/ops/align.py:147),
+    samples each candidate's 10x10 border patch from its host image
+    through the inverse affine warp into shared memory; K5, its `align_batch` (sdv_loam_tpu/ops/align.py:319, a
+    `lax.while_loop`), runs the candidate's whole inverse-compositional
+    Gauss-Newton loop on it. `warp_affine_patches` (the patches alone)
+    and `align_batch` (given patches) reach the same kernel in a mode of
+    their own.
 
 K1 and K2 take one map (H, W) or a stack of lanes (L, H, W) and compute
 each lane as the single-map call would. K3 and K4 take B rows; a row's
@@ -58,8 +61,9 @@ launches nothing then: the capture records the launch, and every replay of
 the program counts it. K3 and K4 run inside the programs' IF and WHILE
 nodes, where a replay decides on the card how often they run, so they
 count themselves on the card: one thread of each launch adds one to the
-kernel's device counter; so do K5 and K6, which run inside the keyframe
-program's IF nodes (the second matcher pass). `device_launches()` reads
+kernel's device counter; so does the K5 / K6 kernel, which runs inside
+the keyframe program's IF nodes (the second matcher pass), one counter
+per mode. `device_launches()` reads
 those counters (a device synchronize: only for a caller that asks, never
 on the frame path), `launch_counts()` gives all six kernels' counts, and
 `reset_launch_counts()` zeroes both kinds.
@@ -108,8 +112,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("dilate_pyramid.cu", "distance_transform.cu", "graph_cond.cu",
-           "track_res_gs.cu", "track_lm_update.cu", "align_batch.cu",
-           "warp_patches.cu")
+           "track_res_gs.cu", "track_lm_update.cu", "align_batch.cu")
 # -Xptxas=-v: ptxas's report (registers, spills, shared memory per kernel),
 # kept beside the library (`build_report`)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -130,7 +133,7 @@ _counted_devices: set = set()
 # the device counters: (the library's reader, how many counters it reads)
 _COUNTERS = (("sdv_track_res_gs_counts", 1),
              ("sdv_track_lm_update_counts", 2),
-             ("sdv_align_batch_counts", 1), ("sdv_warp_patches_counts", 1))
+             ("sdv_warp_align_counts", 3))
 
 
 def reset_launch_counts() -> None:
@@ -144,8 +147,9 @@ def reset_launch_counts() -> None:
 
 
 def _device_counts(reset: bool = False):
-    """(K3 launches, K4 step launches, K4 accept-step launches, K5
-    launches, K6 launches) summed over the devices that launched them,
+    """(K3 launches, K4 step launches, K4 accept-step launches, the fused
+    K5 / K6 kernel's launches in MODE_FUSED, MODE_ALIGN and MODE_PATCHES)
+    summed over the devices that launched them,
     read from their counters after a device synchronize; zeroed after the
     read with `reset`."""
     tot = [0] * sum(n for _, n in _COUNTERS)
@@ -166,17 +170,23 @@ def _device_counts(reset: bool = False):
 def device_launches() -> dict:
     """The launches K3-K6 counted on the card since the last reset: per
     kernel (K4's two entry points together), and K4's `lm_step` (one per
-    LM call) and `lm_accept_step` (one per LM iteration) apart.
-    Synchronizes."""
-    k3, step, accept_step, k5, k6 = _device_counts()
+    LM call) and `lm_accept_step` (one per LM iteration) apart. K5 and K6
+    are one kernel (csrc/align_batch.cu): `align_batch` counts its
+    launches that aligned (the fused call and the given-patch mode),
+    `warp_patches` those that warped patches (the fused call and the
+    patches-only mode), and `warp_align` the fused calls alone, so a
+    fused launch counts in all three. Synchronizes."""
+    k3, step, accept_step, fused, align, patches = _device_counts()
     return {"track_res_gs": k3, "track_lm_update": step + accept_step,
             "lm_step": step, "lm_accept_step": accept_step,
-            "align_batch": k5, "warp_patches": k6}
+            "align_batch": fused + align, "warp_patches": fused + patches,
+            "warp_align": fused}
 
 
 def launch_counts() -> dict:
     """All six kernels' launches: `LAUNCHES` (K1, K2) and the device
-    counters (K3-K6). Synchronizes."""
+    counters (K3-K6; a fused K5 / K6 launch counts for both).
+    Synchronizes."""
     dev = device_launches()
     with _count_lock:
         out = dict(LAUNCHES)
@@ -650,6 +660,21 @@ def align_batch_plain(quad_pyr, offsets, widths, heights, search_level,
             _lane_fails(torch.stack([fail_oob, fail_iters], -1), n_lanes))
 
 
+def warp_align_plain(dI_ref0_stack, host_idx, px_ref, A_cur_ref, warp_level,
+                     quad_pyr, offsets, widths, heights, search_level,
+                     px_init_scaled, direction, is_edge, aff_a, aff_b, valid,
+                     n_iter: int = 10, n_lanes: int = 0, quad_stack=None):
+    """The fused kernel's plain version: `warp_affine_patches_plain`, then
+    `align_batch_plain` on the patches it warps."""
+    patches = warp_affine_patches_plain(dI_ref0_stack, host_idx, px_ref,
+                                        A_cur_ref, warp_level,
+                                        quad_stack=quad_stack)
+    return align_batch_plain(quad_pyr, offsets, widths, heights,
+                             search_level, patches, px_init_scaled,
+                             direction, is_edge, aff_a, aff_b, valid,
+                             n_iter=n_iter, n_lanes=n_lanes)
+
+
 
 # ---------------------------------------------------------------------------
 # build + bind
@@ -747,43 +772,48 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build_library())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.sdv_dilate_pyramid.argtypes = [vp, vp, vp, ci, ci, ci, ci,
-                                               vp]
-            lib.sdv_dilate_pyramid.restype = ci
-            lib.sdv_distance_transform.argtypes = [vp, vp, vp, ci, ci, ci,
-                                                   ci, ci, vp]
-            lib.sdv_distance_transform.restype = ci
-            ull = ctypes.c_ulonglong
-            lib.sdv_cond_begin.argtypes = [vp, vp, vp, ci,
-                                           ctypes.POINTER(ull)]
-            lib.sdv_cond_begin.restype = ci
-            lib.sdv_cond_set.argtypes = [vp, ull, vp]
-            lib.sdv_cond_set.restype = ci
-            lib.sdv_cond_end.argtypes = [vp, ctypes.POINTER(ull)]
-            lib.sdv_cond_end.restype = ci
-            lib.sdv_capture_nodes.argtypes = [vp, ctypes.POINTER(ull)]
-            lib.sdv_capture_nodes.restype = ci
-            vpp, ll, cf = ctypes.POINTER(vp), ctypes.c_longlong, \
-                ctypes.c_float
-            lib.sdv_track_res_gs.argtypes = [vpp, ll, ci, ci, ci, ci, ll, cf,
-                                             ll, cf, cf, vp]
-            lib.sdv_track_res_gs.restype = ci
-            lib.sdv_lm_step.argtypes = [vpp, ci, ll, ll, vp]
-            lib.sdv_lm_step.restype = ci
-            lib.sdv_lm_accept_step.argtypes = [vpp, ci, ll, ll, vp]
-            lib.sdv_lm_accept_step.restype = ci
-            lib.sdv_align_batch.argtypes = [vpp, ll, ll, ci, vp]
-            lib.sdv_align_batch.restype = ci
-            lib.sdv_warp_patches.argtypes = [vpp, ll, ll, ci, ci, vp]
-            lib.sdv_warp_patches.restype = ci
-            for name, _ in _COUNTERS:
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.POINTER(ull), ci]
-                fn.restype = ci
-            _lib = lib
+            _lib = bind_library(build_library())
     return _lib
+
+
+def bind_library(path: str):
+    """The kernels' library at `path`, loaded with its entry points'
+    argument types set."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.sdv_dilate_pyramid.argtypes = [vp, vp, vp, ci, ci, ci, ci,
+                                       vp]
+    lib.sdv_dilate_pyramid.restype = ci
+    lib.sdv_distance_transform.argtypes = [vp, vp, vp, ci, ci, ci,
+                                           ci, ci, vp]
+    lib.sdv_distance_transform.restype = ci
+    ull = ctypes.c_ulonglong
+    lib.sdv_cond_begin.argtypes = [vp, vp, vp, ci,
+                                   ctypes.POINTER(ull)]
+    lib.sdv_cond_begin.restype = ci
+    lib.sdv_cond_set.argtypes = [vp, ull, vp]
+    lib.sdv_cond_set.restype = ci
+    lib.sdv_cond_end.argtypes = [vp, ctypes.POINTER(ull)]
+    lib.sdv_cond_end.restype = ci
+    lib.sdv_capture_nodes.argtypes = [vp, ctypes.POINTER(ull)]
+    lib.sdv_capture_nodes.restype = ci
+    vpp, ll, cf = ctypes.POINTER(vp), ctypes.c_longlong, \
+        ctypes.c_float
+    lib.sdv_track_res_gs.argtypes = [vpp, ll, ci, ci, ci, ci, ll, cf,
+                                     ll, cf, cf, vp]
+    lib.sdv_track_res_gs.restype = ci
+    lib.sdv_lm_step.argtypes = [vpp, ci, ll, ll, vp]
+    lib.sdv_lm_step.restype = ci
+    lib.sdv_lm_accept_step.argtypes = [vpp, ci, ll, ll, vp]
+    lib.sdv_lm_accept_step.restype = ci
+    lib.sdv_warp_align.argtypes = [vpp, ll, ll, ll, ci, ci, ci, ci, ci,
+                                   vp]
+    lib.sdv_warp_align.restype = ci
+    for name, _ in _COUNTERS:
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(ull), ci]
+        fn.restype = ci
+    return lib
 
 
 def _check_map(x: torch.Tensor, name: str):
@@ -1102,86 +1132,162 @@ def _rows(x, shape, dtype, name):
     return x
 
 
-def warp_affine_patches(dI_ref0_stack, host_idx, px_ref, A_cur_ref,
-                        search_level, quad_stack=None):
-    """K6: `align.warp_affine_patches` (same arguments and results). CPU ->
-    plain version; CUDA -> one launch, a thread per patch pixel."""
-    if px_ref.device.type == "cpu":
-        return warp_affine_patches_plain(dI_ref0_stack, host_idx, px_ref,
-                                         A_cur_ref, search_level,
-                                         quad_stack=quad_stack)
+# the fused kernel's modes (csrc/align_batch.cu, Mode): the patch warp and
+# the alignment (the matcher's call), the alignment of given patches (K5
+# alone), the patch warp alone (K6 alone); one device counter each
+MODE_FUSED, MODE_ALIGN, MODE_PATCHES = 0, 1, 2
+
+
+def _warp_inputs(dI_ref0_stack, host_idx, px_ref, A_cur_ref, level,
+                 quad_stack, M):
+    """K6's inputs as the kernel reads them: (host quad pack, host_idx,
+    px_ref, A_cur_ref, level, h, w)."""
     h, w = dI_ref0_stack.shape[1:3]
-    M = px_ref.shape[0]
     if quad_stack is None:
         quad_stack = _stack_quads(dI_ref0_stack)
-    quad = _quad_rows(quad_stack, "quad_stack")
-    if search_level.dtype != torch.int64:
-        raise TypeError("search_level: int64 required")
-    host = _rows(host_idx, (M,), torch.int64, "host_idx")
-    level = _rows(search_level, (M,), torch.int64, "search_level")
+    if level.dtype != torch.int64:
+        raise TypeError("the warp's search_level: int64 required")
     px, A = _f32(px_ref, "px_ref"), _f32(A_cur_ref, "A_cur_ref")
-    if A.shape != (M, 2, 2):
-        raise ValueError("A_cur_ref: (M, 2, 2) required")
-    dev = _on_card("warp_affine_patches", quad, host, level, px, A)
-    out = torch.empty((M, BORDER_PATCH, BORDER_PATCH), device=dev)
+    if px.shape != (M, 2) or A.shape != (M, 2, 2):
+        raise ValueError("px_ref (M, 2) and A_cur_ref (M, 2, 2) required")
+    return (_quad_rows(quad_stack, "quad_stack"),
+            _rows(host_idx, (M,), torch.int64, "host_idx"), px, A,
+            _rows(level, (M,), torch.int64, "search_level"), int(h), int(w))
+
+
+def _align_inputs(quad_pyr, offsets, widths, heights, search_level,
+                  px_init_scaled, direction, is_edge, aff_a, aff_b, valid,
+                  n_lanes):
+    """K5's inputs but the patch, as the kernel reads them: (quad pack,
+    offsets, widths, heights, search_level, px_init_scaled, direction,
+    is_edge, valid, aff_a, aff_b)."""
+    M = valid.shape[0]
+    if search_level.dtype != torch.int64 or is_edge.dtype != torch.bool \
+            or valid.dtype != torch.bool:
+        raise TypeError("search_level int64, is_edge and valid bool "
+                        "required")
+    if n_lanes and M % n_lanes:
+        raise ValueError(f"{M} rows do not split into {n_lanes} lanes")
+    return (_quad_rows(quad_pyr, "quad_pyr"),
+            *(_level_table(t, n) for t, n in ((offsets, "offsets"),
+                                              (widths, "widths"),
+                                              (heights, "heights"))),
+            _rows(search_level, (M,), torch.int64, "search_level"),
+            _rows(px_init_scaled, (M, 2), torch.float32, "px_init_scaled"),
+            _rows(direction, (M, 2), torch.float32, "direction"),
+            _rows(is_edge, (M,), torch.bool, "is_edge"),
+            _rows(valid, (M,), torch.bool, "valid"),
+            _rows(aff_a, (M,), torch.float32, "aff_a"),
+            _rows(aff_b, (M,), torch.float32, "aff_b"))
+
+
+def _launch_warp_align(mode, M, warp=None, align=None, border=None,
+                       n_iter=0, n_lanes=0):
+    """The kernel of csrc/align_batch.cu in `mode` over M rows: `warp`
+    (`_warp_inputs`) for MODE_FUSED and MODE_PATCHES, `align`
+    (`_align_inputs`) for MODE_FUSED and MODE_ALIGN, `border` (M, 10, 10)
+    for MODE_ALIGN. Returns the (M, 10, 10) patches (MODE_PATCHES) or
+    align_batch's results (px, conv, failure counts, per lane with
+    `n_lanes`: the kernel counts them, after a small kernel of the same
+    call zeroed them)."""
+    hq, host, px_ref, A, wlvl, h, w = warp or (None,) * 5 + (0, 0)
+    (quad, offs, wids, heis, lvl, px0, direc, edge, valid, fa,
+     fb) = align or (None,) * 11
+    dev = _on_card("warp_align", *(t for t in (hq, host, px_ref, A, wlvl,
+                                               border) if t is not None),
+                   *(align or ()))
+    px = conv = fails = patches = None
+    if mode == MODE_PATCHES:
+        patches = torch.empty((M, BORDER_PATCH, BORDER_PATCH), device=dev)
+    else:
+        px = torch.empty((M, 2), device=dev)
+        conv = torch.empty(M, dtype=torch.bool, device=dev)
+        # the failure counts per lane, which the kernel adds up itself
+        fails = torch.empty((max(n_lanes, 1), 2), dtype=torch.int64,
+                            device=dev)
     if M:
         lib = _load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.sdv_warp_patches(_ptrs(quad, host, px, A, level, out),
-                                      quad.shape[0], M, int(h), int(w),
-                                      stream)
-        _check_rc(rc, "warp_affine_patches")
-    return out
+            rc = lib.sdv_warp_align(
+                _ptrs(quad, offs, wids, heis, lvl, hq, host, px_ref, A, wlvl,
+                      border, px0, direc, edge, valid, fa, fb, px, conv,
+                      fails, patches),
+                0 if quad is None else quad.shape[0],
+                0 if hq is None else hq.shape[0], M, h, w,
+                max(int(n_iter), 0), int(n_lanes), mode, stream)
+        _check_rc(rc, "warp_align")
+    if mode == MODE_PATCHES:
+        return patches
+    if not M:
+        fails.zero_()
+    return px, conv, fails if n_lanes else fails[0]
+
+
+def warp_affine_patches(dI_ref0_stack, host_idx, px_ref, A_cur_ref,
+                        search_level, quad_stack=None):
+    """K6: `align.warp_affine_patches` (same arguments and results). CPU ->
+    plain version; CUDA -> one launch of the fused kernel that warps the
+    patches and aligns nothing (MODE_PATCHES), a warp per row."""
+    if px_ref.device.type == "cpu":
+        return warp_affine_patches_plain(dI_ref0_stack, host_idx, px_ref,
+                                         A_cur_ref, search_level,
+                                         quad_stack=quad_stack)
+    M = px_ref.shape[0]
+    return _launch_warp_align(MODE_PATCHES, M, warp=_warp_inputs(
+        dI_ref0_stack, host_idx, px_ref, A_cur_ref, search_level, quad_stack,
+        M))
 
 
 def align_batch(quad_pyr, offsets, widths, heights, search_level,
                 border_patch, px_init_scaled, direction, is_edge, aff_a,
                 aff_b, valid, n_iter: int = 10, n_lanes: int = 0):
     """K5: `align.align_batch` (same arguments and results). CPU -> plain
-    version; CUDA -> one launch, a warp per candidate row running the
-    row's whole loop, then one sum of its failure masks (per lane with
-    `n_lanes`)."""
+    version; CUDA -> the fused kernel reading the given patches
+    (MODE_ALIGN), a warp per candidate row running the row's whole loop;
+    the failure counts (per lane with `n_lanes`) the kernel adds up, after
+    a one-block kernel zeroed them (two launches)."""
     if quad_pyr.device.type == "cpu":
         return align_batch_plain(quad_pyr, offsets, widths, heights,
                                  search_level, border_patch, px_init_scaled,
                                  direction, is_edge, aff_a, aff_b, valid,
                                  n_iter=n_iter, n_lanes=n_lanes)
     M = valid.shape[0]
-    quad = _quad_rows(quad_pyr, "quad_pyr")
-    tables = [_level_table(t, n) for t, n in ((offsets, "offsets"),
-                                              (widths, "widths"),
-                                              (heights, "heights"))]
-    if search_level.dtype != torch.int64 or is_edge.dtype != torch.bool \
-            or valid.dtype != torch.bool:
-        raise TypeError("search_level int64, is_edge and valid bool "
-                        "required")
-    level = _rows(search_level, (M,), torch.int64, "search_level")
-    patch = _rows(border_patch, (M, BORDER_PATCH, BORDER_PATCH),
-                  torch.float32, "border_patch")
-    px0 = _rows(px_init_scaled, (M, 2), torch.float32, "px_init_scaled")
-    direction = _rows(direction, (M, 2), torch.float32, "direction")
-    is_edge = _rows(is_edge, (M,), torch.bool, "is_edge")
-    valid = _rows(valid, (M,), torch.bool, "valid")
-    aff_a = _rows(aff_a, (M,), torch.float32, "aff_a")
-    aff_b = _rows(aff_b, (M,), torch.float32, "aff_b")
-    if n_lanes and M % n_lanes:
-        raise ValueError(f"{M} rows do not split into {n_lanes} lanes")
-    dev = _on_card("align_batch", quad, *tables, level, patch, px0,
-                   direction, is_edge, valid, aff_a, aff_b)
-    px = torch.empty((M, 2), device=dev)
-    conv = torch.empty(M, dtype=torch.bool, device=dev)
-    masks = torch.empty((M, 2), dtype=torch.bool, device=dev)
-    if M:
-        lib = _load()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.sdv_align_batch(
-                _ptrs(quad, *tables, level, patch, px0, direction, is_edge,
-                      valid, aff_a, aff_b, px, conv, masks),
-                quad.shape[0], M, max(int(n_iter), 0), stream)
-        _check_rc(rc, "align_batch")
-    return px, conv, _lane_fails(masks, n_lanes)
+    return _launch_warp_align(
+        MODE_ALIGN, M, align=_align_inputs(
+            quad_pyr, offsets, widths, heights, search_level,
+            px_init_scaled, direction, is_edge, aff_a, aff_b, valid,
+            n_lanes),
+        border=_rows(border_patch, (M, BORDER_PATCH, BORDER_PATCH),
+                     torch.float32, "border_patch"),
+        n_iter=n_iter, n_lanes=n_lanes)
+
+
+def warp_align(dI_ref0_stack, host_idx, px_ref, A_cur_ref, warp_level,
+               quad_pyr, offsets, widths, heights, search_level,
+               px_init_scaled, direction, is_edge, aff_a, aff_b, valid,
+               n_iter: int = 10, n_lanes: int = 0, quad_stack=None):
+    """K5 with K6 as its prologue: `align.warp_align` (same arguments and
+    results: `warp_affine_patches`, then `align_batch` on its patches).
+    CPU -> plain version (`warp_align_plain`); CUDA -> two launches, a
+    one-block kernel zeroing the failure counts, then the fused kernel
+    (MODE_FUSED): each row's warp samples its patch into shared memory
+    and aligns it; no patch leaves the chip."""
+    if quad_pyr.device.type == "cpu":
+        return warp_align_plain(
+            dI_ref0_stack, host_idx, px_ref, A_cur_ref, warp_level,
+            quad_pyr, offsets, widths, heights, search_level,
+            px_init_scaled, direction, is_edge, aff_a, aff_b, valid,
+            n_iter=n_iter, n_lanes=n_lanes, quad_stack=quad_stack)
+    M = valid.shape[0]
+    return _launch_warp_align(
+        MODE_FUSED, M,
+        warp=_warp_inputs(dI_ref0_stack, host_idx, px_ref, A_cur_ref,
+                          warp_level, quad_stack, M),
+        align=_align_inputs(quad_pyr, offsets, widths, heights,
+                            search_level, px_init_scaled, direction,
+                            is_edge, aff_a, aff_b, valid, n_lanes),
+        n_iter=n_iter, n_lanes=n_lanes)
 
 
 def _level_table(t, name):

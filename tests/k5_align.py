@@ -1,9 +1,9 @@
-"""K5's and K6's arithmetic (csrc/align_batch.cu, csrc/warp_patches.cu)
-emulated on the CPU in tensor operations: the float64 LU inverse both
-kernels take, K6's patch warp, and K5's alignment with its float64 sums in
-the kernel's warp order (each lane's two pixels, then the five butterfly
-stages), every row run in lockstep (each row's arithmetic is its own, so
-the bits are those of the row's own warp).
+"""The arithmetic of csrc/align_batch.cu (K5, the patch alignment, with
+K6, the patch warp, as its prologue) emulated on the CPU in tensor
+operations: the float64 LU inverses, K6's patch warp, and K5's alignment
+with its float64 sums in the kernel's warp order (each lane's two pixels,
+then the five butterfly stages), every row run in lockstep (each row's
+arithmetic is its own, so the bits are those of the row's own warp).
 
 Shared by tests/test_torch_align_kernels.py (CPU) and
 tests/test_torch_cuda.py (the kernels on the card against this emulation),
@@ -88,7 +88,8 @@ def _sample(quad, idx, ax, ay):
 
 
 def warp_patches(quad, host_idx, px_ref, A, level, h, w):
-    """K6: (M, 10, 10) patches (see csrc/warp_patches.cu)."""
+    """K6: (M, 10, 10) patches (see csrc/align_batch.cu, warp_patch_issue
+    and warp_patch_finish)."""
     inv = inverse_lu(A)
     p = torch.arange(hk.BORDER_PATCH ** 2)
     scale = torch.pow(2.0, level.to(F32))[:, None]
@@ -190,3 +191,12 @@ def align_batch(quad, offsets, widths, heights, level, border, px0,
         running = act & ~c
     fails = torch.stack([valid & ~conv & ~alive, valid & ~conv & alive], -1)
     return torch.stack([u, v], -1), conv & valid, fails
+
+
+def warp_align(quad_stack, host_idx, px_ref, A, warp_level, h, w, quad,
+               offsets, widths, heights, level, px0, direction, is_edge,
+               aff_a, aff_b, valid, n_iter=10):
+    """The fused call (MODE_FUSED): K6's patches, then K5 on them."""
+    border = warp_patches(quad_stack, host_idx, px_ref, A, warp_level, h, w)
+    return align_batch(quad, offsets, widths, heights, level, border, px0,
+                       direction, is_edge, aff_a, aff_b, valid, n_iter)

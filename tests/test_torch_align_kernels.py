@@ -231,3 +231,119 @@ def test_k6_emulation_against_plain(seed):
         plain.abs().amax((1, 2)).clamp(min=1e-30)
     print(f"seed {seed}: Ainv largest relative difference {float(rel.max())}")
     assert float(rel.max()) <= 1e-6
+
+
+def _fused_scene(seed, cases=False):
+    sc = kt.warp_align_scene(seed, H_IMG, W_IMG, ROWS, LANES, levels=LEVELS,
+                             poison=True)
+    return kt.edge_cases(sc, seed, levels=LEVELS) if cases else sc
+
+
+def _jax_args(sc, keys):
+    return [jnp.asarray(sc[k].astype(np.int32) if sc[k].dtype == np.int64
+                        else sc[k]) for k in keys]
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fused_plain_matches_jax(seed):
+    """warp_align_plain (the fused call's plain version) is bit for bit
+    warp_affine_patches_plain then align_batch_plain, and agrees with the
+    JAX package's warp_affine_patches then align_batch under the module's
+    tolerances (the JAX warp on the rows whose host slot lies in the
+    stack; the row past it keeps the plain version's NaN patch)."""
+    sc = _fused_scene(seed)
+    args, kw = kt.warp_align_args(sc, "cpu")
+    got = hk.warp_align_plain(*args, n_lanes=LANES, **kw)
+    (wargs, wkw), align_args = kt.split_warp_align(args, kw)
+    patches = hk.warp_affine_patches_plain(*wargs, **wkw)
+    two = hk.align_batch_plain(*align_args(patches), n_lanes=LANES)
+    assert all(dl.same_bits(a, b) for a, b in zip(got, two))
+    assert torch.equal(got[2], hk.warp_align(*args, n_lanes=LANES, **kw)[2])
+    keep = sc["host_idx"] < sc["stack"].shape[0]
+    jp = np.array(patches.numpy())
+    jp[keep] = np.asarray(jalign.warp_affine_patches(
+        *_jax_args({k: v[keep] if k != "stack" else v for k, v in sc.items()
+                    if k in ("stack", "host_idx", "px_ref", "A_cur_ref",
+                             "warp_level")},
+                   ("stack", "host_idx", "px_ref", "A_cur_ref",
+                    "warp_level"))))
+    _hold_patches(f"fused plain's patches vs JAX, seed {seed}",
+                  patches.numpy()[keep], jp[keep])
+    jargs = _jax_args(dict(sc, border_patch=jp), kt.ALIGN_ARGS)
+    jpx, jconv, jfails = jalign.align_batch(*jargs, n_iter=10)
+    jpx, jconv = np.asarray(jpx), np.asarray(jconv)
+    px, conv = got[0].numpy(), got[1].numpy()
+    _hold_align(f"fused plain vs JAX, seed {seed}",
+                (px, conv, _masks(px, conv, sc)),
+                (jpx, jconv, _masks(jpx, jconv, sc)), sc["valid"])
+    assert abs(int(got[2].sum()) - int(np.asarray(jfails).sum())) <= \
+        1 + (1 - FLAG_SHARE) * sc["valid"].size
+    # the poisoned rows: the NaN start and the NaN patch do not converge
+    assert not conv[:2].any() and np.isnan(px[0]).all()
+
+
+@pytest.mark.parametrize("n_iter", [1, 10])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_k5_emulation_on_edge_cases(seed, n_iter):
+    """K5's arithmetic against align_batch_plain, under the module's
+    tolerances, on `kernel_timing.edge_cases`' rows: rows that start at a
+    level's right and bottom edges (their samples clamp there, or they
+    walk out of the level), rows that start 5-7 px from their true point
+    and walk far, and rows on a level the pack cuts short (their samples
+    read NaN); after one iteration (each row's samples at its start) and
+    at the cap of 10."""
+    sc = kt.edge_cases(_align_scene(seed), seed, levels=LEVELS)
+    args = kt.align_args(sc, "cpu")
+    px, conv, masks = k5_align.align_batch(*args, n_iter=n_iter)
+    x, st = hk.align_setup(*args)
+    out = dl.run("align", hk.align_body, x, st, n_iter)
+    pmasks = torch.stack([x["valid"] & ~out["conv"] & ~out["alive"],
+                          x["valid"] & ~out["conv"] & out["alive"]], -1)
+    ppx = torch.stack([out["u"], out["v"]], -1)
+    _hold_align(f"K5 emulation vs plain on the edge cases, seed {seed}, "
+                f"n_iter {n_iter}", (px.numpy(), conv.numpy(),
+                                     masks.numpy()),
+                (ppx.numpy(), (out["conv"] & x["valid"]).numpy(),
+                 pmasks.numpy()), sc["valid"])
+    assert torch.equal(hk._lane_fails(pmasks, LANES), hk.align_batch_plain(
+        *args, n_iter=n_iter, n_lanes=LANES)[2])
+    cut = (args[4] == args[1].numel() - 1) & args[11]
+    moved = (px - args[6]).abs().amax(-1)
+    far = moved[20:30][conv[20:30]]
+    nan_px = torch.isnan(px).any(-1)
+    print(f"seed {seed}, n_iter {n_iter}: edge rows walked out "
+          f"{int(masks[10:20, 0].sum())} of 10, far rows converged "
+          f"{far.numel()} of 10 (moved up to "
+          f"{float(far.max()) if far.numel() else 0.0} px), cut-level rows "
+          f"with a NaN px {int(nan_px[cut].sum())} of {int(cut.sum())}")
+    assert bool(nan_px[cut].any())
+    assert torch.equal(nan_px, torch.isnan(ppx).any(-1))
+    if n_iter == 1:
+        # no row converges in one step here: every row's first step
+        d = (px - ppx).abs()[~nan_px]
+        assert float(d.max()) <= PX_TOL, float(d.max())
+    else:
+        assert bool(masks[10:20, 0].any()) and float(far.max()) >= 4.0
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fused_emulation_against_plain(seed):
+    """The fused kernel's arithmetic (K6's patches, then K5 on them)
+    against warp_align_plain, under the module's tolerances, on the edge
+    cases too."""
+    sc = _fused_scene(seed, cases=True)
+    args, kw = kt.warp_align_args(sc, "cpu")
+    h, w = args[0].shape[1:3]
+    got = k5_align.warp_align(kw["quad_stack"], *args[1:5], h, w,
+                              *args[5:])
+    ref = hk.warp_align_plain(*args, **kw)
+    (wargs, wkw), align_args = kt.split_warp_align(args, kw)
+    x, st = hk.align_setup(*align_args(hk.warp_affine_patches_plain(
+        *wargs, **wkw)))
+    out = dl.run("align", hk.align_body, x, st, 10)
+    masks = torch.stack([x["valid"] & ~out["conv"] & ~out["alive"],
+                         x["valid"] & ~out["conv"] & out["alive"]], -1)
+    _hold_align(f"fused emulation vs plain, seed {seed}",
+                (got[0].numpy(), got[1].numpy(), got[2].numpy()),
+                (ref[0].numpy(), ref[1].numpy(), masks.numpy()), sc["valid"])
+    assert torch.equal(hk._lane_fails(masks, 0), ref[2])

@@ -634,7 +634,8 @@ def test_lm_update_kernels_match_plain(cuda, shape, per_row):
             + 1e-30).all(), err
     assert hk.device_launches() == {"track_res_gs": 0, "track_lm_update": 2,
                                     "lm_step": 1, "lm_accept_step": 1,
-                                    "align_batch": 0, "warp_patches": 0}
+                                    "align_batch": 0, "warp_patches": 0,
+                                    "warp_align": 0}
 
 
 @pytest.mark.cuda
@@ -788,6 +789,14 @@ def test_track_kernels_count_the_loops_evaluations(cuda):
 ALIGN_FLAG_SHARE = 0.999
 ALIGN_PX_TOL = 0.01
 PATCH_TOL = 0.02
+# the fused call's px gate: a row that converges in both but one iteration
+# later on one side (its float64 sums against the plain version's float32
+# ones put a step on the other side of the threshold) differs by that last
+# step, less than the threshold of 0.03 px; such rows share the flags'
+# budget of one row plus 0.1 % (read on an H100 80GB HBM3 at 700 W: 1 of
+# 10,240 rows, 0.016 px, on warp_align_scene(84) at the default pass 1
+# with four lanes; the CPU emulation gives the same px bit for bit)
+ALIGN_STEP_TOL = 0.03
 # (preset, matcher call): kernel_timing.ALIGN_SHAPES's main-path rows
 ALIGN_CALLS = [(p, c) for p in ("default", "fast")
                for c in ("track", "pass1", "pass2")]
@@ -803,11 +812,12 @@ def _align_masks(x, out):
 @pytest.mark.parametrize("preset,call", ALIGN_CALLS)
 def test_align_kernel_matches_plain_and_emulation(cuda, preset, call,
                                                   lanes):
-    """K5 at the main path's shapes: against the plain batched loop under
-    the CPU tests' tolerances, and bit for bit (NaN payloads aside) against
-    its CPU emulation (tests/k5_align.py: the kernel's float64 sums and
-    order); one device launch, per-lane failure counts equal to the masks'
-    sums."""
+    """K5 at the main path's shapes (the fused kernel reading the given
+    patches): against the plain batched loop under the CPU tests'
+    tolerances, and bit for bit (NaN payloads aside) against its CPU
+    emulation (tests/k5_align.py: the kernel's float64 sums and order);
+    one device launch, in that mode, per-lane failure counts equal to the
+    masks' sums."""
     import k5_align
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
     from sdv_loam_tpu_torch.utils import device_loop as dl
@@ -817,7 +827,9 @@ def test_align_kernel_matches_plain_and_emulation(cuda, preset, call,
     args = kt.align_args(sc, cuda)
     hk.reset_launch_counts()
     px, conv, fails = hk.align_batch(*args, n_lanes=lanes)
-    assert hk.device_launches()["align_batch"] == 1
+    launched = hk.device_launches()
+    assert launched["align_batch"] == 1 and launched["warp_align"] == 0
+    assert launched["warp_patches"] == 0
     x, st = hk.align_setup(*args)
     out = dl.run("align", hk.align_body, x, st, 10)
     ref_px, ref_conv = torch.stack([out["u"], out["v"]], -1), out["conv"]
@@ -840,9 +852,10 @@ def test_align_kernel_matches_plain_and_emulation(cuda, preset, call,
 @pytest.mark.parametrize("preset,call", ALIGN_CALLS)
 def test_warp_kernel_matches_plain_and_emulation(cuda, preset, call,
                                                  lanes):
-    """K6 at the main path's shapes: against the plain version (the same
-    zero and NaN pattern, values within PATCH_TOL) and bit for bit against
-    its CPU emulation; one device launch."""
+    """K6 at the main path's shapes (the fused kernel's patches-only
+    mode): against the plain version (the same zero and NaN pattern,
+    values within PATCH_TOL) and bit for bit against its CPU emulation;
+    one device launch, in that mode."""
     import k5_align
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
 
@@ -851,7 +864,9 @@ def test_warp_kernel_matches_plain_and_emulation(cuda, preset, call,
     args, kw = kt.warp_args(sc, cuda)
     hk.reset_launch_counts()
     got = hk.warp_affine_patches(*args, **kw)
-    assert hk.device_launches()["warp_patches"] == 1
+    launched = hk.device_launches()
+    assert launched["warp_patches"] == 1 and launched["warp_align"] == 0
+    assert launched["align_batch"] == 0
     ref = hk.warp_affine_patches_plain(*args, **kw)
     nan_g, nan_r = torch.isnan(got), torch.isnan(ref)
     assert torch.equal(nan_g, nan_r) and torch.equal(got == 0, ref == 0)
@@ -864,38 +879,105 @@ def test_warp_kernel_matches_plain_and_emulation(cuda, preset, call,
 def _match_program(x):
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
-    def both(c):
-        patches = hk.warp_affine_patches(*x["warp"], quad_stack=x["quad"])
-        px, conv, fails = hk.align_batch(*x["align"])
-        return dict(p=c["p"] + patches.sum(), px=px, fails=fails)
-    return dl.cond("t", x["go"], both, dict(
-        p=torch.zeros((), device=x["go"].device),
-        px=torch.zeros_like(x["align"][6]),
+    def fused(c):
+        px, conv, fails = hk.warp_align(*x["fused"], quad_stack=x["quad"])
+        return dict(px=px, fails=fails)
+    return dl.cond("t", x["go"], fused, dict(
+        px=torch.zeros_like(x["fused"][10]),
         fails=torch.zeros(2, dtype=torch.int64, device=x["go"].device)))
 
 
 @pytest.mark.cuda
 def test_align_kernels_count_inside_an_if_node(cuda):
-    """K5 and K6 inside a captured program's IF node (the keyframe
-    program's second matcher pass): their device counters count the
-    replays whose predicate holds, and the replays' outputs equal the
-    eager calls'."""
+    """The fused K5 / K6 launch inside a captured program's IF node (the
+    keyframe program's second matcher pass): its device counters count the
+    replays whose predicate holds, one launch each, and each replay's
+    outputs equal the eager call's: px, and the failure counts bit for bit
+    (the kernel adds them up after a zeroing kernel of the same call, both
+    replayed in the IF node; a replay that lost the zeroing would pile the
+    counts up across replays). The poisoned rows make the counts
+    nonzero."""
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
-    asc = kt.align_scene(70, 96, 320, 64, 1, levels=3)
-    wsc = kt.warp_scene(71, 96, 320, 64)
-    wargs, kw = kt.warp_args(wsc, cuda)
-    x = dict(align=kt.align_args(asc, cuda), warp=wargs,
-             quad=kw["quad_stack"], go=torch.tensor(True, device=cuda))
+    args, kw = kt.warp_align_args(kt.warp_align_scene(
+        70, 96, 320, 64, 1, levels=3, poison=True), cuda)
+    x = dict(fused=args, quad=kw["quad_stack"],
+             go=torch.tensor(True, device=cuda))
     hk.reset_launch_counts()
-    runs = 0
+    runs, outs = 0, []
     with dl.use(dl.LoopCache()):
         for go in (True, True, False, True, False, True):
             x["go"] = torch.tensor(go, device=cuda)
-            out = dl.program("k5if", _match_program, x)
+            outs.append((go, dl.program("k5if", _match_program, x)))
             runs += go
-    want = hk.align_batch(*x["align"])[0]
+    want = hk.warp_align(*args, **kw)
     got = hk.device_launches()
-    assert got["align_batch"] == runs + 1 and got["warp_patches"] == runs
-    assert dl_same_bits(out["px"], want)
+    assert got["warp_align"] == runs + 1
+    assert got["align_batch"] == got["warp_patches"] == runs + 1
+    assert int(want[2].sum()) > 0, want[2]
+    for go, out in outs:
+        if go:
+            assert dl_same_bits(out["px"], want[0])
+            assert torch.equal(out["fails"], want[2]), (out["fails"],
+                                                        want[2])
+        else:
+            assert not bool(out["fails"].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("preset,call", ALIGN_CALLS)
+def test_fused_kernel_matches_plain_and_emulation(cuda, preset, call,
+                                                  lanes):
+    """The fused call (MODE_FUSED: K6's patch warp into shared memory, then
+    K5 on it) at the main path's shapes: on
+    warp_align_scene's poisoned inputs, its px, flags and failure counts
+    against the plain loop's on the kernel's own patches (the
+    patches-only mode's, the same device code) under the CPU tests'
+    tolerances (with ALIGN_STEP_TOL for rows that converge one iteration
+    apart), and those patches against warp_affine_patches_plain's;
+    there and with `kernel_timing.edge_cases`' rows (rows at a level's
+    edge, rows that walk far from their start, rows on a level the pack
+    cuts short) bit for bit (NaN payloads aside) against its CPU
+    emulation (tests/k5_align.py warp_align); one launch, counted for K5
+    and K6."""
+    import k5_align
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+
+    (h, w), rows = kt.ALIGN_SHAPES[preset]
+    for cases in (False, True):
+        sc = kt.warp_align_scene(80 + lanes, h, w, rows[call], lanes,
+                                 poison=True)
+        if cases:
+            sc = kt.edge_cases(sc, 80 + lanes)
+        args, kw = kt.warp_align_args(sc, cuda)
+        hk.reset_launch_counts()
+        px, conv, fails = hk.warp_align(*args, n_lanes=lanes, **kw)
+        assert hk.device_launches() == {
+            "track_res_gs": 0, "track_lm_update": 0, "lm_step": 0,
+            "lm_accept_step": 0, "align_batch": 1, "warp_patches": 1,
+            "warp_align": 1}
+        if not cases:
+            (wargs, wkw), align = kt.split_warp_align(args, kw)
+            patches = hk.warp_affine_patches(*wargs, **wkw)
+            plain = hk.warp_affine_patches_plain(*wargs, **wkw)
+            assert torch.equal(torch.isnan(patches), torch.isnan(plain))
+            assert float((patches - plain).abs()[~torch.isnan(plain)]
+                         .max()) <= PATCH_TOL
+            ref = hk.align_batch_plain(*align(patches), n_lanes=lanes)
+            agree = conv == ref[1]
+            both = conv & ref[1]
+            d = (px - ref[0]).abs().amax(-1)
+            late = both & (d > ALIGN_PX_TOL)
+            assert int((~agree).sum()) + int(late.sum()) <= \
+                1 + (1 - ALIGN_FLAG_SHARE) * agree.numel()
+            assert float(d[both].max()) <= ALIGN_STEP_TOL
+            assert int((fails - ref[2]).abs().sum()) <= int((~agree).sum())
+        cpu = [a.cpu() for a in args]
+        emu = k5_align.warp_align(kw["quad_stack"].cpu(), *cpu[1:5], h, w,
+                                  *cpu[5:])
+        n = k5_align.bits_differ(px, emu[0])
+        assert n == 0, f"{n} of {px.numel()} differ"
+        assert torch.equal(conv.cpu(), emu[1])
+        assert torch.equal(fails.cpu(), emu[2].reshape(lanes, -1, 2).sum(1))
