@@ -58,7 +58,8 @@ Phases (any failure exits nonzero; each prints its results):
      keyframe optimization and build_track_ref call outside it, at
      least one K2 launch, and K3-K6's device counters equal to the
      evaluations the tracking loops ran and the matcher's calls (one
-     fused K5 / K6 launch each, no K5 or K6 launch of its own)
+     fused K5 / K6 launch each, no K5 or K6 launch of its own, and one
+     launch of the kernel zeroing its failure counts each)
      (`check_track_evaluations`: the same frames with the eager loops,
      where device_loop counts every LM call and iteration and the
      matcher's calls are counted on the host), and no "align" loop;
@@ -137,6 +138,37 @@ Phases (any failure exits nonzero; each prints its results):
          the stage form; aggregate frames/s and peak memory;
      (d) 20 frames of scene A as a KITTI directory through the CLI with
          `--preset 2`: rc 0 and one trajectory row per frame;
+  9. capacity and pinned fleets, each number beside the card's name and
+     power limit:
+     (a) at each preset, one sequence of scene A (16 frames): its
+         persistent device bytes (`utils/hbm.system_device_bytes`), the
+         process's live bytes, the card's budget (`hbm_budget_bytes`) and
+         the fleet size `hbm.pick_fleet_size` picks for B = 8; then the
+         batched lockstep at B = 4 and 8 (A, B, A, B, ..., 16 rounds) on
+         phases 5's and 8's frames: peak memory (its own beside what the
+         process held before its systems were made), aggregate frames/s
+         (whole, rounds 5-16) and each lane's ATE; first the memory the
+         process holds with no system alive, with and without torch's
+         cuBLAS workspaces (then freed); requires no lane lost,
+         phase 5's ATE gate (default) or phase 8's (fast), no peak over
+         the budget, and no measured working-set ratio (B = 1, 4 and 8:
+         a run's own peak over B x one system's persistent bytes) above
+         `hbm.TEMPORARIES_FACTOR`;
+     (b) `parallel/dryrun.dryrun_pinned_fleet` over
+         `parallel/mesh.make_batch_mesh()` (every visible card; one
+         pipelined 320x96 system each, its state on its card, its
+         trajectory bit for bit its run alone), then a threaded pinned
+         fleet of two systems on [cuda:0, cuda:0] at the default preset
+         (phase 5's scenes A and B, 16 frames; the worker pool prepares
+         each worker on the devices of its fleet), each bit for bit its
+         run alone, and `dryrun_production` over the mesh (the
+         production lane forms, two lanes a card, finite); the fleets'
+         counts are read when they have flushed (before the runs alone)
+         and must show all six kernels, the lane forms' (counted without
+         the recording run their inputs come from) K1 and K3-K6 (K2 is
+         the activation program's, which no lane form runs); prints the
+         devices, and that cross-card placement was not run where one
+         card is visible;
 The pyramid, the track step, the LiDAR preprocessing, the trace, a
 selection attempt, the activation, the keyframe optimization (matcher
 refresh, windowed BA, marginalization and the K1 launch), and the
@@ -315,6 +347,13 @@ KEY_STATICS = ("levels", "pot", "cap", "max_iters")
 # first frame's tracking reference, outside any program)
 KF_PROGRAM_PARTS = ("ba0", "ba", "match2", "marg")
 PROFILE_ROUNDS = (5, 10)
+# the six kernels' launch counts (`hopper_kernels.launch_counts`)
+KERNEL_NAMES = ("dilate_pyramid", "distance_transform", "track_res_gs",
+                "track_lm_update", "align_batch", "warp_patches")
+# phase 9: the fleet size bench.py asks for, whose capacity is measured,
+# and the batched lockstep fleets run to measure it
+CAPACITY_B = 8
+CAPACITY_LOCKSTEP = (4, CAPACITY_B)
 # phase 8: bench.py's fast operating point (its scene keywords,
 # bench.py:104-116 and :122-132): the reference's preset 2/3 on a
 # non-proportional resize of the KITTI frame; scene A's frames for one
@@ -381,6 +420,20 @@ class _Tee:
     def flush(self):
         self.stream.flush()
         self.log.flush()
+
+
+def held_memory():
+    """Bytes the process holds on the card once the dead systems of earlier
+    runs are collected (a system's reference cycles wait for the cyclic
+    collector); read before a fleet's systems are made, it is what a peak
+    of that fleet's run holds besides the fleet."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
 
 
 def _brief(loops):
@@ -1074,16 +1127,19 @@ def _track_launches(what, launched):
     """K3-K6's device counts of a main-path run (`device_launches`): K3,
     both of K4's entry points and the fused K5 / K6 kernel launched, K4's
     accept-step (one per LM iteration) at least as often as its step (one
-    per LM call), and every K5 and K6 launch a fused one (no standalone
-    patch warp or alignment on the main path)."""
+    per LM call), every K5 and K6 launch a fused one (no standalone
+    patch warp or alignment on the main path), and the kernel that zeroes
+    the fused kernel's failure counts launched once per fused launch."""
     if not (launched["track_res_gs"] > 0 and launched["lm_step"] > 0
             and launched["lm_accept_step"] >= launched["lm_step"]
             and launched["warp_align"] > 0
             and launched["align_batch"] == launched["warp_align"]
-            and launched["warp_patches"] == launched["warp_align"]):
+            and launched["warp_patches"] == launched["warp_align"]
+            and launched["align_zero"] == launched["warp_align"]):
         _fail(f"{what}: K3, K4 or the fused K5 / K6 not launched, K4's "
-              f"accept-step less often than its step, or a K5 or K6 launch "
-              f"not fused ({launched})")
+              f"accept-step less often than its step, a K5 or K6 launch "
+              f"not fused, or zeroing launches not one per fused launch "
+              f"({launched})")
 
 
 # the matcher's kernel wrapper, as models/matcher calls it: the fused K5 /
@@ -1115,7 +1171,8 @@ def check_track_evaluations(what, launched, drive, main_diags):
     first evaluation), once per LM and cutoff iteration and once for the
     struct-pose veto; K4's step once per LM call and its accept-step once
     per LM iteration; the fused K5 / K6 kernel once per matcher call (so
-    K5's and K6's counts are that too). Both runs' counters must equal
+    K5's and K6's counts are that too), and the kernel zeroing its
+    failure counts once per matcher call. Both runs' counters must equal
     that. `drive()` returns its systems, whose last keyframe's matcher
     diagnostics (`match_diags`: the failure counts the fused kernel adds
     up after its zeroing kernel, in the main run from a replay of the
@@ -1157,7 +1214,8 @@ def check_track_evaluations(what, launched, drive, main_diags):
             "lm_accept_step": lm.get("iters", 0),
             "align_batch": calls["warp_align"],
             "warp_patches": calls["warp_align"],
-            "warp_align": calls["warp_align"]}
+            "warp_align": calls["warp_align"],
+            "align_zero": calls["warp_align"]}
     rec = dict(main_path={k: launched[k] for k in want},
                eager_run={k: ref[k] for k in want}, evaluations=want,
                lm_calls=lm.get("calls", 0), lm_iters=lm.get("iters", 0),
@@ -1740,7 +1798,12 @@ def run_fleet(device):
                              host_workers=FLEET_B)),
     )
     results = {}
+    fleet = None
     for name, make in comps:
+        # what the process holds before the fleet's systems are made (the
+        # last composition's freed first)
+        fleet = None
+        mem0 = held_memory()
         fleet = make()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1785,6 +1848,7 @@ def run_fleet(device):
         rec = dict(wall_s=wall, aggregate_fps=agg, steady_aggregate_fps=steady,
                    scaling_efficiency=agg / (FLEET_B * single_fps),
                    peak_mem_bytes=int(torch.cuda.max_memory_allocated()),
+                   mem_at_start_bytes=int(mem0),
                    launches=launches, kernel_lanes=kernel_lanes,
                    track_launches=track_launched,
                    stage_ms_per_frame=stage_ms, lm_iters=lm, loops=loops,
@@ -1889,7 +1953,7 @@ def run_fleet(device):
                             for k, r in refs.items()},
                 compositions=results, stage_check=stage_check,
                 program_check=program_check, track_check=track_check,
-                profile=prof)
+                profile=prof, scenes=scenes)
 
 
 def _kernels_ran(part, launches):
@@ -2559,12 +2623,12 @@ def run_fast(device):
         return MultiSystem([FullSystem(seqs[x].calib, seqs[x].sensor,
                                        Settings.preset_fast(), device=device)
                             for x in lanes], batch_track=True)
+    # what the process holds before the fleet's systems are made (the
+    # earlier phases' live memory counts in the peak)
+    mem0 = held_memory()
     m = fleet()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    # what the process holds before the fleet runs (the earlier phases'
-    # live memory counts in the peak)
-    mem0 = torch.cuda.memory_allocated()
     hk.reset_launch_counts()
     dl.reset_counts()
     t0 = time.perf_counter()
@@ -2664,6 +2728,217 @@ def run_fast(device):
               f"{rec['ate_m']}")
     if not min(rec["launches"].values()) >= 1:
         _fail(f"phase 8 (d): a kernel was not launched ({rec['launches']})")
+    out["scenes"] = {x: (seqs[x], frames[x]) for x in seqs}
+    return out
+
+
+def _lockstep_run(device, scenes, lanes, settings, n):
+    """The batched lockstep MultiSystem of `lanes` (scene names) on
+    `scenes` ({name: (seq, frames)}), n rounds; its systems made after the
+    process's held memory is read. Returns its record."""
+    import torch
+
+    from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.system.multi import MultiSystem
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    mem0 = held_memory()
+    m = MultiSystem([FullSystem(scenes[x][0].calib, scenes[x][0].sensor,
+                                settings(), device=device) for x in lanes],
+                    batch_track=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hk.reset_launch_counts()
+    dl.reset_counts()
+    t0 = time.perf_counter()
+    for i in range(n):
+        if i == PROFILE_ROUNDS[0]:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        m.add_frames([scenes[x][1][i] for x in lanes])
+    trajs = [fs.get_trajectory() for fs in m.systems]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    B = len(lanes)
+    rec = dict(B=B, aggregate_fps=B * n / (t1 - t0),
+               steady_aggregate_fps=B * (n - PROFILE_ROUNDS[0])
+               / (t1 - t_steady),
+               peak_bytes=int(torch.cuda.max_memory_allocated()),
+               mem_at_start_bytes=int(mem0),
+               launches=hk.launch_counts(),
+               lanes=[dict(scene=x, lost=bool(fs.is_lost),
+                           n_kf=len(fs.kf_shells),
+                           ate_m=float(ate_rmse(t, scenes[x][0].poses_wc[
+                               :len(t)])))
+                      for x, fs, t in zip(lanes, m.systems, trajs)])
+    rec["peak_own_bytes"] = rec["peak_bytes"] - rec["mem_at_start_bytes"]
+    return rec
+
+
+def run_capacity(device, scenes, card):
+    """Phase 9 (a): how many sequences one card holds, at each preset:
+    one sequence's persistent bytes after FLEET_FRAMES frames
+    (`hbm.system_device_bytes`), the process's live bytes, the card's
+    budget and the fleet size `pick_fleet_size` gives for CAPACITY_B; then
+    the batched lockstep at each of CAPACITY_LOCKSTEP (scenes A and B
+    alternating, FLEET_FRAMES rounds): peak (reset before the run; the
+    memory the process held before its systems were made is printed
+    beside it), aggregate frames/s over the run and over rounds
+    PROFILE_ROUNDS[0]-end, each lane's ATE. First the process's held
+    memory is read, with and without torch's cuBLAS workspaces (freed
+    here, so each run makes its own as a process of its own would). The
+    working-set ratio of each run, (peak - held) / (B x one system's
+    persistent bytes), B = 1 and CAPACITY_LOCKSTEP, must not exceed
+    `hbm.TEMPORARIES_FACTOR`, no peak may exceed the budget, and no lane
+    may be lost or over its preset's ATE gate (phase 5's, phase 8's)."""
+    import torch
+
+    from sdv_loam_tpu_torch.config import Settings
+    from sdv_loam_tpu_torch.eval.ate import ate_rmse
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+    from sdv_loam_tpu_torch.utils import hbm
+
+    n = FLEET_FRAMES
+    budget = hbm.hbm_budget_bytes(device)
+    held = held_memory()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    out = dict(card=card, budget_bytes=budget,
+               temporaries_factor=hbm.TEMPORARIES_FACTOR,
+               held_bytes=held, held_without_cublas_workspaces_bytes=(
+                   held_memory() if clear is not None else None),
+               presets={})
+    print(f"phase 9 (a) ({card}): the process holds "
+          f"{held / 2**20:.1f} MiB with no system alive; once torch's "
+          "cuBLAS workspaces are freed: "
+          f"{out['held_without_cublas_workspaces_bytes']} bytes",
+          flush=True)
+    for preset, settings in (("default", Settings),
+                             ("fast", Settings.preset_fast)):
+        sc = scenes[preset]
+        seq, frames = sc["A"]
+        mem0 = held_memory()
+        fs = FullSystem(seq.calib, seq.sensor, settings(), device=device)
+        torch.cuda.reset_peak_memory_stats()
+        for fr in frames[:n]:
+            fs.add_active_frame(*fr)
+        traj = fs.get_trajectory()
+        torch.cuda.synchronize()
+        per_system = hbm.system_device_bytes(fs)
+        one = dict(system_device_bytes=per_system,
+                   live_device_bytes=hbm.live_device_bytes(device),
+                   peak_bytes=int(torch.cuda.max_memory_allocated()),
+                   mem_at_start_bytes=int(mem0), lost=bool(fs.is_lost),
+                   ate_m=float(ate_rmse(traj, seq.poses_wc[:n])))
+        one["peak_own_bytes"] = one["peak_bytes"] - one["mem_at_start_bytes"]
+        del fs
+        pick = hbm.pick_fleet_size(per_system, CAPACITY_B, budget=budget)
+        runs = {B: _lockstep_run(device, sc,
+                                 [("A", "B")[b % 2] for b in range(B)],
+                                 settings, n)
+                for B in CAPACITY_LOCKSTEP}
+        ratios = {1: one["peak_own_bytes"] / per_system,
+                  **{B: r["peak_own_bytes"] / (B * per_system)
+                     for B, r in runs.items()}}
+        rec = dict(one_sequence=one, picked_B=pick, lockstep=runs,
+                   working_set_ratio=ratios)
+        out["presets"][preset] = rec
+        print(f"phase 9 (a) {preset} preset ({card}): " + json.dumps(rec),
+              flush=True)
+        print(f"phase 9 (a) {preset} preset ({card}): one sequence "
+              f"{per_system / 2**20:.1f} MiB persistent, "
+              f"{one['live_device_bytes'] / 2**20:.1f} MiB live, budget "
+              f"{budget / 2**20:.1f} MiB, picked B = {pick} of "
+              f"{CAPACITY_B}; working-set ratios {ratios} against the "
+              f"factor {hbm.TEMPORARIES_FACTOR}", flush=True)
+        path = {x: _path_m(sc[x][0].poses_wc[:n]) for x in sc}
+        limit = {x: ATE_LIMIT_M if preset == "default"
+                 else FAST_ATE_FRAC * path[x] for x in sc}
+        for B, r in runs.items():
+            print(f"phase 9 (a) {preset} preset ({card}): B = {B} batched "
+                  f"lockstep: peak {r['peak_bytes'] / 2**20:.1f} MiB "
+                  f"({r['mem_at_start_bytes'] / 2**20:.1f} MiB held before "
+                  f"it), {r['aggregate_fps']:.3f} frames/s aggregate "
+                  f"(rounds {PROFILE_ROUNDS[0]}-{n}: "
+                  f"{r['steady_aggregate_fps']:.3f}), lane ATE "
+                  f"{[round(ln['ate_m'], 4) for ln in r['lanes']]} m",
+                  flush=True)
+            for b, ln in enumerate(r["lanes"]):
+                if ln["lost"] or not ln["ate_m"] <= limit[ln["scene"]]:
+                    _fail(f"phase 9 (a) {preset}, B = {B}, lane {b}: lost, "
+                          f"or ATE {ln['ate_m']} m over "
+                          f"{limit[ln['scene']]} m")
+        if one["lost"] or not one["ate_m"] <= limit["A"]:
+            _fail(f"phase 9 (a) {preset}: the single sequence was lost or "
+                  f"over the ATE gate ({one['ate_m']} m)")
+        peaks = [one["peak_bytes"]] + [r["peak_bytes"] for r in runs.values()]
+        if max(peaks) > budget:
+            _fail(f"phase 9 (a) {preset}: a peak of {peaks} exceeds the "
+                  f"budget {budget}")
+        if max(ratios.values()) > hbm.TEMPORARIES_FACTOR:
+            _fail(f"phase 9 (a) {preset}: a working-set ratio {ratios} "
+                  f"exceeds the factor {hbm.TEMPORARIES_FACTOR}: "
+                  "pick_fleet_size would admit more than the card holds")
+    return out
+
+
+def run_pinned(device, scenes, card):
+    """Phase 9 (b): `parallel.dryrun`'s pinned fleet (one pipelined 320x96
+    FullSystem per device of `make_batch_mesh()`, its state on its device,
+    its trajectory bit for bit its run alone there), a threaded pinned
+    fleet of two systems on `device` at the default preset (`scenes`:
+    phase 5's A and B, FLEET_FRAMES frames), and the production lane forms
+    over the mesh (`dryrun.LANES_PER_DEVICE` lanes a device). Each fleet's
+    counts are its own (read when it has flushed, before its systems'
+    runs alone) and must show all six kernels; the lane forms' are counted
+    after their inputs were recorded and must show K1 and K3-K6 (no lane
+    form runs K2, the activation program's)."""
+    import torch
+
+    from sdv_loam_tpu_torch.ops import hopper_kernels as hk
+    from sdv_loam_tpu_torch.parallel import dryrun
+    from sdv_loam_tpu_torch.parallel.mesh import make_batch_mesh
+
+    mesh = make_batch_mesh()
+    out = dict(card=card, mesh=[str(d) for d in mesh],
+               names=[torch.cuda.get_device_name(d) for d in mesh])
+    print(f"phase 9 (b): devices {out['mesh']} ({out['names']})",
+          flush=True)
+    if len(mesh) == 1:
+        print("phase 9 (b): one card visible: cross-card placement was not "
+              "run", flush=True)
+    hk.reset_launch_counts()
+    pinned = dryrun.dryrun_pinned_fleet(mesh)
+    out["placement"] = pinned["placement"]
+    out["launches_pinned"] = pinned["launches"]
+    two = [str(device)] * 2
+    print(f"phase 9 (b): a threaded pinned fleet at the default preset on "
+          f"{two}", flush=True)
+    t0 = time.perf_counter()
+    hk.reset_launch_counts()
+    pinned = dryrun.dryrun_pinned_fleet(two, [scenes["A"], scenes["B"]],
+                                        n_frames=FLEET_FRAMES)
+    out["placement_default_threads"] = pinned["placement"]
+    out["launches_pinned_default_threads"] = pinned["launches"]
+    out["default_threads_s"] = time.perf_counter() - t0
+    rec = dryrun.record_production_calls(device=mesh[0])
+    hk.reset_launch_counts()
+    energies = dryrun.dryrun_production(mesh, rec)
+    out["launches_production"] = hk.launch_counts()
+    out["kf_energies"] = np.asarray(energies).tolist()
+    print(f"phase 9 (b) ({card}): " + json.dumps(out), flush=True)
+    need = {"launches_pinned": KERNEL_NAMES,
+            "launches_pinned_default_threads": KERNEL_NAMES,
+            "launches_production": tuple(
+                k for k in KERNEL_NAMES if k != "distance_transform")}
+    for part, names in need.items():
+        missing = [k for k in names if not out[part][k] >= 1]
+        if missing:
+            _fail(f"phase 9 (b): {part}: {missing} not launched "
+                  f"({out[part]})")
     return out
 
 
@@ -2683,8 +2958,9 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi unavailable: {smi.stderr.strip()}", flush=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() \
+        else f"nvidia-smi unavailable: {smi.stderr.strip()}"
+    print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
@@ -2723,6 +2999,7 @@ def main():
     # 5. the fleet
     t0 = time.perf_counter()
     fleet = run_fleet(device)
+    scenes = {"default": fleet.pop("scenes")}
     for name, r in fleet["compositions"].items():
         worst = max(ln["max_dt_m"] for ln in r["lanes"]), \
             max(ln["max_dr_rad"] for ln in r["lanes"])
@@ -2779,6 +3056,7 @@ def main():
     # 8. the fast preset
     t0 = time.perf_counter()
     phase8 = run_fast(device)
+    scenes["fast"] = phase8.pop("scenes")
     print(f"phase 8 {time.perf_counter() - t0:.1f} s", flush=True)
     a, c = phase8["sequential"], phase8["lockstep"]
     print(f"phase 8 (a): ATE {a['ate_m']:.4f} m, keyframes "
@@ -2794,6 +3072,32 @@ def main():
           flush=True)
     by_phase8 = {k: phase8[k]["launches"]
                  for k in ("sequential", "pipelined", "lockstep", "cli")}
+
+    # 9. capacity, and fleets pinned one system per card
+    t0 = time.perf_counter()
+    capacity = run_capacity(device, scenes, card)
+    pinned = run_pinned(device, scenes["default"], card)
+    del scenes
+    print(f"phase 9 {time.perf_counter() - t0:.1f} s", flush=True)
+    for preset, r in capacity["presets"].items():
+        print(f"phase 9 (a) {preset} ({card}): "
+              f"{r['one_sequence']['system_device_bytes'] / 2**20:.1f} MiB "
+              f"a system, budget {capacity['budget_bytes'] / 2**20:.1f} MiB,"
+              f" picked B = {r['picked_B']}; " + "; ".join(
+                  f"B = {B}: peak {big['peak_bytes'] / 2**20:.1f} MiB, "
+                  f"{big['aggregate_fps']:.3f} frames/s aggregate (rounds "
+                  f"{PROFILE_ROUNDS[0]}-{FLEET_FRAMES}: "
+                  f"{big['steady_aggregate_fps']:.3f})"
+                  for B, big in r["lockstep"].items()), flush=True)
+    print(f"phase 9 (b) ({card}): pinned fleet and production lane forms "
+          f"on {pinned['mesh']}", flush=True)
+    by_phase9 = dict(
+        {f"lockstep_{p}_B{B}": big["launches"]
+         for p, r in capacity["presets"].items()
+         for B, big in r["lockstep"].items()},
+        pinned=pinned["launches_pinned"],
+        pinned_default_threads=pinned["launches_pinned_default_threads"],
+        production=pinned["launches_production"])
 
     by_path = {"cli": phase6["cli"]["launches"],
                "dropout_sequential":
@@ -2812,6 +3116,8 @@ def main():
                               for k, v in phase7.items()},
              launches_phase8={k: v["dilate_pyramid"]
                               for k, v in by_phase8.items()},
+             launches_phase9={k: v["dilate_pyramid"]
+                              for k, v in by_phase9.items()},
              **rec["dilate_pyramid"]),
         dict(name="distance_transform", route="cuda",
              source="sdv_loam_tpu_torch/csrc/distance_transform.cu",
@@ -2823,6 +3129,8 @@ def main():
                               for k, v in phase7.items()},
              launches_phase8={k: v["distance_transform"]
                               for k, v in by_phase8.items()},
+             launches_phase9={k: v["distance_transform"]
+                              for k, v in by_phase9.items()},
              **rec["distance_transform"]),
     ]
     # K3-K6: no Pallas kernel of the JAX package; they stand for its
@@ -2850,6 +3158,7 @@ def main():
             launches_phase8=dict(
                 {k: v[name] for k, v in by_phase8.items() if k != "lockstep"},
                 lockstep=phase8["lockstep"]["track_launches"][name]),
+            launches_phase9={k: v[name] for k, v in by_phase9.items()},
             **rec[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,9 @@ function can be held against its reference on the same numpy inputs.
   models/       matcher, windowed BA backend
   system/       FullSystem orchestrator (sequential and pipelined), the
                 fleets (multi), checkpoint, runner
+  utils/hbm.py  device bytes per system, the card's budget, the fleet size
+  parallel/     a batch of sequences over several cards (mesh), the
+                production programs and a pinned fleet there (dryrun)
   io/, eval/    trajectory writer, telemetry, ATE / RPE
 
 Every op takes its device from its tensor arguments; nothing probes for a

@@ -114,8 +114,9 @@
 // halves the shuffles and the conversions of three butterflies and three
 // full rows of upd.
 //
-// Device counters (g_launches, one per mode) are incremented by one thread
-// per launch, so launches captured in a CUDA graph, also inside its IF and
+// Device counters (g_launches, one per mode, and one for the zeroing kernel
+// that runs before every aligning launch) are incremented by one thread per
+// launch, so launches captured in a CUDA graph, also inside its IF and
 // WHILE nodes, are counted each time they run; sdv_warp_align_counts reads
 // or resets them (the caller synchronizes the device first).
 
@@ -139,8 +140,11 @@ constexpr float kEps = 1e-9f;        // H's regulariser
 constexpr unsigned kAll = 0xffffffffu;
 
 enum Mode { kFused = 0, kAlign = 1, kPatches = 2, kModes = 3 };
+// g_launches: one counter per mode, then zero_counts' launches
+constexpr int kZeroCounter = kModes;
+constexpr int kCounters = kModes + 1;
 
-__device__ unsigned long long g_launches[kModes];
+__device__ unsigned long long g_launches[kCounters];
 
 struct Args {
   // the alignment: the target pyramids' quad pack and level tables
@@ -590,8 +594,10 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 }
 
 // the failure counts zeroed, on the launch's stream before it (a kernel
-// node, as a CUDA graph's conditional bodies hold)
+// node, as a CUDA graph's conditional bodies hold), counted like the
+// aligning launch it precedes
 __global__ void zero_counts(unsigned long long* c, int n) {
+  if (threadIdx.x == 0) atomicAdd(&g_launches[kZeroCounter], 1ull);
   for (int i = threadIdx.x; i < n; i += blockDim.x) c[i] = 0ull;
 }
 
@@ -660,12 +666,12 @@ extern "C" int sdv_warp_align(void* const* p, long long quad_rows,
 }
 
 // The launches counted on the current device since the last reset, per
-// mode (kFused, kAlign, kPatches), into out[0..2]; with `reset`, the
-// counters are zeroed after the read.
+// mode (kFused, kAlign, kPatches) into out[0..2] and the zeroing kernel's
+// into out[3]; with `reset`, the counters are zeroed after the read.
 extern "C" int sdv_warp_align_counts(unsigned long long* out, int reset) {
   cudaError_t err =
-      cudaMemcpyFromSymbol(out, g_launches, kModes * sizeof(*out));
+      cudaMemcpyFromSymbol(out, g_launches, kCounters * sizeof(*out));
   if (err != cudaSuccess || !reset) return err;
-  const unsigned long long zero[kModes] = {0, 0, 0};
+  const unsigned long long zero[kCounters] = {0, 0, 0, 0};
   return cudaMemcpyToSymbol(g_launches, zero, sizeof(zero));
 }

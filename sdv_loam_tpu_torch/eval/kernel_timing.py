@@ -1145,27 +1145,28 @@ def main():
         ap.error("--baseline is required")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
+    # the current device, by ordinal (the timers synchronize and profile
+    # it; CUDA_VISIBLE_DEVICES picks another card)
+    device = torch.device("cuda", torch.cuda.current_device())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
-        torch.cuda.get_device_name(0)
-    print(card, flush=True)
+        torch.cuda.get_device_name(device)
+    print(f"{card}; timing on {device}, {torch.cuda.get_device_name(device)}",
+          flush=True)
     if args.align:
-        rows = compare_align(os.path.abspath(args.baseline),
-                             torch.device("cuda:0"))
+        rows = compare_align(os.path.abspath(args.baseline), device)
         counts = baseline_align_counts(os.path.abspath(args.baseline))
         print("baseline align loop, phase 4's frames: " + json.dumps(counts),
               flush=True)
         rows.append(dict(name="baseline_align_counts", **counts))
     elif args.track:
-        rows = compare_track(os.path.abspath(args.baseline),
-                             torch.device("cuda:0"))
+        rows = compare_track(os.path.abspath(args.baseline), device)
         if not all(r["k3_counts_equal"] for r in rows):
             sys.exit("K3's counts disagree with the baseline's")
     else:
-        rows = compare(os.path.abspath(args.baseline),
-                       torch.device("cuda:0"))
+        rows = compare(os.path.abspath(args.baseline), device)
         if not all(r["equal"] for r in rows):
             sys.exit("a kernel disagrees with the baseline")
     if args.out:

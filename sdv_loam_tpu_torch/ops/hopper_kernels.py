@@ -133,7 +133,7 @@ _counted_devices: set = set()
 # the device counters: (the library's reader, how many counters it reads)
 _COUNTERS = (("sdv_track_res_gs_counts", 1),
              ("sdv_track_lm_update_counts", 2),
-             ("sdv_warp_align_counts", 3))
+             ("sdv_warp_align_counts", 4))
 
 
 def reset_launch_counts() -> None:
@@ -148,7 +148,8 @@ def reset_launch_counts() -> None:
 
 def _device_counts(reset: bool = False):
     """(K3 launches, K4 step launches, K4 accept-step launches, the fused
-    K5 / K6 kernel's launches in MODE_FUSED, MODE_ALIGN and MODE_PATCHES)
+    K5 / K6 kernel's launches in MODE_FUSED, MODE_ALIGN and MODE_PATCHES,
+    the launches of the kernel zeroing its failure counts)
     summed over the devices that launched them,
     read from their counters after a device synchronize; zeroed after the
     read with `reset`."""
@@ -175,12 +176,14 @@ def device_launches() -> dict:
     launches that aligned (the fused call and the given-patch mode),
     `warp_patches` those that warped patches (the fused call and the
     patches-only mode), and `warp_align` the fused calls alone, so a
-    fused launch counts in all three. Synchronizes."""
-    k3, step, accept_step, fused, align, patches = _device_counts()
+    fused launch counts in all three; `align_zero` the one-block kernel
+    that zeroes the failure counts before every aligning launch (as many
+    as `align_batch`'s). Synchronizes."""
+    k3, step, accept_step, fused, align, patches, zero = _device_counts()
     return {"track_res_gs": k3, "track_lm_update": step + accept_step,
             "lm_step": step, "lm_accept_step": accept_step,
             "align_batch": fused + align, "warp_patches": fused + patches,
-            "warp_align": fused}
+            "warp_align": fused, "align_zero": zero}
 
 
 def launch_counts() -> dict:

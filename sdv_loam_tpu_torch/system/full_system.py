@@ -145,10 +145,19 @@ class FullSystem:
         self.s = s
         self.observers = list(observers or [])
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "FullSystem runs on CUDA by default and no CUDA device is "
-                "available; pass device='cpu' to run on the CPU")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "FullSystem runs on CUDA by default and no CUDA device "
+                    "is available; pass device='cpu' to run on the CPU")
+            # pinned by ordinal: the system stays on its device whatever
+            # another thread makes current
+            self.device = device_loop.full_device(self.device)
+            if self.device.index >= torch.cuda.device_count():
+                raise ValueError(
+                    f"FullSystem asked for {self.device}, but "
+                    f"{torch.cuda.device_count()} CUDA device(s) are "
+                    "visible")
         # every public call runs on this stream (CUDA); a fleet's systems
         # then overlap on the card instead of queueing behind each other
         self.stream = torch.cuda.Stream(self.device) \

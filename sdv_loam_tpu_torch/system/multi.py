@@ -49,21 +49,37 @@ from sdv_loam_tpu_torch.system.full_system import ACT_PULL_KEYS, TRACK_KEYS
 from sdv_loam_tpu_torch.utils import device_loop
 
 
-def _worker_pool(n, device):
-    """A pool of `n` host threads for CUDA systems, each thread started and
-    its libraries' handles made before the pool is handed out
-    (`device_loop.prepare_thread`): a thread creating its first cuBLAS or
-    cuSOLVER handle while another thread captures a loop graph breaks
-    that capture."""
+def _worker_pool(n, systems):
+    """A pool of `n` host threads for the systems, each thread started and
+    its libraries' handles made on every CUDA device of the systems before
+    the pool is handed out (`device_loop.prepare_thread`): a thread
+    creating its first cuBLAS or cuSOLVER handle on a device while another
+    thread captures a loop graph there breaks that capture, and a thread
+    may advance a system of any of the devices. A thread whose preparation
+    fails breaks the barrier, so the others stop waiting and the failure
+    is raised here."""
     pool = cf.ThreadPoolExecutor(max_workers=n)
-    if device.type == "cuda":
+    devices = sorted({fs.device for fs in systems if fs.device.type == "cuda"},
+                     key=str)
+    if devices:
         barrier = threading.Barrier(n)
 
         def start():
-            device_loop.prepare_thread(device)
+            try:
+                for d in devices:
+                    device_loop.prepare_thread(d)
+            except BaseException:
+                barrier.abort()
+                raise
             barrier.wait()
-        for f in [pool.submit(start) for _ in range(n)]:
-            f.result()
+        futs = [pool.submit(start) for _ in range(n)]
+        cf.wait(futs)
+        errors = [f.exception() for f in futs if f.exception() is not None]
+        if errors:
+            pool.shutdown()
+            # the failure itself, not another thread's broken barrier
+            raise next((e for e in errors if not isinstance(
+                e, threading.BrokenBarrierError)), errors[0])
     return pool
 
 
@@ -183,7 +199,7 @@ class MultiSystem:
                 else min(8, len(self.systems))
         self._pool = None
         if host_workers > 1 and len(self.systems) > 1:
-            self._pool = _worker_pool(host_workers, self.systems[0].device)
+            self._pool = _worker_pool(host_workers, self.systems)
 
     def __len__(self):
         return len(self.systems)
@@ -484,7 +500,7 @@ class InterleavedFleet:
         self._pool = None
         if workers > 0 and len(self.systems) > 1:
             self._pool = _worker_pool(min(workers, len(self.systems)),
-                                      self.systems[0].device)
+                                      self.systems)
 
     def __len__(self):
         return len(self.systems)

@@ -384,12 +384,21 @@ def _check_like(stage, out, carries):
 _CONSTANTS: dict = {}
 
 
+def full_device(device) -> torch.device:
+    """`device` by ordinal: "cuda" is the CUDA device current now."""
+    d = torch.device(device)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
 def constant(values, device, dtype=torch.float32):
     """`values` (host numbers, nested lists or an array) as a `dtype`
     tensor on `device`, made once per values, dtype and device and shared
     by every caller (none writes to it): nothing is uploaded inside a
     stage program."""
     a = np.asarray(values)
+    device = full_device(device)
     key = (a.dtype.str, a.shape, a.tobytes(), dtype, str(device))
     t = _CONSTANTS.get(key)
     if t is None:
@@ -397,17 +406,25 @@ def constant(values, device, dtype=torch.float32):
     return t
 
 
+# one thread at a time prepares: the process's first linear-algebra call
+# on CUDA loads torch's linalg library, and two threads doing so at once
+# fail ("lazy wrapper should be called at most once")
+_prepare_lock = threading.Lock()
+
+
 def prepare_thread(device) -> None:
     """Make this thread's cuBLAS, cuBLASLt and cuSOLVER handles (a small
     product, a one-matrix solve and a batched one). A thread that makes
     its first handle while another thread captures breaks that capture, so
-    the fleets start their worker threads with this."""
-    a = torch.eye(8, device=device) * 2.0
-    b = torch.ones(8, device=device)
-    torch.addmm(a, a, a)
-    torch.linalg.solve_ex(a, b)
-    torch.linalg.solve_ex(a.expand(2, 8, 8), b.expand(2, 8))
-    torch.cuda.current_stream(device).synchronize()
+    the fleets start their worker threads with this (handles are made per
+    thread and device)."""
+    with _prepare_lock, torch.cuda.device(device):
+        a = torch.eye(8, device=device) * 2.0
+        b = torch.ones(8, device=device)
+        torch.addmm(a, a, a)
+        torch.linalg.solve_ex(a, b)
+        torch.linalg.solve_ex(a.expand(2, 8, 8), b.expand(2, 8))
+        torch.cuda.current_stream(device).synchronize()
 
 
 def _overlapping(t) -> bool:
@@ -595,9 +612,16 @@ class _Entry:
 
 
 def _side_stream(cache, dev):
+    """The cache's capture stream (made on `dev` at its first capture). A
+    cache holds one device's graphs: a capture for another device
+    raises."""
     if cache.stream is None:
         cache.stream = torch.cuda.Stream(dev)
         cache.pool = torch.cuda.graph_pool_handle()
+    elif cache.stream.device != dev:
+        raise RuntimeError(f"a LoopCache of {cache.stream.device} asked to "
+                           f"capture on {dev}: give each device a cache of "
+                           "its own (device_loop.use)")
     return cache.stream
 
 
@@ -790,7 +814,8 @@ def _prepare_streams(cache, dev):
     if not cache.body_streams:
         cache.body_streams = [torch.cuda.Stream(dev)
                               for _ in range(MAX_DEPTH)]
-        cache.body_pool = torch.cuda.MemPool()
+        with torch.cuda.device(dev):      # a pool belongs to one device
+            cache.body_pool = torch.cuda.MemPool()
     me = threading.get_ident()
     if me not in cache.prepared:
         cur = torch.cuda.current_stream(dev)
@@ -883,16 +908,19 @@ def _graph_program(stage, fn, leaves, spec, static, dev):
     if e is None:
         with _lock:
             warm = (fn, str(dev)) in _WARM
-            _WARM.add((fn, str(dev)))
         if not warm:
             # the warm-up: this call's result, in the eager form (early-exit
-            # loops, host reads: the same values)
+            # loops, host reads: the same values); marked done only once it
+            # has run, so another thread's first call warms up too rather
+            # than capture before the modules and constants are made
             prev = getattr(_tls, "mode", None)
             _tls.mode = "reference"
             try:
                 out = fn(tree_unflatten(leaves, spec), **static)
             finally:
                 _tls.mode = prev
+            with _lock:
+                _WARM.add((fn, str(dev)))
             _count(stage, warmups=1, calls=1)
         e = _Program(leaves)
         _capture_program(cache, stage, fn, e, spec, static, dev)

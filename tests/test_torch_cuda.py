@@ -635,7 +635,7 @@ def test_lm_update_kernels_match_plain(cuda, shape, per_row):
     assert hk.device_launches() == {"track_res_gs": 0, "track_lm_update": 2,
                                     "lm_step": 1, "lm_accept_step": 1,
                                     "align_batch": 0, "warp_patches": 0,
-                                    "warp_align": 0}
+                                    "warp_align": 0, "align_zero": 0}
 
 
 @pytest.mark.cuda
@@ -816,8 +816,9 @@ def test_align_kernel_matches_plain_and_emulation(cuda, preset, call,
     patches): against the plain batched loop under the CPU tests'
     tolerances, and bit for bit (NaN payloads aside) against its CPU
     emulation (tests/k5_align.py: the kernel's float64 sums and order);
-    one device launch, in that mode, per-lane failure counts equal to the
-    masks' sums."""
+    one device launch, in that mode, after one launch of the kernel that
+    zeroes the failure counts, per-lane failure counts equal to the masks'
+    sums."""
     import k5_align
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
     from sdv_loam_tpu_torch.utils import device_loop as dl
@@ -829,7 +830,7 @@ def test_align_kernel_matches_plain_and_emulation(cuda, preset, call,
     px, conv, fails = hk.align_batch(*args, n_lanes=lanes)
     launched = hk.device_launches()
     assert launched["align_batch"] == 1 and launched["warp_align"] == 0
-    assert launched["warp_patches"] == 0
+    assert launched["warp_patches"] == 0 and launched["align_zero"] == 1
     x, st = hk.align_setup(*args)
     out = dl.run("align", hk.align_body, x, st, 10)
     ref_px, ref_conv = torch.stack([out["u"], out["v"]], -1), out["conv"]
@@ -855,7 +856,8 @@ def test_warp_kernel_matches_plain_and_emulation(cuda, preset, call,
     """K6 at the main path's shapes (the fused kernel's patches-only
     mode): against the plain version (the same zero and NaN pattern,
     values within PATCH_TOL) and bit for bit against its CPU emulation;
-    one device launch, in that mode."""
+    one device launch, in that mode, and no zeroing launch (nothing is
+    aligned)."""
     import k5_align
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
 
@@ -866,7 +868,7 @@ def test_warp_kernel_matches_plain_and_emulation(cuda, preset, call,
     got = hk.warp_affine_patches(*args, **kw)
     launched = hk.device_launches()
     assert launched["warp_patches"] == 1 and launched["warp_align"] == 0
-    assert launched["align_batch"] == 0
+    assert launched["align_batch"] == 0 and launched["align_zero"] == 0
     ref = hk.warp_affine_patches_plain(*args, **kw)
     nan_g, nan_r = torch.isnan(got), torch.isnan(ref)
     assert torch.equal(nan_g, nan_r) and torch.equal(got == 0, ref == 0)
@@ -891,8 +893,9 @@ def _match_program(x):
 def test_align_kernels_count_inside_an_if_node(cuda):
     """The fused K5 / K6 launch inside a captured program's IF node (the
     keyframe program's second matcher pass): its device counters count the
-    replays whose predicate holds, one launch each, and each replay's
-    outputs equal the eager call's: px, and the failure counts bit for bit
+    replays whose predicate holds, one launch and one zeroing launch each,
+    and each replay's outputs equal the eager call's: px, and the failure
+    counts bit for bit
     (the kernel adds them up after a zeroing kernel of the same call, both
     replayed in the IF node; a replay that lost the zeroing would pile the
     counts up across replays). The poisoned rows make the counts
@@ -915,6 +918,7 @@ def test_align_kernels_count_inside_an_if_node(cuda):
     got = hk.device_launches()
     assert got["warp_align"] == runs + 1
     assert got["align_batch"] == got["warp_patches"] == runs + 1
+    assert got["align_zero"] == runs + 1
     assert int(want[2].sum()) > 0, want[2]
     for go, out in outs:
         if go:
@@ -941,7 +945,7 @@ def test_fused_kernel_matches_plain_and_emulation(cuda, preset, call,
     edge, rows that walk far from their start, rows on a level the pack
     cuts short) bit for bit (NaN payloads aside) against its CPU
     emulation (tests/k5_align.py warp_align); one launch, counted for K5
-    and K6."""
+    and K6, after one zeroing launch."""
     import k5_align
     from sdv_loam_tpu_torch.eval import kernel_timing as kt
 
@@ -957,7 +961,7 @@ def test_fused_kernel_matches_plain_and_emulation(cuda, preset, call,
         assert hk.device_launches() == {
             "track_res_gs": 0, "track_lm_update": 0, "lm_step": 0,
             "lm_accept_step": 0, "align_batch": 1, "warp_patches": 1,
-            "warp_align": 1}
+            "warp_align": 1, "align_zero": 1}
         if not cases:
             (wargs, wkw), align = kt.split_warp_align(args, kw)
             patches = hk.warp_affine_patches(*wargs, **wkw)
@@ -981,3 +985,33 @@ def test_fused_kernel_matches_plain_and_emulation(cuda, preset, call,
         assert n == 0, f"{n} of {px.numel()} differ"
         assert torch.equal(conv.cpu(), emu[1])
         assert torch.equal(fails.cpu(), emu[2].reshape(lanes, -1, 2).sum(1))
+
+
+# ---------------------------------------------------------------------------
+# systems pinned to a card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_full_system_refuses_a_card_it_cannot_have(cuda):
+    """A FullSystem asked for an ordinal past the visible cards raises (no
+    move to another card or to the CPU); asked for "cuda" it is pinned to
+    the current card by ordinal."""
+    from sdv_loam_tpu_torch.data.synthetic import make_sequence
+    from sdv_loam_tpu_torch.system.full_system import FullSystem
+
+    seq = make_sequence(n_frames=1, w=320, h=96)
+    n = torch.cuda.device_count()
+    with pytest.raises(ValueError, match="visible"):
+        FullSystem(seq.calib, seq.sensor, device=f"cuda:{n}")
+    fs = FullSystem(seq.calib, seq.sensor, device="cuda")
+    assert fs.device == torch.device("cuda", torch.cuda.current_device())
+    assert fs.stream.device == fs.device
+
+
+@pytest.mark.cuda
+def test_batch_mesh_lists_every_visible_card(cuda):
+    from sdv_loam_tpu_torch.parallel.mesh import make_batch_mesh
+
+    mesh = make_batch_mesh()
+    assert mesh == tuple(torch.device("cuda", i)
+                         for i in range(torch.cuda.device_count()))

@@ -220,3 +220,33 @@ def test_interleaved_matches_single(seqs, frames, pipelined_singles,
     for fs, ref in zip(fleet.systems, pipelined_singles):
         assert fs._pending is None
         np.testing.assert_array_equal(fs.get_trajectory(), ref)
+
+
+def test_worker_pool_raises_when_a_thread_cannot_prepare(monkeypatch):
+    """A worker thread whose library handles cannot be made on a card breaks
+    the pool's start barrier: the pool raises that failure instead of the
+    other threads waiting for it forever."""
+    import types
+
+    from sdv_loam_tpu_torch.system import multi
+    from sdv_loam_tpu_torch.utils import device_loop
+
+    def prepare(device):
+        if threading.current_thread().name.endswith("_1"):
+            raise RuntimeError("no handle on " + str(device))
+    monkeypatch.setattr(device_loop, "prepare_thread", prepare)
+    systems = [types.SimpleNamespace(device=torch.device("cuda", i))
+               for i in range(2)]
+    got = []
+
+    def make():
+        try:
+            multi._worker_pool(3, systems)
+        except Exception as e:     # noqa: BLE001 - the test reads it
+            got.append(e)
+    t = threading.Thread(target=make)
+    t.start()
+    t.join(timeout=30)
+    assert not t.is_alive(), "the pool's start hung"
+    assert len(got) == 1 and isinstance(got[0], RuntimeError), got
+    assert "no handle" in str(got[0])
