@@ -1,0 +1,71 @@
+"""A cell from its files alone.
+
+`BENCHMARK.json` names the cells; a cell's configuration is
+`vo_bench/configs/<config>.json`, its traffic mix
+`vo_bench/traffic/<traffic>.json`, and each per-layer metric is read by
+`vo_bench/metrics/<name>.py`. Adding a configuration, a traffic mix or a
+metric adds files and entries, and edits none.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import os
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH_DIR = "vo_bench"
+
+
+@dataclasses.dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict
+    traffic: dict
+    end_to_end: list
+    per_layer: list
+    root: str
+
+    def path(self, rel):
+        return os.path.join(self.root, rel)
+
+
+def _applies(metric, cell, moves_ok):
+    """A metric's `workloads` list, where it has one, names its cells;
+    otherwise an end-to-end metric is every cell's, and a per-layer one
+    every cell's that reports the end-to-end metric it moves."""
+    ws = metric.get("workloads")
+    return cell in ws if ws is not None else moves_ok
+
+
+def load(name, root=ROOT):
+    """The cell `name` of `root`'s BENCHMARK.json, with its configuration,
+    traffic and the metrics it reports."""
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    wl = next((w for w in bench["workloads"] if w["name"] == name), None)
+    if wl is None:
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+    cfg_entry = next(c for c in bench["configs"] if c["name"] == wl["config"])
+    with open(os.path.join(root, cfg_entry["file"])) as f:
+        config = json.load(f)
+    with open(os.path.join(root, BENCH_DIR, "traffic",
+                           wl["traffic"] + ".json")) as f:
+        traffic = json.load(f)
+    e2e = [m for m in bench["end_to_end"] if _applies(m, name, True)]
+    names = {m["name"] for m in e2e}
+    layer = [m for m in bench["per_layer"]
+             if _applies(m, name, m["moves"] in names)]
+    return Cell(name, wl["chips"], config, traffic, e2e, layer, root)
+
+
+def reader(name, root=ROOT):
+    """The module that reads per-layer metric `name`."""
+    path = os.path.join(root, BENCH_DIR, "metrics", name + ".py")
+    spec = importlib.util.spec_from_file_location(
+        "vo_bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
