@@ -361,12 +361,13 @@ def make_maps_compact_steps(dI0, abs_grads, cand_mask, depth_map,
     return out, keep
 
 
-def run_select(req):
+def run_select(req, fetch):
     """One selection request of `make_maps_compact_steps`, alone -> its
-    outputs as host numpy arrays."""
+    outputs as host numpy arrays, each read back by `fetch` (a system's
+    readback, `FullSystem._np`)."""
     out = select_compact(*(req["args"][k] for k in SELECT_LANE_ARGS),
                          **req["statics"])
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    return {k: fetch(v) for k, v in out.items()}
 
 
 def drive_steps(gen, run):
@@ -381,10 +382,12 @@ def drive_steps(gen, run):
         reply = run(req)
 
 
-def make_maps_compact(*args, **kw):
-    """`make_maps_compact_steps` of one sequence, each attempt run alone.
-    Returns (out dict of host numpy arrays, keep (cap,) bool)."""
-    return drive_steps(make_maps_compact_steps(*args, **kw), run_select)
+def make_maps_compact(*args, fetch, **kw):
+    """`make_maps_compact_steps` of one sequence, each attempt run alone
+    (its outputs read back by `fetch`, as `run_select`'s). Returns (out
+    dict of host numpy arrays, keep (cap,) bool)."""
+    return drive_steps(make_maps_compact_steps(*args, **kw),
+                       lambda req: run_select(req, fetch))
 
 
 def select_cascade(dI0, ag0, ag1, ag2, ths_smoothed, cand_mask, dir_idx,

@@ -64,7 +64,8 @@ import torch
 
 from sdv_loam_tpu_torch.config import Settings
 from sdv_loam_tpu_torch.data.calib import SensorCalib
-from sdv_loam_tpu_torch.io.telemetry import Telemetry
+from sdv_loam_tpu_torch.io.telemetry import (WAIT_READBACK, WAIT_UPLOAD,
+                                             Telemetry)
 from sdv_loam_tpu_torch.models import backend
 from sdv_loam_tpu_torch.models.matcher import stack_quads
 from sdv_loam_tpu_torch.ops import lidar as lidar_ops
@@ -289,11 +290,18 @@ class FullSystem:
     # ------------------------------------------------------------------
 
     def _t(self, x, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=self.device)
+        """`x` on the device, timed as span `wait.upload`: on CUDA a copy
+        from pageable host memory, which waits for the stream's queued
+        work first."""
+        with self.telemetry.span(WAIT_UPLOAD):
+            return torch.as_tensor(np.asarray(x), dtype=dtype,
+                                   device=self.device)
 
-    @staticmethod
-    def _np(x):
-        return x.detach().cpu().numpy()
+    def _np(self, x):
+        """`x` on the host: the counted readback (`device_loop.fetch`),
+        timed as span `wait.readback`."""
+        with self.telemetry.span(WAIT_READBACK):
+            return device_loop.fetch(x)
 
     def _on_stream(self):
         """Context that makes the system's stream and its loop graphs
@@ -355,8 +363,9 @@ class FullSystem:
         """Wait for a `_to_host_async` copy; returns numpy arrays."""
         host, ev = pending
         if ev is not None:
-            ev.synchronize()
-        return {k: self._np(v) for k, v in host.items()}
+            with self.telemetry.span(WAIT_READBACK):
+                device_loop.fetch(ev)
+        return {k: v.numpy() for k, v in host.items()}
 
     @property
     def T_cw(self) -> np.ndarray:
@@ -544,9 +553,15 @@ class FullSystem:
             return
         frame, req, launched = self._pending
         self._pending = None
-        with self.telemetry.stage("track.finish"):
-            ok = self._track_result(frame, req, first=self._from_host(launched))
-        self._finish(frame, ok)
+        staging = self.telemetry.frame_id
+        self.telemetry.frame_id = frame["shell"]["id"]
+        try:
+            with self.telemetry.stage("track.finish"):
+                ok = self._track_result(frame, req,
+                                        first=self._from_host(launched))
+            self._finish(frame, ok)
+        finally:
+            self.telemetry.frame_id = staging
 
     def flush(self):
         """Finish any pipelined in-flight frame (call at sequence end)."""
@@ -561,6 +576,7 @@ class FullSystem:
         a batch) and the frame's shell; the first frame and the
         initialization. Returns the frame to track, or None when the frame
         ends here."""
+        self.telemetry.frame_id = len(self.shells)
         if self.is_lost:
             # keep recording shells with the last pose so the trajectory
             # stays dense (reference stops processing, FullSystem.cpp:824)
@@ -675,7 +691,7 @@ class FullSystem:
             fr["dI"][0], fr["abs_grad"], cand, scan["depth_map"],
             scan["px_u_map"], scan["px_v_map"], density, self._draw_dirs,
             {"pot": 3}, self.s, cap=self.s.n_select_cap,
-            sub_seed=self.s.seed)
+            sub_seed=self.s.seed, fetch=self._np)
         n_have = int(keep.sum())
         keep_p = min(1.0, self.s.desired_point_density / max(n_have, 1))
         rng = np.random.default_rng(self.s.seed)
@@ -1142,8 +1158,8 @@ class FullSystem:
     def _kf_insert(self, frame):
         """The keyframe's host steps after its trace: the marginalization
         flags, the speed test, the window slot. Returns the slot."""
-        frame["bbox_area"] = float(frame["scan"]["bbox_area"])
-        frame["add_feat"] = bool(frame["scan"]["add_feature_point"])
+        frame["bbox_area"] = float(self._np(frame["scan"]["bbox_area"]))
+        frame["add_feat"] = bool(self._np(frame["scan"]["add_feature_point"]))
         self._flag_frames_for_marginalization()
 
         if len(self.kf_shells) >= 2:
@@ -1542,7 +1558,8 @@ class FullSystem:
     def _make_new_traces(self, frame, slot):
         """Point selection + immature point creation (makeNewTraces)."""
         self._new_traces_result(frame, slot, drive_steps(
-            self._select_steps(frame, slot), run_select))
+            self._select_steps(frame, slot),
+            lambda req: run_select(req, self._np)))
 
     def _select_steps(self, frame, slot):
         """The keyframe's selection as requests (a generator, see

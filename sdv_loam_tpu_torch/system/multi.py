@@ -27,6 +27,17 @@ throughput axis is B independent sequences sharing one device):
 
 Per-sequence results do not depend on the composition: systems share
 only the device, never state.
+
+A lockstep round is a partition of fleet-level spans (`io/telemetry.spans`:
+entered once, recorded in every system's table with the round phase's full
+time): `round.pyramid`, `round.stage`, `round.lidar`, `round.track_inputs`,
+`round.track`, `round.decide`, `round.trace`, and with keyframes
+`round.kf_insert`, `round.select`, `round.activate`, `round.commit`,
+`round.kf_request`, `round.kf_opt` (`round.finish` without a batched
+track). Inside them the batched stages, the host steps (`host.stack`:
+lanes stacked and caps widened; `host.upload`, `host.lidar_args`,
+`host.select_step` and the per-lane `host.*_result` steps), the stage-end
+waits and the readbacks are spans of their own.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from sdv_loam_tpu_torch.ops.lidar import preprocess_scan_batch
 from sdv_loam_tpu_torch.ops.pyramid import make_images_batch
 from sdv_loam_tpu_torch.ops.select import (SELECT_LANE_ARGS, run_select,
                                            select_compact_lanes)
+from sdv_loam_tpu_torch.io.telemetry import spans
 from sdv_loam_tpu_torch.ops.trace import trace_points, trace_points_lanes
 from sdv_loam_tpu_torch.system import kf_ops
 from sdv_loam_tpu_torch.system.full_system import ACT_PULL_KEYS, TRACK_KEYS
@@ -213,13 +225,18 @@ class MultiSystem:
         return dict(zip(ids, _run_all(
             self._pool, [lambda i=i: task(i) for i in ids])))
 
+    def _span(self, name, ids=None, sync=False):
+        """Span `name` over the listed systems (every system by default):
+        timed once and recorded in each system's table with its full time;
+        `sync`: a stage, ending with one wait for the fleet's stream."""
+        systems = self.systems if ids is None else \
+            [self.systems[i] for i in ids]
+        return spans([fs.telemetry for fs in systems], name, sync)
+
     def _stages(self, ids, name):
-        """Enter telemetry stage `name` of every listed system around one
-        batched call (each system's stage table then holds the batch)."""
-        stack = contextlib.ExitStack()
-        for i in ids:
-            stack.enter_context(self.systems[i].telemetry.stage(name))
-        return stack
+        """Stage `name` of every listed system around one batched call
+        (each system's stage table then holds the batch)."""
+        return self._span(name, ids, sync=True)
 
     def add_frames(self, frames):
         """Process one frame per sequence.
@@ -236,60 +253,74 @@ class MultiSystem:
         live = [i for i, fr in enumerate(frames) if fr is not None]
 
         # 1. pyramids: one batch over the systems that will stage one
-        pyr = {}
-        todo = [i for i in live if not self.systems[i].is_lost]
-        if self.batch_track and len(todo) >= 2 and self._same(
-                [(np.shape(frames[i][0]), self.systems[i].levels)
-                 for i in todo]):
-            fs0 = self.systems[todo[0]]
-            with self._stages(todo, "pyramid"):
-                imgs = fs0._upload_image(np.stack(
-                    [np.asarray(frames[i][0], np.float32) for i in todo]))
-                pyr = dict(zip(todo, make_images_batch(imgs, fs0.levels)))
-        staged = {i: f for i, f in self._each(
-            live, lambda i, fs: fs._stage(*frames[i], pyr=pyr.get(i))
-        ).items() if f is not None}
-        ids = sorted(staged)
+        with self._span("round.pyramid"):
+            pyr = {}
+            todo = [i for i in live if not self.systems[i].is_lost]
+            if self.batch_track and len(todo) >= 2 and self._same(
+                    [(np.shape(frames[i][0]), self.systems[i].levels)
+                     for i in todo]):
+                fs0 = self.systems[todo[0]]
+                with self._stages(todo, "pyramid"):
+                    with self._span("host.stack", todo):
+                        imgs = np.stack([np.asarray(frames[i][0], np.float32)
+                                         for i in todo])
+                    with self._span("host.upload", todo):
+                        imgs = fs0._upload_image(imgs)
+                    pyr = dict(zip(todo, make_images_batch(imgs, fs0.levels)))
+        with self._span("round.stage"):
+            staged = {i: f for i, f in self._each(
+                live, lambda i, fs: fs._stage(*frames[i], pyr=pyr.get(i))
+            ).items() if f is not None}
+            ids = sorted(staged)
 
         # 2. LiDAR: one batch, clouds padded to the fleet's largest bucket;
         # camera-only frames stay out of it and take the null scan
-        scans = {}
-        lid = [i for i in ids if staged[i]["cloud"] is not None]
-        if self.batch_track and len(lid) >= 2 and self._same(
-                [(fs.w, fs.h) for fs in (self.systems[i] for i in lid)]):
-            cap = max(self.systems[i]._bucket_cloud(staged[i]["cloud"])[2]
-                      for i in lid)
-            with self._stages(lid, "lidar"):
-                lanes = [self.systems[i]._lidar_args(staged[i]["cloud"], cap)
-                         for i in lid]
-                out = preprocess_scan_batch(
-                    *(torch.stack(a) for a in zip(*lanes)),
-                    w=self.systems[lid[0]].w, h=self.systems[lid[0]].h)
-                scans = {i: {k: v[j] for k, v in out.items()}
-                         for j, i in enumerate(lid)}
-        self._each(ids, lambda i, fs: fs._lidar(staged[i], scans.get(i)))
+        with self._span("round.lidar"):
+            scans = {}
+            lid = [i for i in ids if staged[i]["cloud"] is not None]
+            if self.batch_track and len(lid) >= 2 and self._same(
+                    [(fs.w, fs.h) for fs in (self.systems[i] for i in lid)]):
+                cap = max(self.systems[i]._bucket_cloud(staged[i]["cloud"])[2]
+                          for i in lid)
+                with self._stages(lid, "lidar"):
+                    with self._span("host.lidar_args", lid):
+                        lanes = [self.systems[i]._lidar_args(
+                            staged[i]["cloud"], cap) for i in lid]
+                    with self._span("host.stack", lid):
+                        lanes = [torch.stack(a) for a in zip(*lanes)]
+                    out = preprocess_scan_batch(
+                        *lanes, w=self.systems[lid[0]].w,
+                        h=self.systems[lid[0]].h)
+                    scans = {i: {k: v[j] for k, v in out.items()}
+                             for j, i in enumerate(lid)}
+            self._each(ids, lambda i, fs: fs._lidar(staged[i], scans.get(i)))
 
         # 3. track requests, and the first attempts as one batch
-        reqs = self._each(ids, lambda i, fs: fs._track_inputs(staged[i]))
-        first = self._batch_track(reqs) if self.batch_track else {}
+        with self._span("round.track_inputs"):
+            reqs = self._each(ids, lambda i, fs: fs._track_inputs(staged[i]))
         if not self.batch_track:
             # per sequence: retries, veto, keyframe decision and tail
             def finish(i, fs):
                 with fs.telemetry.stage("track"):
-                    ok = fs._track_result(staged[i], reqs[i], first.get(i))
+                    ok = fs._track_result(staged[i], reqs[i])
                 fs._finish(staged[i], ok)
-            self._each(ids, finish)
+            with self._span("round.finish"):
+                self._each(ids, finish)
             return
+        with self._span("round.track"):
+            first = self._batch_track(reqs)
 
         # 4. per sequence: retries, veto and the keyframe decision
         def decide(i, fs):
             with fs.telemetry.stage("track"):
                 ok = fs._track_result(staged[i], reqs[i], first.get(i))
             return fs._decide(staged[i], ok)
-        kinds = {i: k for i, k in self._each(ids, decide).items()
-                 if k is not None}
+        with self._span("round.decide"):
+            kinds = {i: k for i, k in self._each(ids, decide).items()
+                     if k is not None}
         # 5. the trace of every system, keyframe or not
-        self._trace_phase(staged, sorted(kinds))
+        with self._span("round.trace"):
+            self._trace_phase(staged, sorted(kinds))
         # 6. the keyframe tails: selection, activation, optimization
         kfs = [i for i in sorted(kinds) if kinds[i]]
         if kfs:
@@ -310,38 +341,46 @@ class MultiSystem:
                 continue
             rs = [reqs[i] for i in grp]
             with self._stages(grp, "trace.batch"):
+                with self._span("host.stack", grp):
+                    lanes = {k: _stack([r[k] for r in rs]) for k in rs[0]
+                             if k not in TRACE_FLOATS}
                 out = trace_points_lanes(
-                    **{k: _stack([r[k] for r in rs]) for k in rs[0]
-                       if k not in TRACE_FLOATS},
-                    **{k: [r[k] for r in rs] for k in TRACE_FLOATS},
+                    **lanes, **{k: [r[k] for r in rs] for k in TRACE_FLOATS},
                     w=fs0.w, h=fs0.h)
                 for j, i in enumerate(grp):
-                    self.systems[i]._trace_result(
-                        {k: v[j] for k, v in out.items()})
+                    fs = self.systems[i]
+                    with fs.telemetry.span("host.trace_result"):
+                        fs._trace_result({k: v[j] for k, v in out.items()})
 
     def _keyframe_phase(self, staged, kfs):
         """The keyframe tails of the systems `kfs`: their host steps per
         sequence, their device stages as lanes of one call per group of
         aligned requests."""
-        slots = self._each(kfs, lambda i, fs: fs._kf_insert(staged[i]))
-        sels = self._select_phase(staged, slots)
+        with self._span("round.kf_insert"):
+            slots = self._each(kfs, lambda i, fs: fs._kf_insert(staged[i]))
 
         def insert(i, fs):
             with fs.telemetry.stage("kf.select"):
                 fs._new_traces_result(staged[i], slots[i], sels[i])
             fs._insert_residuals(slots[i])
-        self._each(kfs, insert)
+        with self._span("round.select"):
+            sels = self._select_phase(staged, slots)
+            self._each(kfs, insert)
 
-        areqs = self._each(kfs, lambda i, fs: fs._activate_request(
-            staged[i], slots[i]))
-        for grp in _groups(areqs, _activate_key):
-            self._activate_group(grp, areqs)
-        self._each(kfs, lambda i, fs: fs._commit_pool_dev(slots[i]))
+        with self._span("round.activate"):
+            areqs = self._each(kfs, lambda i, fs: fs._activate_request(
+                staged[i], slots[i]))
+            for grp in _groups(areqs, _activate_key):
+                self._activate_group(grp, areqs)
+        with self._span("round.commit"):
+            self._each(kfs, lambda i, fs: fs._commit_pool_dev(slots[i]))
 
-        kreqs = self._each(kfs, lambda i, fs: fs._kf_opt_request(
-            staged[i], slots[i]))
-        for grp in _groups(kreqs, _kf_opt_key):
-            self._kf_opt_group(grp, kreqs)
+        with self._span("round.kf_request"):
+            kreqs = self._each(kfs, lambda i, fs: fs._kf_opt_request(
+                staged[i], slots[i]))
+        with self._span("round.kf_opt"):
+            for grp in _groups(kreqs, _kf_opt_key):
+                self._kf_opt_group(grp, kreqs)
 
     def _select_phase(self, staged, slots):
         """Drive every keyframe's selection (`FullSystem._select_steps`)
@@ -359,29 +398,32 @@ class MultiSystem:
             except StopIteration as stop:
                 done[i] = stop.value
 
-        for i in sorted(gens):
-            with self.systems[i]._on_stream():
-                step(i, None)
+        def steps(replies):
+            for i in sorted(replies):
+                fs = self.systems[i]
+                with fs._on_stream(), fs.telemetry.span("host.select_step"):
+                    step(i, replies[i])
+
+        steps(dict.fromkeys(gens))
         while pending:
             reqs, replies = dict(pending), {}
             pending.clear()
             for grp in _groups(reqs, _select_key):
+                fs0 = self.systems[grp[0]]
                 if len(grp) == 1:
-                    fs = self.systems[grp[0]]
-                    with fs._on_stream(), fs.telemetry.stage("kf.select"):
-                        replies[grp[0]] = run_select(reqs[grp[0]])
+                    with fs0._on_stream(), fs0.telemetry.stage("kf.select"):
+                        replies[grp[0]] = run_select(reqs[grp[0]], fs0._np)
                     continue
                 rs = [reqs[i] for i in grp]
                 with self._stages(grp, "kf.select.batch"):
-                    out = select_compact_lanes(
-                        *(_stack([r["args"][k] for r in rs])
-                          for k in SELECT_LANE_ARGS), **rs[0]["statics"])
-                    host = {k: v.cpu().numpy() for k, v in out.items()}
+                    with self._span("host.stack", grp):
+                        lanes = [_stack([r["args"][k] for r in rs])
+                                 for k in SELECT_LANE_ARGS]
+                    out = select_compact_lanes(*lanes, **rs[0]["statics"])
+                    host = {k: fs0._np(v) for k, v in out.items()}
                 for j, i in enumerate(grp):
                     replies[i] = {k: v[j] for k, v in host.items()}
-            for i in sorted(replies):
-                with self.systems[i]._on_stream():
-                    step(i, replies[i])
+            steps(replies)
         return done
 
     def _activate_group(self, grp, areqs):
@@ -395,16 +437,19 @@ class MultiSystem:
             return
         rs = [areqs[i] for i in grp]
         with self._stages(grp, "kf.activate.batch"):
-            dev = kf_ops.activate_full_lanes(
-                **{k: _stack([r["args"][k] for r in rs])
-                   for k in rs[0]["args"] if k not in ACT_HOST_ARGS},
-                **{k: [r["args"][k] for r in rs] for k in ACT_HOST_ARGS},
-                **_widen([r["statics"] for r in rs], ("a_cap",)))
+            with self._span("host.stack", grp):
+                lanes = {k: _stack([r["args"][k] for r in rs])
+                         for k in rs[0]["args"] if k not in ACT_HOST_ARGS}
+                lanes.update({k: [r["args"][k] for r in rs]
+                              for k in ACT_HOST_ARGS})
+                statics = _widen([r["statics"] for r in rs], ("a_cap",))
+            dev = kf_ops.activate_full_lanes(**lanes, **statics)
             host = {k: self.systems[grp[0]]._np(dev[k])
                     for k in ACT_PULL_KEYS}
         for j, i in enumerate(grp):
             fs = self.systems[i]
-            with fs.telemetry.stage("kf.activate"):
+            with fs.telemetry.stage("kf.activate"), \
+                    fs.telemetry.span("host.activate_result"):
                 fs._activate_result(
                     {k: dev[k][j] for k in ("im_valid", "im_status")},
                     {k: v[j] for k, v in host.items()})
@@ -418,17 +463,18 @@ class MultiSystem:
             return
         rs = [kreqs[i] for i in grp]
         with self._stages(grp, "kf.opt.batch"):
-            lanes = {k: _stack([r["args"][k] for r in rs])
-                     for k in kf_ops.KF_TENSOR_ARGS}
-            lanes.update({k: [r["args"][k] for r in rs]
-                          for k in kf_ops.KF_HOST_ARGS})
-            lanes.update({k: rs[0]["args"][k]
-                          for k in kf_ops.KF_SHARED_ARGS})
-            lanes["dI_newest_pyr"] = _stack(
-                [tuple(r["args"]["dI_newest_pyr"]) for r in rs])
-            out = kf_ops.kf_opt_step_lanes(
-                **lanes, **_widen([r["statics"] for r in rs],
-                                  ("p1_cap", "p2_cap")))
+            with self._span("host.stack", grp):
+                lanes = {k: _stack([r["args"][k] for r in rs])
+                         for k in kf_ops.KF_TENSOR_ARGS}
+                lanes.update({k: [r["args"][k] for r in rs]
+                              for k in kf_ops.KF_HOST_ARGS})
+                lanes.update({k: rs[0]["args"][k]
+                              for k in kf_ops.KF_SHARED_ARGS})
+                lanes["dI_newest_pyr"] = _stack(
+                    [tuple(r["args"]["dI_newest_pyr"]) for r in rs])
+                statics = _widen([r["statics"] for r in rs],
+                                 ("p1_cap", "p2_cap"))
+            out = kf_ops.kf_opt_step_lanes(**lanes, **statics)
             keys = dict.fromkeys(k for i in grp
                                  for k in self.systems[i].kf_pull_keys())
             host = {k: self.systems[grp[0]]._np(out[k]) for k in keys}
@@ -437,7 +483,8 @@ class MultiSystem:
         for j, i in enumerate(grp):
             fs = self.systems[i]
             fs.telemetry.counters["ba_lm_iters_fleet"] += fleet_iters
-            with fs.telemetry.stage("kf.opt"):
+            with fs.telemetry.stage("kf.opt"), \
+                    fs.telemetry.span("host.kf_opt_result"):
                 fs._kf_opt_result(kreqs[i], kf_ops.lane_of(out, j),
                                   {k: v[j] for k, v in host.items()})
 
@@ -461,11 +508,12 @@ class MultiSystem:
             return {}
         fs0 = self.systems[ids[0]]
         with self._stages(ids, "track.batch"):
+            with self._span("host.upload", ids):
+                args = [dict(reqs[i]["args"], try_exclude=fs0._t(
+                    reqs[i]["exclude"], torch.bool)) for i in ids]
             out = track_frame_step_batch(
-                [dict(reqs[i]["args"], try_exclude=fs0._t(
-                    reqs[i]["exclude"], torch.bool)) for i in ids],
-                [reqs[i]["etol"] for i in ids], [reqs[i]["mdt"] for i in ids],
-                **reqs[ids[0]]["statics"],
+                args, [reqs[i]["etol"] for i in ids],
+                [reqs[i]["mdt"] for i in ids], **reqs[ids[0]]["statics"],
                 quad_stacks=[reqs[i]["quad_stack"] for i in ids])
             host = {k: fs0._np(out[k]) for k in TRACK_KEYS}
         return {i: {k: v[j] for k, v in host.items()}

@@ -85,9 +85,17 @@ capture) exist for the comparisons of `chip_smoke.py` and the tests.
 `STATS` counts, per stage, captures and their seconds, replays, host reads
 of a stop flag, and (eager loops) the iterations run; per program also
 instantiate seconds, the ops its capture recorded (graph nodes), the graph
-pools' growth (MiB) and warm-up calls. Inside `program_timing()` (a
-profile window, eval/profile) a pair of CUDA events brackets every program
-replay, read once at the window's end: each program's device time.
+pools' growth (MiB), warm-up calls, and each replay's device copies of its
+inputs into the static buffers and of its outputs out of the graph's pool
+(`copies`). `fetch` is the host's one readback path: its count is
+`fetches` under "readback". While the autograd profiler records, a
+program's eager warm-up, its capture and its replays are profiler
+annotations (`io/telemetry.annotation`): `stage:program.warmup`,
+`stage:program.capture`, and `stage:program.replay` around its steps
+`stage:program.inputs`, `stage:program.launch` and `stage:program.outputs`.
+Inside `program_timing()` (a profile window, eval/profile) a pair of CUDA
+events brackets every program replay, read once at the window's end: each
+program's device time.
 """
 
 from __future__ import annotations
@@ -100,6 +108,8 @@ import time
 
 import numpy as np
 import torch
+
+from sdv_loam_tpu_torch.io.telemetry import annotation, end_annotation
 
 # Chunk sizes (iterations per replay). A replay costs one host launch and
 # one read of the stop flag; an iteration over stopped rows costs its
@@ -332,6 +342,17 @@ def read(stage: str, flag) -> bool:
     """A counted host read of a device flag outside a loop."""
     _count(stage, reads=1)
     return bool(flag)
+
+
+def fetch(x):
+    """The host's counted readback (`fetches` under "readback" in `STATS`):
+    a tensor's values as a numpy array, once the work queued before it is
+    done; or the wait for an event that ends earlier asynchronous copies
+    (returns None)."""
+    _count("readback", fetches=1)
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    x.synchronize()
 
 
 def _inner():
@@ -915,15 +936,21 @@ def _graph_program(stage, fn, leaves, spec, static, dev):
             # than capture before the modules and constants are made
             prev = getattr(_tls, "mode", None)
             _tls.mode = "reference"
+            rf = annotation("program.warmup")
             try:
                 out = fn(tree_unflatten(leaves, spec), **static)
             finally:
                 _tls.mode = prev
+                end_annotation(rf)
             with _lock:
                 _WARM.add((fn, str(dev)))
             _count(stage, warmups=1, calls=1)
         e = _Program(leaves)
-        _capture_program(cache, stage, fn, e, spec, static, dev)
+        rf = annotation("program.capture")
+        try:
+            _capture_program(cache, stage, fn, e, spec, static, dev)
+        finally:
+            end_annotation(rf)
         cache.entries[key] = e
         if not warm:
             # cloned as a replay's outputs are: a view with gaps comes out
@@ -933,22 +960,32 @@ def _graph_program(stage, fn, leaves, spec, static, dev):
     if e.stream is not None and e.stream != cur:
         cur.wait_stream(e.stream)      # the last call's replay and clones
     e.stream = cur
+    rf = annotation("program.replay")
+    step = annotation("program.inputs")
+    copies = 0
     for buf, v in zip(e.inputs, leaves):
         if isinstance(v, torch.Tensor):
             buf.copy_(v)
+            copies += 1
+    end_annotation(step)
     timed = _TIMED
     if timed is not None:
         ev = (torch.cuda.Event(enable_timing=True),
               torch.cuda.Event(enable_timing=True))
         ev[0].record(cur)
+    step = annotation("program.launch")
     e.graph.replay()
+    end_annotation(step)
     if timed is not None:
         ev[1].record(cur)
         with _lock:
             timed.append((stage, *ev))
     hopper_kernels.count_launches(e.launches)
-    _count(stage, replays=1, calls=1)
+    step = annotation("program.outputs")
     outs = [v.clone() for v in e.out_leaves]
+    end_annotation(step)
+    end_annotation(rf)
+    _count(stage, replays=1, calls=1, copies=copies + len(outs))
     return tree_unflatten(outs, e.out_spec), True
 
 

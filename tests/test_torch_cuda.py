@@ -402,6 +402,38 @@ def test_program_replays_new_inputs_without_capture(cuda):
     assert c["replays"] == 5 - c.get("warmups", 0), c
 
 
+def _toy_counted(x, **kw):
+    return _toy(x, **kw)
+
+
+@pytest.mark.cuda
+def test_program_counts_replay_copies_and_annotates_its_capture(cuda):
+    """A program function's first call in the process is its eager warm-up
+    and its capture, each a profiler annotation (`stage:program.warmup`,
+    `stage:program.capture`); a replay is `stage:program.replay` (its
+    steps `stage:program.inputs`, `.launch` and `.outputs`) and counts
+    its input copies and output clones as `copies`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdv_loam_tpu_torch.utils import device_loop as dl
+
+    x = dict(stop=torch.tensor([1, 2], device=cuda),
+             v0=torch.tensor([1.0, 3.0], device=cuda))
+    dl.reset_counts()
+    with dl.use(dl.LoopCache()), \
+            profile(activities=[ProfilerActivity.CPU]) as prof:
+        dl.program("toyc", _toy_counted, x, dict(k2=False))
+        out = dl.program("toyc", _toy_counted, x, dict(k2=False))
+        torch.cuda.synchronize()
+    c = dl.counts()["toyc"]
+    assert (c["warmups"], c["captures"], c["replays"]) == (1, 1, 1), c
+    assert c["copies"] == len(x) + len(out), c
+    names = {e.name for e in prof.events()}
+    assert {"stage:program.warmup", "stage:program.capture",
+            "stage:program.replay", "stage:program.inputs",
+            "stage:program.launch", "stage:program.outputs"} <= names, names
+
+
 @pytest.mark.cuda
 def test_program_counts_k2_launches_per_replay(cuda):
     """A program holding one K2 launch: a warm-up call launches it (one
