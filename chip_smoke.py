@@ -1031,6 +1031,64 @@ def _check_align_kernels(device):
     return rec
 
 
+def check_ba_kernels(device):
+    """Phase 3 for K7 (ba_linearize) and K8 (ba_accumulate) at the main
+    path's BA shapes of both presets (kernel_timing.BA_SHAPES) with one
+    lane and eight (kernel_timing.BA_LANES), on kernel_timing.ba_scene's
+    window, against their plain versions on the card: K7's states equal
+    away from the thresholds and its floats within
+    kernel_timing.BA_LIN_REL of their output's scale
+    (`kernel_timing.ba_lin_gaps`), K8's sums within
+    kernel_timing.BA_ACC_REL of their terms' magnitudes
+    (build_system_lanes' accumulation); then their times
+    (kernel_timing.time_ba). (Each kernel against its CPU emulation, bit
+    for bit: tests/test_torch_ba_kernels.py on the card.) Returns
+    per-kernel records."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.models import backend
+
+    rec = {"ba_linearize": dict(max_rel_err=0.0, states_near=0),
+           "ba_accumulate": dict(max_rel_err=0.0)}
+    for preset, (n, f, w, h) in kt.BA_SHAPES.items():
+        for lanes in kt.BA_LANES:
+            what = f"{preset} N={n} F={f} lanes={lanes}"
+            x = kt.ba_scene(400 + lanes, lanes, n, f, w, h, device)
+            args = kt.ba_lin_args(x, f)
+            kw = dict(w=w, h=h, gate=x["gate"])
+            got = backend.linearize_residuals_lanes(*args, **kw)
+            plain = backend.linearize_residuals_lanes_plain(*args, **kw)
+            gc = {k: v.cpu() for k, v in got.items()}
+            near = kt.ba_lin_near(gc, x, w, h)
+            bad, worst, _ = kt.ba_lin_gaps(gc, {k: v.cpu() for k, v in
+                                                plain.items()}, near)
+            n_diff = int((gc["new_state"] != plain["new_state"].cpu()).sum())
+            print(f"ba_linearize {what}: states differing from the plain "
+                  f"version {n_diff} (near a threshold {int(near.sum())}, "
+                  f"away from one {bad}), worst float gap {worst:.3g} of "
+                  f"its output's scale", flush=True)
+            r = rec["ba_linearize"]
+            r["max_rel_err"] = max(r["max_rel_err"], worst)
+            r["states_near"] = max(r["states_near"], n_diff)
+            if bad or worst > kt.BA_LIN_REL:
+                _fail(f"ba_linearize differs at {what}")
+
+            acc = kt.ba_acc_args(got, x, f)
+            out = backend._accumulate(*acc)
+            ref = backend._accumulate_plain(*acc)
+            worst = kt.ba_acc_gap(out, ref, kt.ba_acc_magnitudes(acc, f))
+            print(f"ba_accumulate {what}: worst gap from the plain version "
+                  f"{worst:.3g} of the terms' magnitudes", flush=True)
+            r = rec["ba_accumulate"]
+            r["max_rel_err"] = max(r["max_rel_err"], worst)
+            if worst > kt.BA_ACC_REL:
+                _fail(f"ba_accumulate differs at {what}")
+    for row in kt.time_ba(device):
+        name = row.pop("name")
+        key = f"{row['preset']}_lanes{row['lanes']}"
+        rec[name][key] = dict(row, library_ms=None, library="none")
+    return rec
+
+
 def solver_kernels(device):
     """The CUDA kernels behind the windowed BA's dense solve
     (`torch.linalg.solve_ex` on the (D, D) system, D = 4 + 6 * 8): one
@@ -1088,20 +1146,24 @@ def count_builds():
     return n_build
 
 
-# K3-K6's kernel entries (a substring of each mangled name); K5 and K6
-# are one kernel
+# K3-K8's kernel entries (a substring of each mangled name); K5 and K6
+# are one kernel, K8 three
 KERNEL_ENTRIES = {"track_res_gs": ("track_res_gs_kernel",),
                   "track_lm_update": ("lm_step_kernel",
                                       "lm_accept_step_kernel"),
                   "align_batch": ("warp_align_kernel",),
-                  "warp_patches": ("warp_align_kernel",)}
+                  "warp_patches": ("warp_align_kernel",),
+                  "ba_linearize": ("ba_linearize_kernel",),
+                  "ba_accumulate": ("ba_acc_tiles_kernel",
+                                    "ba_acc_sum_kernel",
+                                    "ba_acc_stitch_kernel")}
 # the fused K5 / K6 kernel's registers a thread (K5 alone used 80)
 ALIGN_MAX_REGISTERS = 80
 
 
 def kernel_usage(usage):
     """Phase 2: the ptxas report (registers, spills, shared memory) of
-    each K3-K6 kernel entry, printed; fails when one spills or is missing
+    each K3-K8 kernel entry, printed; fails when one spills or is missing
     from the report, or when the fused K5 / K6 kernel takes more than
     ALIGN_MAX_REGISTERS registers."""
     out = {}
@@ -1172,9 +1234,11 @@ def check_track_evaluations(what, launched, drive, main_diags):
     struct-pose veto; K4's step once per LM call and its accept-step once
     per LM iteration; the fused K5 / K6 kernel once per matcher call (so
     K5's and K6's counts are that too), and the kernel zeroing its
-    failure counts once per matcher call. Both runs' counters must equal
-    that. `drive()` returns its systems, whose last keyframe's matcher
-    diagnostics (`match_diags`: the failure counts the fused kernel adds
+    failure counts once per matcher call; K7 once per BA linearization
+    and K8 once per BA system build or point marginalization (each
+    counted on the host where the eager run calls its wrapper). Both
+    runs' counters must equal that. `drive()` returns its systems, whose
+    last keyframe's matcher diagnostics (`match_diags`: the failure counts the fused kernel adds
     up after its zeroing kernel, in the main run from a replay of the
     keyframe program, pass 2's inside its IF nodes) must equal the main
     run's `main_diags` bit for bit."""
@@ -1184,9 +1248,11 @@ def check_track_evaluations(what, launched, drive, main_diags):
     from sdv_loam_tpu_torch.utils import device_loop as dl
 
     _track_launches(what, launched)
-    calls = dict(track=0, warp_align=0)
+    calls = dict(track=0, warp_align=0, ba_linearize=0, ba_accumulate=0)
     patched = {(frame_step, "_track_program"): "track",
-               **{(matcher, fn): k for k, fn in MATCHER_KERNELS.items()}}
+               **{(matcher, fn): k for k, fn in MATCHER_KERNELS.items()},
+               (hk, "ba_linearize"): "ba_linearize",
+               (hk, "ba_accumulate"): "ba_accumulate"}
     orig = {key: getattr(*key) for key in patched}
 
     def counted(key):
@@ -1215,19 +1281,25 @@ def check_track_evaluations(what, launched, drive, main_diags):
             "align_batch": calls["warp_align"],
             "warp_patches": calls["warp_align"],
             "warp_align": calls["warp_align"],
-            "align_zero": calls["warp_align"]}
+            "align_zero": calls["warp_align"],
+            "ba_linearize": calls["ba_linearize"],
+            "ba_accumulate": calls["ba_accumulate"]}
     rec = dict(main_path={k: launched[k] for k in want},
                eager_run={k: ref[k] for k in want}, evaluations=want,
                lm_calls=lm.get("calls", 0), lm_iters=lm.get("iters", 0),
                cutoff_iters=cut.get("iters", 0), track_steps=calls["track"],
                matcher_calls=calls["warp_align"],
+               ba_linearizations=calls["ba_linearize"],
+               ba_accumulations=calls["ba_accumulate"],
                align_loops=c.get("align", {}).get("calls", 0),
                match_diags=dict(main_path=main_diags, eager_run=eager_diags))
-    print(f"K3-K6 launches against the loops' evaluations and the matcher "
-          f"calls, {what}: " + json.dumps(rec), flush=True)
+    print(f"K3-K8 launches against the loops' evaluations, the matcher "
+          f"calls and the BA's linearizations and accumulations, {what}: "
+          + json.dumps(rec), flush=True)
     if not rec["main_path"] == rec["eager_run"] == want:
-        _fail(f"{what}: K3-K6 launches differ from the evaluations the "
-              "loops ran or the matcher calls")
+        _fail(f"{what}: K3-K8 launches differ from the evaluations the "
+              "loops ran, the matcher calls or the BA's linearizations and "
+              "accumulations")
     if rec["align_loops"]:
         _fail(f"{what}: an \"align\" loop ran on the card")
     if main_diags != eager_diags or any(None in d for d in main_diags):
@@ -2976,6 +3048,7 @@ def main():
     rec = check_kernels(device)
     rec.update(check_track_kernels(device))
     rec.update(check_align_kernels(device))
+    rec.update(check_ba_kernels(device))
     for name, entries in usage.items():
         rec[name]["ptxas"] = entries
 
@@ -3133,8 +3206,9 @@ def main():
                               for k, v in by_phase9.items()},
              **rec["distance_transform"]),
     ]
-    # K3-K6: no Pallas kernel of the JAX package; they stand for its
-    # XLA-fused calc_res_gs and LM body, and its matcher's align_batch (a
+    # K3-K8: no Pallas kernel of the JAX package; they stand for its
+    # XLA-fused calc_res_gs and LM body, the windowed BA's linearization
+    # and accumulation, and its matcher's align_batch (a
     # while_loop) and warp_affine_patches, which are one kernel here (K6
     # the prologue of K5's launch: each main-path launch runs both, and
     # K6's numbers are its patches-only mode's)
@@ -3145,7 +3219,11 @@ def main():
              "sdv_loam_tpu/ops/photometric.py:310"),
             ("align_batch", "align_batch", "sdv_loam_tpu/ops/align.py:319"),
             ("warp_patches", "align_batch",
-             "sdv_loam_tpu/ops/align.py:147")):
+             "sdv_loam_tpu/ops/align.py:147"),
+            ("ba_linearize", "ba_linearize",
+             "sdv_loam_tpu/models/backend.py:linearize_residuals"),
+            ("ba_accumulate", "ba_accumulate",
+             "sdv_loam_tpu/models/backend.py:_accumulate")):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"sdv_loam_tpu_torch/csrc/{source}.cu", replaces=replaces,

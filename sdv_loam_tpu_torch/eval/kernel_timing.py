@@ -25,6 +25,10 @@ them, else its tensor operations and batched loop from its
 iterations where it has the loop (`baseline_align_counts`). Each
 measurement runs in the order baseline, current, current, baseline.
 
+With `--ba` (no baseline), K7 and K8 against their plain versions at the
+main path's shapes (`time_ba`): the plain versions are the torch chain
+that ran before the kernels.
+
 Times:
   * device_ms: the sum of the device time of every kernel and copy that
     the call put on the card, from torch.profiler's records, over n calls,
@@ -214,6 +218,13 @@ def device_ms(fn, n=50):
     """Device time in ms of one call of fn: the kernels' and copies' own
     durations from torch.profiler, summed over n calls, divided by n.
     None when the profiler records no device activity."""
+    by_kernel = device_kernels(fn, n)
+    return sum(by_kernel.values()) if by_kernel else None
+
+
+def device_kernels(fn, n=50):
+    """Device ms per call of fn by kernel or copy (torch.profiler, after
+    warm-up, summed over n calls), each name cut to its function's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -224,11 +235,14 @@ def device_ms(fn, n=50):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
-    if not us:
-        return None
-    return float(sum(us)) / 1e3 / n
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / n
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -333,6 +347,328 @@ def track_inputs(sc, device):
                 lane=t(sc["lane"]).long(), T=t(sc["T"]),
                 aff_rel=t(sc["aff_rel"]), ref_b=t(sc["ref_b"]),
                 cutoff=t(sc["cutoff"]))
+
+
+# ---------------------------------------------------------------------------
+# K7 (ba_linearize) and K8 (ba_accumulate): the windowed BA
+# ---------------------------------------------------------------------------
+
+# the main path's BA shapes per preset: (N, F, w, h) (the active pool's
+# cap, the window's slots, the image), and the lanes timed (one system,
+# the benchmark's lockstep of eight)
+BA_SHAPES = {"default": (4096, 8, 1200, 360), "fast": (2048, 7, 424, 320)}
+BA_LANES = (1, 8)
+
+
+def ba_linearize_bound(lanes, n, f):
+    """(bound_ms, bound_by) of K7: per residual 19 bytes read (the
+    matcher's position, its flags and state, the gate's two values) and
+    114 written (resF, Jxi, Jc, Jd, the energy, the centre, the state,
+    proj_ok), per point 20 read, per lane its pairs, thresholds and
+    intrinsics; ~120 float32 operations a residual."""
+    res = lanes * n * f
+    nbytes = 133 * res + 20 * lanes * n + lanes * (96 * f * f + 4 * f + 16)
+    return _bound(nbytes, 120 * res)
+
+
+def ba_accumulate_bound(lanes, n, f):
+    """(bound_ms, bound_by) of K8: per residual its terms read once (97
+    bytes: Jc, Jxi, Jd, resF, the active flag), per point 14 read and
+    20 + 4 D written (Hdd, bd, HdiF, n_act, Vpt), per lane the adjoints
+    read and the two (D, D) systems and their b written (the tiles'
+    scratch is not counted); float32 operations: per residual its pair
+    block and b (65 terms of 2 products and 2 sums), JpJd and the point
+    sums (42), its Vpt columns (144), per point the Schur entries (3
+    each)."""
+    D = 4 + 6 * f
+    res, pts = lanes * n * f, lanes * n
+    nbytes = 97 * res + pts * (34 + 4 * D) + lanes * (
+        288 * f * f + 8 * D * D + 8 * D)
+    ops = res * (4 * 65 + 42 + 144) + pts * 3 * (D * (D + 1) // 2 + D)
+    return _bound(nbytes, ops)
+
+
+def ba_scene(seed, L, N, F, w, h, device="cpu"):
+    """A BA window's linearization and accumulation inputs for L lanes
+    (numpy, seeded): frames along a drive with a slot left invalid in
+    every second lane, points inside and outside the image and a few
+    behind the camera, inactive residuals (the host's own, invalid
+    frames, 20 % more), OOB and outlier states, invalid matches, the
+    matcher's position near the projection (a tenth far, in the Huber
+    branch), gate energies above the thresholds and gradients below 2,
+    sensor points with their depth prior, a marginalization mask and
+    small deltas. The pairs are made on `device` (strided views, as the
+    BA passes them)."""
+    from sdv_loam_tpu_torch.models import backend
+    from sdv_loam_tpu_torch.utils import se3
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    K = np.tile(np.array([0.6 * w, 0.6 * w, (w - 1) / 2, (h - 1) / 2], f32),
+                (L, 1))
+    K[:, :2] *= rng.uniform(0.98, 1.02, (L, 1)).astype(f32)
+    Tf = np.tile(np.eye(4, dtype=f32), (L, F, 1, 1))
+    for ln in range(L):
+        for k in range(F):
+            a = 0.01 * k + rng.normal(0, 0.002)
+            c, s = np.cos(a), np.sin(a)
+            Tf[ln, k, :3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+            Tf[ln, k, :3, 3] = [rng.normal(0, 0.05), rng.normal(0, 0.02),
+                                -0.7 * k]
+    eps = rng.normal(0, 2e-3, (L, F, 6)).astype(f32)
+    aff = rng.normal(0, [0.05, 2.0], (L, F, 2)).astype(f32)
+    expo = np.ones((L, F), f32)
+    fvalid = np.ones((L, F), bool)
+    fvalid[1::2, F - 1] = False
+    host = np.stack([rng.choice(np.flatnonzero(fvalid[ln]), N)
+                     for ln in range(L)])
+    u = rng.uniform(-30, w + 30, (L, N)).astype(f32)
+    v = rng.uniform(-20, h + 20, (L, N)).astype(f32)
+    idp = rng.uniform(0.02, 0.4, (L, N)).astype(f32)
+    idp[rng.random((L, N)) < 0.01] *= -1
+    act = (rng.random((L, N, F)) < 0.8) & fvalid[:, None, :] & \
+        (host[..., None] != np.arange(F))
+    state = rng.choice([0, 1, 2], (L, N, F), p=[0.8, 0.1, 0.1]).astype(
+        np.int8)
+    sensor = rng.random((L, N)) < 0.4
+
+    def t(x, dtype=None, dev=device):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    def pairs_on(dev):
+        T = t(Tf, dev=dev)
+        return backend.make_pairs_lanes(
+            se3.se3_exp(t(eps, dev=dev)) @ T, T, t(aff, dev=dev),
+            t(expo, dev=dev), t(K, dev=dev))
+
+    x = dict(pt_u=t(u), pt_v=t(v), pt_idepth=t(idp),
+             pt_host=t(host, torch.int64), res_active=t(act),
+             res_state=t(state),
+             matcher_valid=t(rng.random((L, N, F)) < 0.92),
+             frame_energy_th=t(rng.uniform(300, 3000, (L, F)).astype(f32)),
+             K=t(K), gate=(t(rng.gamma(2.0, 400.0, (L, N, F)).astype(f32)),
+                           t(rng.uniform(0, 60, (L, N, F)).astype(f32))))
+    cpu = dict({k: v.cpu() for k, v in x.items() if k != "gate"},
+               gate=tuple(g.cpu() for g in x["gate"]),
+               matcher_px=torch.zeros((L, N, F, 2)), pairs=pairs_on("cpu"))
+    centre = backend.linearize_residuals_lanes_plain(
+        *ba_lin_args(cpu, F), w=w, h=h, gate=cpu["gate"])["center"]
+    noise = rng.normal(0, 0.5, (L, N, F, 2)) * np.where(
+        rng.random((L, N, F, 1)) < 0.1, 40.0, 1.0)
+    x["matcher_px"] = t((centre[..., :2].numpy() + noise).astype(f32))
+    x["pairs"] = pairs_on(device)
+    x["pt_is_sensor"] = t(sensor)
+    x["pt_prior"] = t(np.where(sensor, 2500.0, 0.0).astype(f32))
+    x["marg_mask"] = t(rng.random((L, N)) < 0.3)
+    x["frame_delta"] = t(rng.normal(0, 1e-3, (L, F, 6)).astype(f32))
+    x["c_delta"] = t(rng.normal(0, 1e-2, (L, 4)).astype(f32))
+    return x
+
+
+def ba_lin_args(x, F):
+    """`ba_scene`'s arrays as `backend.linearize_residuals_lanes`'s
+    positional arguments (no colors, weights or images: the gate is
+    given)."""
+    L = x["pt_u"].shape[0]
+    dev = x["pt_u"].device
+    return (x["pt_u"], x["pt_v"], x["pt_idepth"], x["pt_host"], None, None,
+            x["res_active"], x["res_state"], x["matcher_px"],
+            x["matcher_valid"], x["pairs"],
+            torch.zeros((), device=dev).expand(L, F, 1, 1, 3),
+            x["frame_energy_th"], x["K"])
+
+
+def ba_acc_args(lin, x, F):
+    """`backend._accumulate`'s arguments as build_system_lanes forms them
+    from a linearization `lin` of `ba_scene`'s window."""
+    from sdv_loam_tpu_torch.models import backend
+
+    active = lin["new_state"] == backend.RES_IN
+    resF = torch.where(active[..., None], lin["resF"],
+                       torch.zeros((), device=lin["resF"].device))
+    return (lin["Jc"], lin["Jxi"], lin["Jd"], resF, active, x["pt_host"],
+            x["pt_is_sensor"], x["pt_prior"],
+            torch.ones_like(x["pt_is_sensor"]), x["pairs"], F)
+
+
+# K7 against its plain version (chip_smoke.py phase 3,
+# tests/test_torch_ba_kernels.py): a residual within BA_LIN_NEAR_PX of a
+# bounds threshold, or whose point lies within BA_LIN_NEAR_Z of the
+# target's camera plane (its projection's rounding grows as 1 / rho: at
+# rho = 0.02 one float32 ulp of rho is 6e-6 of the position), may take
+# either state and is not compared (the plain version's library products
+# round otherwise); elsewhere the states agree and each float lies within
+# BA_LIN_REL of its output's scale in the lane (`ba_lin_gaps`).
+# BA_LIN_REL: the library rounds a pixel position a few ulps apart (4 ulps
+# of 1300 px: 5e-4 px), which moves the Huber weight's square root by half
+# that over the residual (at least the threshold, 6 px): 4e-5 of every
+# Jacobian and weighted residual. Readings on an H100 at L = 8 (`ba_scene`,
+# seeds 500-505 at both presets' BA shapes, and the card tests' windows):
+# the kernel against the plain version 0 in the FEJ branch and at most
+# 2.2e-5 in the current-projection branch (3.2e-5 in the card tests'
+# windows, the fast preset's centre); planted faults: a focal length off
+# by 1e-4 of itself reads 1.0e-4 to 2.3e-3 (states differ too), a Huber
+# threshold one float32 ulp above 6 reads no more than the clean
+# comparison (it moves a weight by an ulp), TF32 products nothing (the
+# plain version's products are elementwise, no library GEMM). The limit
+# lies between the clean reading and the smallest planted fault.
+BA_LIN_NEAR_PX = 1e-3
+BA_LIN_NEAR_Z = 0.02
+BA_LIN_REL = 5e-5
+# K8 against its plain version (the same callers): every float output
+# within BA_ACC_REL of its terms' magnitudes (`ba_acc_gap`), n_act equal.
+# Readings on an H100 at L = 8 (the same windows): 9.7e-7 to 2.2e-6; the
+# plain version's GEMMs in TF32, a planted fault, 3.6e-4 to 7.1e-4
+BA_ACC_REL = 1e-5
+BA_ACC_NAMES = ("H_top", "b_top", "H_sc", "b_sc", "Hdd", "bd", "HdiF",
+                "Vpt", "n_act")
+
+
+def ba_lin_near(lin, x, w, h):
+    """Residuals whose projection lies within BA_LIN_NEAR_PX of a bounds
+    threshold (from `lin`'s centre), or whose point lies within
+    BA_LIN_NEAR_Z of the target's camera plane in the FEJ or the current
+    projection (the depth ratio rho = z_target / z_host, the projection's
+    third coordinate, from `ba_scene`'s inputs `x` in float64: where rho
+    is near 0 the sign test flips, and the projection divides by a
+    difference of terms of size ~1, so its rounding grows as 1 / rho)."""
+    Ku, Kv, _ = lin["center"].unbind(-1)
+    out = torch.zeros_like(Ku, dtype=torch.bool)
+    for v, lo, hi in ((Ku, 1.1, w - 3), (Kv, 1.1, h - 3)):
+        out |= ((v - lo).abs() <= BA_LIN_NEAR_PX) | \
+            ((v - hi).abs() <= BA_LIN_NEAR_PX)
+    f64 = torch.float64
+    L, N, F = Ku.shape
+    K = x["K"].cpu().to(f64)
+    u, v, idp = (x[k].cpu().to(f64)[..., None]
+                 for k in ("pt_u", "pt_v", "pt_idepth"))
+    k0 = (u - K[:, 2, None, None]) / K[:, 0, None, None]
+    k1 = (v - K[:, 3, None, None]) / K[:, 1, None, None]
+    pidx = x["pt_host"].cpu().long().clamp(0, F - 1)[..., None] * F + \
+        torch.arange(F)
+    lane = torch.arange(L)[:, None, None]
+    for rk, tk in (("R0", "t0"), ("Rc", "tc")):
+        R = x["pairs"][rk].cpu().to(f64)[lane, pidx]
+        t = x["pairs"][tk].cpu().to(f64)[lane, pidx]
+        rho = R[..., 2, 0] * k0 + R[..., 2, 1] * k1 + R[..., 2, 2] + \
+            t[..., 2] * idp
+        out |= rho.abs() <= BA_LIN_NEAR_Z
+    return out
+
+
+def ba_lin_gaps(got, ref, near_mask):
+    """(states or proj_ok flags that differ away from the thresholds, the
+    largest float gap over its output's scale at residuals away from the
+    thresholds whose states and proj_ok agree, that gap per output) of
+    two `linearize_residuals_lanes` results (on the CPU). An output's
+    scale is its largest magnitude in the lane, plus for resF the lane's
+    largest pixel position (r = K u - px rounds at its scale) and for the
+    energy (about r^2) that position times 1 + sqrt of the largest
+    energy: a residual's own magnitude is no scale where its terms cancel
+    (the depth Jacobian drescale (t0 - t0_z u) f at points near the
+    epipole, where one ulp of u moves it by many of its own ulps)."""
+    same = (got["new_state"] == ref["new_state"]) & \
+        (got["proj_ok"] == ref["proj_ok"])
+    bad_states = int((~same & ~near_mask).sum())
+    same = same & ~near_mask
+    L = same.shape[0]
+    pix = got["center"][..., :2].abs().reshape(L, -1).amax(-1).double()
+    per = {}
+    for k in ("resF", "Jxi", "Jc", "Jd", "energy", "center"):
+        a, b = got[k].double(), ref[k].double()
+        lane = b.abs().nan_to_num(0.0).reshape(L, -1).amax(-1)
+        if k == "resF":
+            lane = lane + pix
+        elif k == "energy":
+            lane = lane + pix * (1.0 + lane.sqrt())
+        gap = (a - b).abs()
+        gap = torch.where(torch.isnan(a) & torch.isnan(b),
+                          torch.zeros_like(gap), gap)
+        gap = gap.reshape(gap.shape[:3] + (-1,)).amax(-1)
+        rel = gap / lane.clamp(min=1e-30).reshape(L, 1, 1)
+        rel = torch.nan_to_num(rel, nan=float("inf"))
+        per[k] = float(torch.where(same, rel, torch.zeros_like(rel)).max())
+    return bad_states, max(per.values()), per
+
+
+def ba_acc_magnitudes(args, F):
+    """`backend._accumulate`'s arguments' outputs composed by the plain
+    version in float64 on the terms' absolute values: each output's sum
+    of its terms' magnitudes."""
+    from sdv_loam_tpu_torch.models import backend
+
+    def a(t):
+        return t.abs().to(torch.float64) if isinstance(t, torch.Tensor) \
+            and t.is_floating_point() else t
+    (Jc, Jxi, Jd, resF, active, host, sensor, prior, sc, pairs, _) = args
+    return backend._accumulate_plain(
+        a(Jc), a(Jxi), a(Jd), a(resF), active, host, sensor, a(prior), sc,
+        {k: a(v) for k, v in pairs.items()}, F)
+
+
+def ba_acc_gap(got, ref, mag):
+    """The largest |got - ref| over the terms' magnitudes over the float
+    outputs of two `_accumulate` results (NaN against a number reads
+    inf); raises where n_act differs."""
+    f64 = torch.float64
+    worst = 0.0
+    for name, g, r, m in zip(BA_ACC_NAMES, got, ref, mag):
+        if not g.is_floating_point():
+            if not torch.equal(g.cpu(), r.cpu()):
+                raise AssertionError(f"{name} differs")
+            continue
+        d = (g.to(f64).cpu() - r.to(f64).cpu()).abs()
+        rel = torch.where(d == 0, torch.zeros_like(d),
+                          d / m.to(f64).cpu().clamp(min=1e-30))
+        worst = max(worst, float(torch.nan_to_num(rel, nan=float("inf"))
+                                 .max()))
+    return worst
+
+
+def time_ba(device, seed=300):
+    """K7 and K8 at the main path's shapes (BA_SHAPES, BA_LANES), each
+    against its plain version on `ba_scene`'s inputs: the kernel's device
+    time (torch.profiler; by kernel, K8's three launches apart), its
+    wrapper's and the plain version's CUDA-event times, the plain
+    version's device time, the bound and the share.
+    Returns one row per kernel and shape."""
+    from sdv_loam_tpu_torch.models import backend
+
+    rows = []
+    for preset, (n, f, w, h) in BA_SHAPES.items():
+        for lanes in BA_LANES:
+            x = ba_scene(seed + lanes, lanes, n, f, w, h, device)
+            args = ba_lin_args(x, f)
+            kw = dict(w=w, h=h, gate=x["gate"])
+            lin = backend.linearize_residuals_lanes(*args, **kw)
+            acc = ba_acc_args(lin, x, f)
+            for name, kern, plain, bound in (
+                    ("ba_linearize",
+                     lambda: backend.linearize_residuals_lanes(*args, **kw),
+                     lambda: backend.linearize_residuals_lanes_plain(
+                         *args, **kw),
+                     ba_linearize_bound(lanes, n, f)),
+                    ("ba_accumulate", lambda: backend._accumulate(*acc),
+                     lambda: backend._accumulate_plain(*acc),
+                     ba_accumulate_bound(lanes, n, f))):
+                by_kernel = device_kernels(kern)
+                t_dev = sum(by_kernel.values()) if by_kernel else None
+                r = dict(name=name, preset=preset, lanes=lanes, n=n, f=f,
+                         device_ms=t_dev, kernels=by_kernel,
+                         ms=wrapper_ms(kern),
+                         plain_ms=wrapper_ms(plain),
+                         plain_device_ms=device_ms(plain),
+                         bound_ms=bound[0], bound_by=bound[1],
+                         share=bound[0] / t_dev if t_dev else None)
+                print(f"{name} {preset} N={n} F={f} lanes={lanes}: device "
+                      f"{t_dev} ms, wrapper {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms (device "
+                      f"{r['plain_device_ms']}), bound {bound[0]:.6f} ms "
+                      f"({bound[1]}), share {r['share']}; by kernel "
+                      f"{ {k: round(v, 5) for k, v in r['kernels'].items()} }",
+                      flush=True)
+                rows.append(r)
+    return rows
 
 
 # K5's and K6's main-path shapes per preset: (h, w) of level 0, and the
@@ -1140,8 +1476,11 @@ def main():
     ap.add_argument("--align", action="store_true",
                     help="K5 and K6 instead of K1 and K2, and the "
                     "baseline's align loop counts over phase 4's frames")
+    ap.add_argument("--ba", action="store_true",
+                    help="K7 and K8 against their plain versions (no "
+                    "baseline)")
     args = ap.parse_args()
-    if args.baseline is None:
+    if args.baseline is None and not args.ba:
         ap.error("--baseline is required")
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
@@ -1155,7 +1494,9 @@ def main():
         torch.cuda.get_device_name(device)
     print(f"{card}; timing on {device}, {torch.cuda.get_device_name(device)}",
           flush=True)
-    if args.align:
+    if args.ba:
+        rows = time_ba(device)
+    elif args.align:
         rows = compare_align(os.path.abspath(args.baseline), device)
         counts = baseline_align_counts(os.path.abspath(args.baseline))
         print("baseline align loop, phase 4's frames: " + json.dumps(counts),

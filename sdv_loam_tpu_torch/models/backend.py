@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from sdv_loam_tpu_torch.config import CPARS, PATTERN_P
+from sdv_loam_tpu_torch.ops import hopper_kernels
 from sdv_loam_tpu_torch.ops.trace import stack_quad12
 from sdv_loam_tpu_torch.ops.warp import quad_bilinear
 from sdv_loam_tpu_torch.utils import device_loop, se3
@@ -216,7 +217,35 @@ def linearize_residuals_lanes(pt_u, pt_v, pt_idepth, pt_host, pt_color,
                               huber_th: float = 6.0, gate=None,
                               resf_at_fej: bool = True, quad12=None):
     """`linearize_residuals` of L windows: points (L, N), residual grids
-    (L, N, F), frame_energy_th (L, F), K (L, 4)."""
+    (L, N, F), frame_energy_th (L, F), K (L, 4). CPU -> the plain version
+    (`linearize_residuals_lanes_plain`); CUDA -> K7
+    (`hopper_kernels.ba_linearize`), after the plain photometric gate where
+    `gate` is None."""
+    if pt_u.device.type == "cpu":
+        return linearize_residuals_lanes_plain(
+            pt_u, pt_v, pt_idepth, pt_host, pt_color, pt_weights, res_active,
+            res_state, matcher_px, matcher_valid, pairs, dI0_stack,
+            frame_energy_th, K, w=w, h=h, huber_th=huber_th, gate=gate,
+            resf_at_fej=resf_at_fej, quad12=quad12)
+    if gate is None:
+        gate = photometric_gate_lanes(
+            pt_u, pt_v, pt_idepth, pt_host, pt_color, pt_weights, pairs,
+            dI0_stack, w=w, h=h, huber_th=huber_th, quad12=quad12)
+    return hopper_kernels.ba_linearize(
+        pt_u, pt_v, pt_idepth, pt_host, res_active, res_state, matcher_px,
+        matcher_valid, pairs, frame_energy_th, K, gate, w=w, h=h,
+        huber_th=huber_th, resf_at_fej=resf_at_fej)
+
+
+def linearize_residuals_lanes_plain(pt_u, pt_v, pt_idepth, pt_host,
+                                    pt_color, pt_weights, res_active,
+                                    res_state, matcher_px, matcher_valid,
+                                    pairs, dI0_stack, frame_energy_th, K,
+                                    w: int, h: int, huber_th: float = 6.0,
+                                    gate=None, resf_at_fej: bool = True,
+                                    quad12=None):
+    """K7's plain version: `linearize_residuals_lanes` in tensor
+    operations (the pairs gathered per residual)."""
     F = dI0_stack.shape[1]
     dev = pt_u.device
     fx, fy, cx, cy = (K[:, i, None] for i in range(4))            # (L,1)
@@ -385,7 +414,21 @@ def _accumulate(Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor,
                 pt_prior, sc_mask, pairs, F):
     """Shared body of build_system / marginalize_points for L windows:
     per-pair blocks, stitch, per-point depth terms and the Schur
-    complement."""
+    complement over the points in `sc_mask`. CPU -> the plain version
+    (`_accumulate_plain`); CUDA -> K8 (`hopper_kernels.ba_accumulate`)."""
+    if resF.device.type == "cpu":
+        return _accumulate_plain(
+            Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor, pt_prior,
+            sc_mask, pairs, F)
+    return hopper_kernels.ba_accumulate(
+        Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor, pt_prior, sc_mask,
+        pairs["adH"], pairs["adT"], F)
+
+
+def _accumulate_plain(Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor,
+                      pt_prior, sc_mask, pairs, F):
+    """K8's plain version: `_accumulate` in tensor operations (a one-hot
+    pair product, gathered per-residual adjoints)."""
     L, N = resF.shape[:2]
     dev = resF.device
     dtype = resF.dtype

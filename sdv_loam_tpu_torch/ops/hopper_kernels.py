@@ -34,6 +34,16 @@ which the JAX package leaves to XLA to fuse:
     Gauss-Newton loop on it. `warp_affine_patches` (the patches alone)
     and `align_batch` (given patches) reach the same kernel in a mode of
     their own.
+  * `ba_linearize` (K7, csrc/ba_linearize.cu) computes the windowed BA's
+    residual linearization given its photometric gate (the JAX package's
+    XLA-fused `linearize_residuals`, sdv_loam_tpu/models/backend.py), a
+    thread per (lane, point, target) residual, the lane's pairs staged in
+    shared memory; `ba_accumulate` (K8, csrc/ba_accumulate.cu) the BA's
+    accumulation (the same file's `_accumulate` and `_stitch`): per-tile
+    pair and Schur sums, their sum in tile order, and the transport to
+    the absolute system, three launches a call. Their plain versions are
+    `models/backend.linearize_residuals_lanes_plain` and
+    `backend._accumulate_plain`, and `backend` dispatches by device.
 
 K1 and K2 take one map (H, W) or a stack of lanes (L, H, W) and compute
 each lane as the single-map call would. K3 and K4 take B rows; a row's
@@ -41,7 +51,9 @@ result does not depend on the other rows (each row's sums run in a fixed
 order, csrc/track_res_gs.cu; K4 solves each row in its own warp). K5 and
 K6 take M candidate rows, each computed on its own (K5 runs each row's
 loop to that row's own stop, which is what the plain version's batched
-loop gives the row: a row that has stopped keeps its carries).
+loop gives the row: a row that has stopped keeps its carries). K7 and K8
+take L windows; a window's outputs do not depend on the other windows
+(K8's sums run in an order fixed by N and F alone).
 
 Dispatch: a CPU tensor goes to the plain version beside each kernel; a CUDA
 tensor goes to the kernel, and a failed build or launch raises. There is no
@@ -63,9 +75,10 @@ nodes, where a replay decides on the card how often they run, so they
 count themselves on the card: one thread of each launch adds one to the
 kernel's device counter; so does the K5 / K6 kernel, which runs inside
 the keyframe program's IF nodes (the second matcher pass), one counter
-per mode. `device_launches()` reads
-those counters (a device synchronize: only for a caller that asks, never
-on the frame path), `launch_counts()` gives all six kernels' counts, and
+per mode, and so do K7 and K8, which run inside the keyframe program's
+WHILE nodes (the windowed LM), one count per call. `device_launches()`
+reads those counters (a device synchronize: only for a caller that asks, never
+on the frame path), `launch_counts()` gives every kernel's counts, and
 `reset_launch_counts()` zeroes both kinds.
 
 The same library holds csrc/graph_cond.cu, the conditional (IF and WHILE)
@@ -98,7 +111,7 @@ LAUNCHES = {"dilate_pyramid": 0, "distance_transform": 0}
 LANES = {"dilate_pyramid": 0, "distance_transform": 0}
 # the kernels that count their launches on the card
 DEVICE_COUNTED = ("track_res_gs", "track_lm_update", "align_batch",
-                  "warp_patches")
+                  "warp_patches", "ba_linearize", "ba_accumulate")
 
 STEP_SCALE = (1.0, 1.0, 1.0, 0.5, 0.5, 0.5, 10.0, 1000.0)
 LAMBDA_EXTRAPOLATION_LIMIT = 0.001
@@ -112,7 +125,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = ("dilate_pyramid.cu", "distance_transform.cu", "graph_cond.cu",
-           "track_res_gs.cu", "track_lm_update.cu", "align_batch.cu")
+           "track_res_gs.cu", "track_lm_update.cu", "align_batch.cu",
+           "ba_linearize.cu", "ba_accumulate.cu")
 # -Xptxas=-v: ptxas's report (registers, spills, shared memory per kernel),
 # kept beside the library (`build_report`)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -124,20 +138,24 @@ HALF_PATCH = 4
 PATCH = 8
 BORDER_PATCH = PATCH + 2
 MIN_UPDATE_SQ = 0.03 * 0.03
+# the windowed BA's frame slots K7 and K8 take (csrc/ba_*.cu, kMaxF)
+BA_MAX_FRAMES = 8
 
 _lib = None
 _lib_lock = threading.Lock()
 _count_lock = threading.Lock()
-# the CUDA devices K3-K6 launched on (whose counters a read visits)
+# the CUDA devices K3-K8 launched on (whose counters a read visits)
 _counted_devices: set = set()
 # the device counters: (the library's reader, how many counters it reads)
 _COUNTERS = (("sdv_track_res_gs_counts", 1),
              ("sdv_track_lm_update_counts", 2),
-             ("sdv_warp_align_counts", 4))
+             ("sdv_warp_align_counts", 4),
+             ("sdv_ba_linearize_counts", 1),
+             ("sdv_ba_accumulate_counts", 1))
 
 
 def reset_launch_counts() -> None:
-    """Zero `LAUNCHES`, `LANES` and the device counters of K3-K6 (after a
+    """Zero `LAUNCHES`, `LANES` and the device counters of K3-K8 (after a
     device synchronize)."""
     with _count_lock:
         for k in LAUNCHES:
@@ -149,8 +167,8 @@ def reset_launch_counts() -> None:
 def _device_counts(reset: bool = False):
     """(K3 launches, K4 step launches, K4 accept-step launches, the fused
     K5 / K6 kernel's launches in MODE_FUSED, MODE_ALIGN and MODE_PATCHES,
-    the launches of the kernel zeroing its failure counts)
-    summed over the devices that launched them,
+    the launches of the kernel zeroing its failure counts, K7's launches,
+    K8's calls) summed over the devices that launched them,
     read from their counters after a device synchronize; zeroed after the
     read with `reset`."""
     tot = [0] * sum(n for _, n in _COUNTERS)
@@ -169,7 +187,7 @@ def _device_counts(reset: bool = False):
 
 
 def device_launches() -> dict:
-    """The launches K3-K6 counted on the card since the last reset: per
+    """The launches K3-K8 counted on the card since the last reset: per
     kernel (K4's two entry points together), and K4's `lm_step` (one per
     LM call) and `lm_accept_step` (one per LM iteration) apart. K5 and K6
     are one kernel (csrc/align_batch.cu): `align_batch` counts its
@@ -178,18 +196,23 @@ def device_launches() -> dict:
     patches-only mode), and `warp_align` the fused calls alone, so a
     fused launch counts in all three; `align_zero` the one-block kernel
     that zeroes the failure counts before every aligning launch (as many
-    as `align_batch`'s). Synchronizes."""
-    k3, step, accept_step, fused, align, patches, zero = _device_counts()
+    as `align_batch`'s); `ba_linearize` K7's launches (one per BA
+    linearization) and `ba_accumulate` K8's calls (one per BA system
+    build or point marginalization; each call is three launches).
+    Synchronizes."""
+    (k3, step, accept_step, fused, align, patches, zero, k7,
+     k8) = _device_counts()
     return {"track_res_gs": k3, "track_lm_update": step + accept_step,
             "lm_step": step, "lm_accept_step": accept_step,
             "align_batch": fused + align, "warp_patches": fused + patches,
-            "warp_align": fused, "align_zero": zero}
+            "warp_align": fused, "align_zero": zero, "ba_linearize": k7,
+            "ba_accumulate": k8}
 
 
 def launch_counts() -> dict:
-    """All six kernels' launches: `LAUNCHES` (K1, K2) and the device
-    counters (K3-K6; a fused K5 / K6 launch counts for both).
-    Synchronizes."""
+    """Every kernel's launches: `LAUNCHES` (K1, K2) and the device
+    counters (K3-K8; a fused K5 / K6 launch counts for both, a K8 call
+    once). Synchronizes."""
     dev = device_launches()
     with _count_lock:
         out = dict(LAUNCHES)
@@ -812,6 +835,15 @@ def bind_library(path: str):
     lib.sdv_warp_align.argtypes = [vpp, ll, ll, ll, ci, ci, ci, ci, ci,
                                    vp]
     lib.sdv_warp_align.restype = ci
+    lib.sdv_ba_linearize.argtypes = [vpp, ctypes.POINTER(ll), ci, ci, ci,
+                                     ci, ci, cf, ci, vp]
+    lib.sdv_ba_linearize.restype = ci
+    lib.sdv_ba_accumulate.argtypes = [vpp, ctypes.POINTER(ll), ci, ci, ci,
+                                      vp]
+    lib.sdv_ba_accumulate.restype = ci
+    for name in ("sdv_ba_accumulate_tiles", "sdv_ba_accumulate_part"):
+        getattr(lib, name).argtypes = [ci]
+        getattr(lib, name).restype = ci
     for name, _ in _COUNTERS:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(ull), ci]
@@ -1298,3 +1330,113 @@ def _level_table(t, name):
     if t.dtype != torch.int64 or t.dim() != 1:
         raise TypeError(f"{name}: an int64 (levels,) table required")
     return t.contiguous()
+
+
+def _view_strides(x, shape, name):
+    """A float32 view's element strides as the BA kernels read it: (lane,
+    pair, row, col), 0 for a dimension it lacks (a translation's col)."""
+    if x.dtype != torch.float32 or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name}: float32 {tuple(shape)} required, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    st = list(x.stride())
+    return st + [0] * (4 - len(st))
+
+
+def ba_linearize(pt_u, pt_v, pt_idepth, pt_host, res_active, res_state,
+                 matcher_px, matcher_valid, pairs, frame_energy_th, K, gate,
+                 w: int, h: int, huber_th: float = 6.0,
+                 resf_at_fej: bool = True):
+    """K7: `backend.linearize_residuals_lanes` of L windows given its gate
+    `(energy_phot, wJI2)` (same arguments and results: points (L, N),
+    residual grids (L, N, F), `pairs` with R0, t0, Rc, tc (L, F F, 3, 3)
+    and (L, F F, 3), any strides). CUDA only (the dispatch is the
+    caller's): one launch, a thread per residual. The gate's tensors are
+    returned as given."""
+    L, N = pt_u.shape
+    F = frame_energy_th.shape[-1]
+    if not 1 <= F <= BA_MAX_FRAMES:
+        raise ValueError(f"ba_linearize: 1 to {BA_MAX_FRAMES} frame slots, "
+                         f"got {F}")
+    if isinstance(huber_th, torch.Tensor):
+        raise TypeError("huber_th: a float required")
+    pts = [_rows(x, (L, N), torch.float32, n) for x, n in (
+        (pt_u, "pt_u"), (pt_v, "pt_v"), (pt_idepth, "pt_idepth"))]
+    host = _rows(pt_host, (L, N), torch.int64, "pt_host")
+    act = _rows(res_active, (L, N, F), torch.bool, "res_active")
+    state = _rows(res_state, (L, N, F), torch.int8, "res_state")
+    mpx = _rows(matcher_px, (L, N, F, 2), torch.float32, "matcher_px")
+    mval = _rows(matcher_valid, (L, N, F), torch.bool, "matcher_valid")
+    e_ph = _rows(gate[0], (L, N, F), torch.float32, "energy_phot")
+    wj = _rows(gate[1], (L, N, F), torch.float32, "wJI2")
+    feth = _rows(frame_energy_th, (L, F), torch.float32, "frame_energy_th")
+    Kc = _rows(K, (L, 4), torch.float32, "K")
+    views = [pairs[k] for k in ("R0", "t0", "Rc", "tc")]
+    strides = []
+    for v, k in zip(views, ("R0", "t0", "Rc", "tc")):
+        strides += _view_strides(v, (L, F * F, 3, 3) if k[0] == "R"
+                                 else (L, F * F, 3), k)
+    dev = _on_card("ba_linearize", *pts, host, act, state, mpx, mval, e_ph,
+                   wj, feth, Kc, *views)
+
+    def out(*tail, dtype=torch.float32):
+        return torch.empty((L, N, F) + tail, dtype=dtype, device=dev)
+    res = dict(resF=out(2), Jxi=out(2, 6), Jc=out(2, 4), Jd=out(2),
+               new_state=out(dtype=torch.int8), energy=out())
+    center, proj_ok = out(3), out(dtype=torch.bool)
+    if L * N:
+        lib = _load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.sdv_ba_linearize(
+                _ptrs(*pts, host, act, state, mpx, mval, e_ph, wj, *views,
+                      feth, Kc, *res.values(), center, proj_ok),
+                (ctypes.c_longlong * 16)(*strides), L, N, F, int(w), int(h),
+                float(huber_th), int(bool(resf_at_fej)), stream)
+        _check_rc(rc, "ba_linearize")
+    return dict(res, energy_phot=gate[0], wJI2=gate[1], center=center,
+                proj_ok=proj_ok)
+
+
+def ba_accumulate(Jc, Jxi, Jd, resF, active, pt_host, pt_is_sensor,
+                  pt_prior, sc_mask, adH, adT, F: int):
+    """K8: `backend._accumulate` of L windows (same arguments, with the
+    pairs' adjoints adH, adT (L, F F, 6, 6) of any strides, and results:
+    H_top, b_top, H_sc, b_sc, Hdd, bd, HdiF, Vpt, n_act). CUDA only (the dispatch is the caller's): three
+    launches, the tiles' sums, their sum in tile order, the transport."""
+    if not 1 <= F <= BA_MAX_FRAMES:
+        raise ValueError(f"ba_accumulate: 1 to {BA_MAX_FRAMES} frame slots, "
+                         f"got {F}")
+    L, N = resF.shape[:2]
+    D = 4 + 6 * F
+    Jc = _rows(Jc, (L, N, F, 2, 4), torch.float32, "Jc")
+    Jxi = _rows(Jxi, (L, N, F, 2, 6), torch.float32, "Jxi")
+    Jd = _rows(Jd, (L, N, F, 2), torch.float32, "Jd")
+    res = _rows(resF, (L, N, F, 2), torch.float32, "resF")
+    act = _rows(active, (L, N, F), torch.bool, "active")
+    host = _rows(pt_host, (L, N), torch.int64, "pt_host")
+    sens = _rows(pt_is_sensor, (L, N), torch.bool, "pt_is_sensor")
+    prior = _rows(pt_prior, (L, N), torch.float32, "pt_prior")
+    sc = _rows(sc_mask, (L, N), torch.bool, "sc_mask")
+    strides = _view_strides(adH, (L, F * F, 6, 6), "adH") + \
+        _view_strides(adT, (L, F * F, 6, 6), "adT")
+    dev = _on_card("ba_accumulate", Jc, Jxi, Jd, res, act, host, sens,
+                   prior, sc, adH, adT)
+    lib = _load()
+    tiles = lib.sdv_ba_accumulate_tiles(N)
+    P = lib.sdv_ba_accumulate_part(F)
+    part = torch.empty(max(L * tiles * P, 1), device=dev)
+    tot = torch.empty(max(L * P, 1), device=dev)
+    out = (torch.empty((L, D, D), device=dev), torch.empty((L, D), device=dev),
+           torch.empty((L, D, D), device=dev), torch.empty((L, D), device=dev),
+           torch.empty((L, N), device=dev), torch.empty((L, N), device=dev),
+           torch.empty((L, N), device=dev), torch.empty((L, N, D), device=dev),
+           torch.empty((L, N), dtype=torch.int64, device=dev))
+    if L:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.sdv_ba_accumulate(
+                _ptrs(Jc, Jxi, Jd, res, act, host, sens, prior, sc, adH, adT,
+                      part, tot, *out),
+                (ctypes.c_longlong * 8)(*strides), L, N, F, stream)
+        _check_rc(rc, "ba_accumulate")
+    return out

@@ -61,7 +61,7 @@ replays. Conditional bodies run on the cache's body streams (one per
 nesting depth) and allocate from the cache's body pool. A Hopper kernel
 captured in a program counts one launch per replay
 (`ops/hopper_kernels`), and none of those may sit in a conditional body
-(K3 and K4, which count themselves on the card, may). On the
+(K3-K8, which count themselves on the card, may). On the
 CPU `fn` runs in the stage form (early-exit loops, host reads), or under
 `programs()` in the *trace form* a capture records: every loop to its
 cap, every `cond` computed and selected (the same values, since rows
@@ -818,7 +818,7 @@ def launch_log():
     """The list a capture records the host-counted Hopper kernels' (K1's
     and K2's) launches into (None outside a capture); raises inside a
     conditional body, whose launches a replay may skip or repeat, so that
-    no count can depart from the card's. (K3 and K4 count on the card and
+    no count can depart from the card's. (K3-K8 count on the card and
     never ask.)"""
     log = getattr(_tls, "launch_log", None)
     if log is not None and getattr(_tls, "depth", 0):

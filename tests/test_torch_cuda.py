@@ -667,7 +667,8 @@ def test_lm_update_kernels_match_plain(cuda, shape, per_row):
     assert hk.device_launches() == {"track_res_gs": 0, "track_lm_update": 2,
                                     "lm_step": 1, "lm_accept_step": 1,
                                     "align_batch": 0, "warp_patches": 0,
-                                    "warp_align": 0, "align_zero": 0}
+                                    "warp_align": 0, "align_zero": 0,
+                                    "ba_linearize": 0, "ba_accumulate": 0}
 
 
 @pytest.mark.cuda
@@ -993,7 +994,8 @@ def test_fused_kernel_matches_plain_and_emulation(cuda, preset, call,
         assert hk.device_launches() == {
             "track_res_gs": 0, "track_lm_update": 0, "lm_step": 0,
             "lm_accept_step": 0, "align_batch": 1, "warp_patches": 1,
-            "warp_align": 1, "align_zero": 1}
+            "warp_align": 1, "align_zero": 1, "ba_linearize": 0,
+            "ba_accumulate": 0}
         if not cases:
             (wargs, wkw), align = kt.split_warp_align(args, kw)
             patches = hk.warp_affine_patches(*wargs, **wkw)

@@ -518,4 +518,5 @@ def test_cpu_dispatch_never_loads_the_library(monkeypatch):
     assert hk.launch_counts() == {"dilate_pyramid": 0,
                                   "distance_transform": 0,
                                   "track_res_gs": 0, "track_lm_update": 0,
-                                  "align_batch": 0, "warp_patches": 0}
+                                  "align_batch": 0, "warp_patches": 0,
+                                  "ba_linearize": 0, "ba_accumulate": 0}
