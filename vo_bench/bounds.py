@@ -43,3 +43,32 @@ def lm_update(rows, launch):
         return bound_s(rows * LM_STEP[0], rows * LM_STEP[1])
     return bound_s(rows * (LM_ACCEPT[0] + LM_STEP_OWN_BYTES),
                    rows * (LM_ACCEPT[1] + LM_STEP[1]))
+
+
+def ba_linearize(lanes, n, f):
+    """K7 over `lanes` windows of `n` points and `f` frame slots: per
+    residual 19 bytes read (the matcher's position, its flags and state,
+    the gate's two values) and 114 written (resF, Jxi, Jc, Jd, the
+    energy, the centre, the state, proj_ok), per point 20 read, per lane
+    its pairs, thresholds and intrinsics; ~120 float32 operations a
+    residual."""
+    res = lanes * n * f
+    nbytes = 133 * res + 20 * lanes * n + lanes * (96 * f * f + 4 * f + 16)
+    return bound_s(nbytes, 120 * res)
+
+
+def ba_accumulate(lanes, n, f):
+    """K8 (its three launches) over `lanes` windows of `n` points and `f`
+    frame slots: per residual its terms read once (97 bytes: Jc, Jxi, Jd,
+    resF, the active flag), per point 14 read and 20 + 4 D written (Hdd,
+    bd, HdiF, n_act, Vpt), per lane the adjoints read and the two (D, D)
+    systems and their b written (the tiles' scratch is not counted);
+    float32 operations: per residual its pair block and b (65 terms of 2
+    products and 2 sums), JpJd and the point sums (42), its Vpt columns
+    (144), per point the Schur entries (3 each)."""
+    D = 4 + 6 * f
+    res, pts = lanes * n * f, lanes * n
+    nbytes = 97 * res + pts * (34 + 4 * D) + lanes * (
+        288 * f * f + 8 * D * D + 8 * D)
+    ops = res * (4 * 65 + 42 + 144) + pts * 3 * (D * (D + 1) // 2 + D)
+    return bound_s(nbytes, ops)

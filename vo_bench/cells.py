@@ -2,9 +2,12 @@
 
 `BENCHMARK.json` names the cells; a cell's configuration is
 `vo_bench/configs/<config>.json`, its traffic mix
-`vo_bench/traffic/<traffic>.json`, and each per-layer metric is read by
-`vo_bench/metrics/<name>.py`. Adding a configuration, a traffic mix or a
-metric adds files and entries, and edits none.
+`vo_bench/traffic/<traffic>.json`, each per-layer metric is read by
+`vo_bench/metrics/<name>.py`, and each comparison that decides `correct`
+is a check, `vo_bench/checks/<name>.py` (`vo_bench/check.py` says what
+it declares), which a cell runs when its configuration's `limits` name
+one of its numbers. Adding a configuration, a traffic mix, a metric or a
+check adds files and entries, and edits none.
 """
 
 from __future__ import annotations
@@ -61,11 +64,29 @@ def load(name, root=ROOT):
     return Cell(name, wl["chips"], config, traffic, e2e, layer, root)
 
 
-def reader(name, root=ROOT):
-    """The module that reads per-layer metric `name`."""
-    path = os.path.join(root, BENCH_DIR, "metrics", name + ".py")
+def _module(kind, name, root):
+    path = os.path.join(root, BENCH_DIR, kind, name + ".py")
     spec = importlib.util.spec_from_file_location(
-        "vo_bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"vo_bench_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def reader(name, root=ROOT):
+    """The module that reads per-layer metric `name`."""
+    return _module("metrics", name, root)
+
+
+def check(name, root=ROOT):
+    """The check module `name`."""
+    return _module("checks", name, root)
+
+
+def checks(cell):
+    """The checks `cell` runs: those of its root's `vo_bench/checks/`
+    whose numbers its configuration's `limits` name, by file name."""
+    folder = os.path.join(cell.root, BENCH_DIR, "checks")
+    names = sorted(f[:-3] for f in os.listdir(folder) if f.endswith(".py"))
+    mods = [check(n, cell.root) for n in names]
+    return [m for m in mods if set(m.NUMBERS) & set(cell.config["limits"])]

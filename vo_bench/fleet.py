@@ -29,7 +29,7 @@ import time
 
 import numpy as np
 
-from vo_bench import check, scene
+from vo_bench import cells, check, scene
 from vo_bench import trace as tracing
 
 
@@ -171,7 +171,7 @@ def run(cell, seed, seconds, trace, device, control=False, t_start=None):
     n_frames = (warm["max_rounds"] + n_traced
                 + math.ceil(cfg["rounds_per_s_ceiling"] * seconds))
     rig = make_rig(cell)
-    drives = scene.lane_drives(seed, B, n_frames, tr)
+    drives = scene.lane_drives(B, n_frames, tr)
     t = time.perf_counter()
     rendered = scene.render_lanes(rig, drives, n_frames, device)
     render_s = time.perf_counter() - t
@@ -196,14 +196,16 @@ def run(cell, seed, seconds, trace, device, control=False, t_start=None):
     _log(f"warm-up: {warmup_rounds} rounds, captures in rounds "
          f"{capture_rounds}")
 
+    cell_checks = cells.checks(cell)
     sample = np.random.default_rng([seed, 1]).choice(
         np.arange(*cfg["checked_rounds"]), size=2, replace=False)
-    recorder = check.Recorder(int(r) for r in sample)
+    recorder = check.Recorder((int(r) for r in sample),
+                              check.programs(cell_checks))
     gens0 = len(fleet.generations)
     stage0 = _stage_totals(fleet.systems)
     counts0 = dl.counts()
     loops0 = counts0.get("all", {})
-    k10 = (hk.LAUNCHES["dilate_pyramid"], hk.LANES["dilate_pyramid"])
+    launches0, lanes0 = dict(hk.LAUNCHES), dict(hk.LANES)
     round_s = []
     # a traced run times every program replay of its window on the card
     timing = dl.program_timing() if trace else contextlib.nullcontext({})
@@ -243,8 +245,9 @@ def run(cell, seed, seconds, trace, device, control=False, t_start=None):
         window_s=window_s,
         stage_s={k: v - stage0.get(k, 0.0) for k, v in stage1.items()},
         loops={k: loops1.get(k, 0) - loops0.get(k, 0) for k in loops1},
-        k1_launches=hk.LAUNCHES["dilate_pyramid"] - k10[0],
-        k1_lanes=hk.LANES["dilate_pyramid"] - k10[1],
+        kernel_launches={k: v - launches0[k]
+                         for k, v in hk.LAUNCHES.items()},
+        kernel_lanes={k: v - lanes0[k] for k, v in hk.LANES.items()},
         persistent_bytes=[hbm.system_device_bytes(fs)
                           for fs in fleet.systems] if cuda else None,
         program_ms=program_ms, settings=make_settings(cfg), trace=None)
@@ -252,6 +255,8 @@ def run(cell, seed, seconds, trace, device, control=False, t_start=None):
         rec = tracing.traced(lambda k: fleet.step(), n_traced, cuda)
         ctx["trace"] = tracing.summarize(
             rec, B * n_traced, B, tuple(ctx["settings"].track_ref_caps))
+        _log("traced: " + str({k: v for k, v in ctx["trace"].items()
+                               if not isinstance(v, (list, dict))}))
 
     # the check, once the window has closed and the fleet is freed
     lanes = fleet.trajectories()
@@ -266,15 +271,14 @@ def run(cell, seed, seconds, trace, device, control=False, t_start=None):
          f"{ {k: v for k, v in captured.items() if v} } in rounds "
          f"{window_captures} ({capture_s:.3f} s); worst lane's ATE "
          f"{numbers['ate_path_pct']:.4f} % of its path (not compared)")
-    differ, leaves, calls = check.rerun(recorder.records, device)
-    knums, seen = check.kernel_numbers(calls, control=control)
-    numbers.update(knums, rerun_outputs_differ=differ,
-                   kernels_not_compared=sum(
-                       1 for k in check.REFERENCE if not seen.get(k)))
+    knums, seen, leaves = check.run(cell_checks, recorder.records, device,
+                                    control=control)
+    numbers.update(knums)
     correct, lines = check.judge(numbers, cfg["limits"])
-    _log(f"K3: worst row {numbers.get('k3_worst_row')}, rows with points "
-         f"near the cutoff {numbers.get('k3_rows_near_cutoff')}")
-    _log(f"check: {len(recorder.records)} programs "
+    _log("numbers not compared: "
+         f"{ {k: v for k, v in numbers.items() if k not in cfg['limits']} }")
+    names = (c.__name__.removeprefix("vo_bench_checks_") for c in cell_checks)
+    _log(f"check: {', '.join(names)} over {len(recorder.records)} programs "
          f"({', '.join(r['stage'] for r in recorder.records)}), "
          f"{leaves} outputs, kernel calls {seen}, "
          f"{time.perf_counter() - t:.1f} s")

@@ -9,6 +9,7 @@ MOVES = 'fleet_fps'
 
 
 def read(ctx):
-    if not ctx["k1_launches"]:
+    launches = ctx["kernel_launches"]["dilate_pyramid"]
+    if not launches:
         return None
-    return ctx["k1_lanes"] / ctx["k1_launches"]
+    return ctx["kernel_lanes"]["dilate_pyramid"] / launches

@@ -15,8 +15,10 @@ Two forms of one scene model:
 Each lane drives a canyon of its own: the traffic fixes one drive per
 lane (textures from its `scene_seed` and the drive's index, yaw rates
 spread between the two scenes of the repo's old benchmark, +0.004 and
--0.006 rad/frame), and the seed deals the drives to the lanes, so every
-seed asks for the same work in another order.
+-0.006 rad/frame), drive d on lane d. The seed changes none of it: the
+port's trajectories, and with them its captured programs and its memory
+peak, move with a drive's lane (PERF.md), so every seed asks for the same
+work in the same order.
 """
 
 from __future__ import annotations
@@ -220,13 +222,11 @@ class Drive:
     yaw_rate: float
 
 
-def lane_drives(seed, lanes, n_frames, traffic):
-    """The lanes' drives of one run. The traffic fixes a set of `lanes`
-    drives: drive d turns at a rate evenly spaced in magnitude between the
-    traffic's two yaw rates, alternating in sign, through a canyon whose
-    textures come from (the traffic's `scene_seed`, d). The seed deals
-    the drives to the lanes in an order of its own, so every seed asks
-    for the same work in another order."""
+def lane_drives(lanes, n_frames, traffic):
+    """The lanes' drives of one run, drive d on lane d. The traffic fixes
+    the `lanes` drives: drive d turns at a rate evenly spaced in magnitude
+    between the traffic's two yaw rates, alternating in sign, through a
+    canyon whose textures come from (the traffic's `scene_seed`, d)."""
     y0, y1 = traffic["yaw_rates"]
     mags = np.linspace(abs(y0), abs(y1), lanes)
     drives = []
@@ -241,9 +241,7 @@ def lane_drives(seed, lanes, n_frames, traffic):
             ground_contrast=traffic["ground_contrast"],
             seeds=tuple(int(x) for x in tex))
         drives.append(Drive(poses, scene, yaw))
-    order = np.random.default_rng(
-        np.random.SeedSequence([seed, lanes])).permutation(lanes)
-    return [drives[d] for d in order]
+    return drives
 
 
 def render_numpy(rig, drive, i):

@@ -4,14 +4,17 @@ versions the CPU runs in the kernels' place) comes out not correct, for
 each fault this cell can have: a step that returns its state unchanged,
 half of the batch left out (its rows replaced by the mean of the rest),
 one lane's rows wrong while the others are right, an answer altered where
-it is produced. (One card: no exchange between chips to leave out.)"""
+it is produced; for the BA's kernels (K7, K8) a focal length a
+ten-thousandth off, a residual's state, a system's entry and a point's
+count altered. (One card: no exchange between chips to leave out.)"""
 
 import pytest
 import torch
 
-from vo_bench.tests import tiny_cell
+from vo_bench.tests import planted, tiny_cell
 
 hk = pytest.importorskip("sdv_loam_tpu_torch.ops.hopper_kernels")
+backend = pytest.importorskip("sdv_loam_tpu_torch.models.backend")
 
 
 def _unchanged_step(orig):
@@ -89,26 +92,29 @@ def _altered_k2(orig):
     return k2
 
 
-FAULTS = {"step_returns_its_state": ("lm_update_step_plain", _unchanged_step,
-                                     ("k4_rel_err",)),
-          "half_the_rows_left_out": ("calc_res_gs_plain", _half_rows,
+FAULTS = {"step_returns_its_state": (hk, "lm_update_step_plain",
+                                     _unchanged_step, ("k4_rel_err",)),
+          "half_the_rows_left_out": (hk, "calc_res_gs_plain", _half_rows,
                                      ("k3_row_err",)),
-          "one_lane_wrong": ("calc_res_gs_plain", _one_lane_wrong,
+          "one_lane_wrong": (hk, "calc_res_gs_plain", _one_lane_wrong,
                              ("k3_row_err",)),
-          "k5_position_moved": ("warp_align_plain", _k5_px_moved,
+          "k5_position_moved": (hk, "warp_align_plain", _k5_px_moved,
                                 ("k5_px_err",)),
-          "k5_flag_flipped": ("warp_align_plain", _k5_flag_flipped,
+          "k5_flag_flipped": (hk, "warp_align_plain", _k5_flag_flipped,
                               ("k5_flags_differ",)),
-          "k1_answer_altered": ("dilate_pyramid_plain", _altered_k1,
+          "k1_answer_altered": (hk, "dilate_pyramid_plain", _altered_k1,
                                 ("k1_cells_differ",)),
-          "k2_answer_altered": ("distance_transform_plain", _altered_k2,
+          "k2_answer_altered": (hk, "distance_transform_plain", _altered_k2,
                                 ("k2_cells_differ",))}
+# the BA kernels' faults, planted in their dispatchers
+FAULTS.update({name: (backend, attr, make, caught)
+               for name, (_, attr, make, caught) in planted.FAULTS.items()})
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
 def test_a_planted_fault_is_not_correct(fault, tmp_path, monkeypatch):
-    attr, make, caught = FAULTS[fault]
-    monkeypatch.setattr(hk, attr, make(getattr(hk, attr)))
+    mod, attr, make, caught = FAULTS[fault]
+    monkeypatch.setattr(mod, attr, make(getattr(mod, attr)))
     root = tiny_cell.make(str(tmp_path))
     line, lines = tiny_cell.run(root)
     assert line["correct"] is False

@@ -5,9 +5,10 @@ import numpy as np
 import pytest
 import torch
 
-from vo_bench import check, reference as ref
+from vo_bench import cells, check, reference as ref
 
 hk = pytest.importorskip("sdv_loam_tpu_torch.ops.hopper_kernels")
+k3, k4, k5, k7, k8 = (cells.check(n) for n in ("k3", "k4", "k5", "k7", "k8"))
 
 
 def _maps(rng, shape, frac=0.05):
@@ -62,9 +63,9 @@ def test_track_res_gs_against_the_plain_version():
     want = ref.track_res_gs(*args, lane=lane)
     got = hk.calc_res_gs_plain(*args, lane=lane)
     assert torch.equal(got["n"], want["n"])
-    assert float(check._k3_rows(got, want).max()) < 1e-5
+    assert float(k3.rows_err(got, want).max()) < 1e-5
     low = ref.track_res_gs(*args, lane=lane, acc=torch.float32)
-    assert float(check._k3_rows(low, want).max()) < 1e-5
+    assert float(k3.rows_err(low, want).max()) < 1e-5
 
 
 def test_lm_step_and_accept_against_the_plain_version():
@@ -80,7 +81,7 @@ def test_lm_step_and_accept_against_the_plain_version():
     ref_aff = torch.zeros(2)
     want = ref.lm_step(H, b, lam, T, aff, expo, ref_aff)
     got = hk.lm_update_step_plain(H, b, lam, T, aff, expo, ref_aff)
-    assert check._step_rel(got, want) < 1e-3
+    assert k4.step_rel(got, want) < 1e-3
     r = dict(E=torch.tensor(rng.uniform(1, 2, B), dtype=torch.float32),
              n=torch.full((B,), 100), sat_frac=torch.zeros(B), H=H, b=b,
              flow_t=torch.zeros(B), flow_rt=torch.zeros(B))
@@ -118,9 +119,9 @@ def test_k3_near_cutoff_sides(monkeypatch):
     flip = torch.zeros_like(near)
     flip[r0, int(torch.nonzero(near[r0])[0, 0])] = True
     got = ref.track_res_gs(*args, **kw, flip=flip)
-    rows = check._k3_rows(got, want)
+    rows = k3.rows_err(got, want)
     assert float(rows[r0]) > 1e-4
-    rows, n_near = check._k3_near_sides(args, kw, got, want, rows)
+    rows, n_near = k3.near_sides(args, kw, got, want, rows)
     assert float(rows.max()) < 1e-12 and n_near == int(near.any(-1).sum())
     monkeypatch.setattr(ref, "NEAR_ULPS", 8.0)
     assert int(ref.track_res_gs(*args, **kw)["near"].sum()) < int(near.sum())
@@ -190,8 +191,8 @@ def test_warp_align_against_the_plain_version():
     p_px, p_conv, p_fails = hk.warp_align_plain(*a, n_iter=10, n_lanes=L)
     assert int(conv.sum()) > 10 and int(iters.max()) > 1
     assert torch.equal(conv, p_conv) and torch.equal(fails, p_fails)
-    flags, gap = check._k5_numbers((p_px, p_conv, p_fails),
-                                   (px, conv, fails, iters))
+    flags, gap = k5.call_numbers((p_px, p_conv, p_fails),
+                                 (px, conv, fails, iters))
     assert flags == 0 and gap < 1e-3
     # the patches alone against the plain warp
     patches = ref.warp_patches(*a[:5])
@@ -205,7 +206,71 @@ def test_k5_numbers_see_a_flag_and_a_position():
     px, conv, fails = (x.clone() for x in want[:3])
     j = int(torch.nonzero(conv)[0, 0])
     px[j, 1] += 0.01
-    assert check._k5_numbers((px, conv, fails), want) == (0, pytest.approx(
+    assert k5.call_numbers((px, conv, fails), want) == (0, pytest.approx(
         0.01, rel=1e-3))
     conv[j] = False
-    assert check._k5_numbers((px, conv, fails), want)[0] == 1
+    assert k5.call_numbers((px, conv, fails), want)[0] == 1
+
+
+def _ba_window(seed, resf_at_fej=True, L=2, N=384, F=5, w=320, h=96):
+    """A BA window (`eval/kernel_timing.ba_scene`) as the K7 dispatcher's
+    arguments, and its plain linearization."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.models import backend
+
+    x = kt.ba_scene(seed, L, N, F, w, h)
+    args = kt.ba_lin_args(x, F)
+    kw = dict(w=w, h=h, gate=x["gate"], resf_at_fej=resf_at_fej)
+    return x, args, kw, backend.linearize_residuals_lanes_plain(*args, **kw)
+
+
+@pytest.mark.parametrize("fej", [True, False])
+def test_ba_linearize_against_the_plain_version(fej):
+    """K7's reference and the plain version (library products: another
+    rounding) agree but for residuals at a bounds threshold or near the
+    target's camera plane; a focal length a ten-thousandth off is seen."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+
+    x, args, kw, plain = _ba_window(11, fej)
+    want = k7.reference("K7", args, kw, plain)
+    flags, rows = k7.gaps(plain, want)
+    near = kt.ba_lin_near(plain, x, kw["w"], kw["h"])
+    diff = (plain["new_state"] != want["new_state"]) | \
+        (plain["proj_ok"] != want["proj_ok"])
+    assert not bool((diff & ~near).any())
+    assert float(rows.max()) < 1e-6
+    assert int((want["new_state"] == 0).sum()) > 100
+    # each term's magnitude bounds the value
+    for k in k7.OUTPUTS:
+        r = want[k]
+        assert bool((r.v.double().abs() <= r.m * (1 + 1e-6) + 1e-30).all())
+    # the same call's numbers with the focal length off
+    bad = list(args)
+    bad[13] = bad[13].clone()
+    bad[13][:, 0] *= 1.0 + 1e-4
+    from sdv_loam_tpu_torch.models import backend
+    out = backend.linearize_residuals_lanes_plain(*bad, **kw)
+    num = k7.numbers([("K7", args, kw, out, want)])
+    assert num["k7_rel_err"] > 1e-5 or num["k7_flags_differ"] > 0
+
+
+def test_ba_accumulate_against_the_plain_version():
+    """K8's reference (float64) against the plain version (float32): every
+    output within 1e-5 of its terms' magnitude, the counts equal; the
+    control's float32 variant too (no TF32 on the CPU); a system entry a
+    ten-thousandth off is seen."""
+    from sdv_loam_tpu_torch.eval import kernel_timing as kt
+    from sdv_loam_tpu_torch.models import backend
+
+    x, _, _, lin = _ba_window(12)
+    args = kt.ba_acc_args(lin, x, 5)
+    plain = backend._accumulate_plain(*args)
+    want = k8.reference("K8", args, {}, plain)
+    num = k8.numbers([("K8", args, {}, plain, want)])
+    assert num["k8_counts_differ"] == 0 and 0 < num["k8_rel_err"] < 1e-5
+    low = k8.reference("K8", args, {}, plain, low=True)
+    assert k8.numbers([("K8", args, {}, low, want)])["k8_rel_err"] < 1e-5
+    bad = list(plain)
+    bad[0] = bad[0].clone()
+    bad[0][:, 4, 4] *= 1.0 + 1e-4
+    assert k8.numbers([("K8", args, {}, bad, want)])["k8_rel_err"] > 1e-5

@@ -1,8 +1,9 @@
 """A whole run of a cell defined only in data, on the CPU (the chip's
 look skipped): its result line has exactly the contract's keys, it is
-correct, and its process has loaded neither JAX nor the JAX package
-(whole top-level names: the port's `sdv_loam_tpu_torch` begins with
-`sdv_loam_tpu`)."""
+correct, its kernels' numbers are the ones the fixed checks gave before
+they became files, and its process has loaded neither JAX nor the JAX
+package (whole top-level names: the port's `sdv_loam_tpu_torch` begins
+with `sdv_loam_tpu`)."""
 
 import json
 import os
@@ -57,6 +58,32 @@ def test_result_line_has_the_contracts_keys(result):
         assert set(line["metrics"]) == {"fleet_fps", "setup_s"}
     for c in line["checks"].values():
         assert set(c) == {"value", "limit"}
+
+
+# K1-K5's numbers on the tiny cell at `tiny_cell.run`'s seed, from the
+# six programs a window of three rounds or more records, as the harness
+# computed them when its checks were a fixed list in one module: moving
+# them into `vo_bench/checks/` changed no value
+BEFORE = dict(k1_cells_differ=0, k2_cells_differ=0,
+              k3_row_err=1.2219636828986859e-05, k3_count_diff=0,
+              k4_rel_err=0.0006183098175219269, k4_decisions_differ=0,
+              k5_flags_differ=0, k5_px_err=0.007358551025390625)
+
+
+def test_kernel_numbers_as_before(tmp_path, monkeypatch):
+    """The window is timed by a clock that ticks a second a read, so it
+    runs three rounds however loaded the machine is (a loaded machine's
+    shorter window records fewer programs)."""
+    import itertools
+    import types
+
+    from vo_bench import fleet
+
+    ticks = itertools.count()
+    monkeypatch.setattr(fleet, "time", types.SimpleNamespace(
+        perf_counter=lambda: float(next(ticks))))
+    line, _ = tiny_cell.run(tiny_cell.make(str(tmp_path)))
+    assert {k: line["checks"][k]["value"] for k in BEFORE} == BEFORE
 
 
 def test_no_jax_in_the_process(result):

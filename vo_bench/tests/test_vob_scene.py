@@ -30,7 +30,7 @@ KITTI00_T_CL = np.array([
 
 def test_torch_renderer_matches_the_numpy_generator():
     rig = _rig(KITTI00_T_CL)
-    drives = scene.lane_drives(2 ** 40 + 17, 2, 7, TRAFFIC)
+    drives = scene.lane_drives(2, 7, TRAFFIC)
     got = scene.render_lanes(rig, drives, 7, "cpu", chunk=3)
     for j in range(2):
         for i in (0, 3, 6):
@@ -44,14 +44,13 @@ def test_torch_renderer_matches_the_numpy_generator():
 
 
 def test_lanes_differ_and_seeds_deal_the_same_drives():
-    a = scene.lane_drives(7, 8, 3, TRAFFIC)
-    b = scene.lane_drives(2 ** 40 + 3, 8, 3, TRAFFIC)
+    """Eight drives of their own, drive d on lane d, in every run."""
+    a = scene.lane_drives(8, 3, TRAFFIC)
     key = lambda d: (d.yaw_rate, d.scene[0].tex_seed)
-    assert sorted(map(key, a)) == sorted(map(key, b))
-    assert list(map(key, a)) != list(map(key, b))
     assert len({d.scene[0].tex_seed for d in a}) == 8
     assert len({d.yaw_rate for d in a}) == 8
-    again = scene.lane_drives(7, 8, 3, TRAFFIC)
+    assert [np.sign(d.yaw_rate) for d in a] == [1, -1] * 4
+    again = scene.lane_drives(8, 3, TRAFFIC)
     assert list(map(key, again)) == list(map(key, a))
 
 
@@ -59,7 +58,7 @@ def test_planes_behind_every_camera_are_left_out_exactly():
     """The render with the culling against a cast over every plane."""
     import torch
     rig = _rig(KITTI00_T_CL)
-    drive = scene.lane_drives(5, 1, 90, TRAFFIC)[0]
+    drive = scene.lane_drives(1, 90, TRAFFIC)[0]
     tab = scene._plane_tables(drive.scene, torch, "cpu")
     T = torch.tensor(drive.poses_wc[80:83])
     keep = scene._in_front(tab, T, torch)

@@ -19,7 +19,7 @@ CELL = "tiny.lockstep2"
 
 def make(root):
     bench = os.path.join(root, "vo_bench")
-    for sub in ("configs", "traffic", "metrics"):
+    for sub in ("configs", "traffic", "metrics", "checks"):
         shutil.copytree(os.path.join(REPO, "vo_bench", sub),
                         os.path.join(bench, sub), dirs_exist_ok=True)
     with open(os.path.join(bench, "configs", "kitti00_default.json")) as f:

@@ -1,6 +1,8 @@
 """The traced rounds: a torch.profiler window over a few fleet rounds after
 the measured window, read into the device's busy time, the host's launch
-calls, the kernels' roofline shares and the `breakdown` of the result.
+calls, the kernels' roofline shares and the `breakdown` of the result;
+`kernels` keeps each kernel's (name, seconds, grid) for the
+metric readers that take a roofline share themselves.
 
 Busy time is the union of the intervals in which a kernel, copy or memset
 ran on the card (kernels of several streams overlap, so a sum of their
@@ -139,6 +141,7 @@ def summarize(rec, frames, lanes_max, caps):
     # K3 and K4: bound over device time; a K4 launch takes the rows of the
     # K3 launch before it on its stream
     k3_b = k3_t = k4_b = k4_t = 0.0
+    k3_n = k4_n = 0
     rows_on = {}
     for e in kernels:
         name, args = e["name"], e.get("args", {})
@@ -152,6 +155,7 @@ def summarize(rec, frames, lanes_max, caps):
             rows_on[stream] = rows
             k3_b += bounds.track_res_gs(rows, n, lanes)
             k3_t += e["dur"] / 1e6
+            k3_n += 1
         elif "lm_step_kernel" in name or "lm_accept_step_kernel" in name:
             rows = rows_on.get(stream)
             if not rows:
@@ -159,6 +163,7 @@ def summarize(rec, frames, lanes_max, caps):
             k4_b += bounds.lm_update(
                 rows, "step" if "lm_step_kernel" in name else "accept_step")
             k4_t += e["dur"] / 1e6
+            k4_n += 1
     return dict(
         busy_s=busy_s, window_s=window_s, frames=frames,
         launch_calls_per_frame=launches / frames,
@@ -166,5 +171,9 @@ def summarize(rec, frames, lanes_max, caps):
         idle_share=1.0 - busy_s / window_s if window_s > 0 else None,
         k3_roofline_pct=100.0 * k3_b / k3_t if k3_t > 0 else None,
         k4_roofline_pct=100.0 * k4_b / k4_t if k4_t > 0 else None,
+        k3_launches=k3_n, k4_launches=k4_n,
+        kernels=[(e["name"], e["dur"] / 1e6,
+                  tuple(int(g) for g in e.get("args", {}).get("grid") or ()))
+                 for e in kernels],
         breakdown=dict(device_ops=[[k, v] for k, v in device_ops],
                        idle_gaps=[[k, v] for k, v in idle_gaps]))
